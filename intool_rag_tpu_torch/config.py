@@ -1,0 +1,112 @@
+"""Environment-driven configuration (the subset of
+``intool_rag_tpu/config.py`` this port reads).
+
+Same variable names and defaults as the JAX package, so one env file
+drives both. ``USE_PALLAS`` keeps its name and means "use the
+hand-written kernels".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.getenv(name, default)
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.getenv(name, str(default)))
+
+
+def _env_float(name: str, default: float) -> float:
+    return float(os.getenv(name, str(default)))
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    return os.getenv(name, "true" if default else "false").strip().lower() in (
+        "1", "true", "yes", "on",
+    )
+
+
+def _field(fn):
+    return dataclasses.field(default_factory=fn)
+
+
+@dataclasses.dataclass
+class Config:
+    """Runtime configuration; every field has an env-var override."""
+
+    # --- Embedding ---
+    EMBEDDING_BATCH_SIZE: int = _field(lambda: _env_int("EMBEDDING_BATCH_SIZE", 64))
+    EMBEDDING_CHECKPOINT: str = _field(lambda: _env_str("EMBEDDING_CHECKPOINT", ""))
+    EMBEDDING_QUERY_INSTRUCTION: str = _field(
+        lambda: _env_str(
+            "EMBEDDING_QUERY_INSTRUCTION",
+            "Represent this sentence for searching relevant passages: ",
+        )
+    )
+    EMBEDDING_PASSAGE_INSTRUCTION: str = _field(
+        lambda: _env_str("EMBEDDING_PASSAGE_INSTRUCTION", "")
+    )
+
+    # --- Retrieval ---
+    RETRIEVAL_CANDIDATES: int = _field(lambda: _env_int("RETRIEVAL_CANDIDATES", 50))
+    RETRIEVAL_MIN_SCORE: float = _field(lambda: _env_float("RETRIEVAL_MIN_SCORE", 0.3))
+    HYBRID_SEARCH_ENABLED: bool = _field(lambda: _env_bool("HYBRID_SEARCH_ENABLED", True))
+    BM25_WEIGHT: float = _field(lambda: _env_float("BM25_WEIGHT", 0.3))
+    VECTOR_WEIGHT: float = _field(lambda: _env_float("VECTOR_WEIGHT", 0.7))
+    FUSION_MODE: str = _field(lambda: _env_str("FUSION_MODE", "weighted"))  # or "rrf"
+    RRF_K: int = _field(lambda: _env_int("RRF_K", 60))
+    TOP_PAGES: int = _field(lambda: _env_int("TOP_PAGES", 5))
+
+    # --- Page ranking ---
+    PAGE_CHUNK_BOOST: float = _field(lambda: _env_float("PAGE_CHUNK_BOOST", 0.05))
+    PAGE_CHUNK_BOOST_CAP: float = _field(lambda: _env_float("PAGE_CHUNK_BOOST_CAP", 0.15))
+    TABLE_BOOST_MULTIPLIER: float = _field(lambda: _env_float("TABLE_BOOST_MULTIPLIER", 1.5))
+    TABLE_CONTEXT_PRIORITY: bool = _field(lambda: _env_bool("TABLE_CONTEXT_PRIORITY", True))
+
+    # --- Storage ---
+    STORAGE_DIR: Path = _field(lambda: Path(_env_str("STORAGE_DIR", "./storages")))
+
+    # --- Index / kernels ---
+    INDEX_DTYPE: str = _field(lambda: _env_str("INDEX_DTYPE", "bfloat16"))  # or float32
+    DENSE_INT8: bool = _field(lambda: _env_bool("DENSE_INT8", False))
+    DENSE_INT8_RESIDUAL: bool = _field(lambda: _env_bool("DENSE_INT8_RESIDUAL", False))
+    INDEX_KIND: str = _field(lambda: _env_str("INDEX_KIND", "flat"))
+    SEARCH_BLOCK_N: int = _field(lambda: _env_int("SEARCH_BLOCK_N", 16384))
+    SHARDED_SEARCH: str = _field(lambda: _env_str("SHARDED_SEARCH", "auto"))
+    USE_PALLAS: bool = _field(lambda: _env_bool("USE_PALLAS", True))
+
+    # --- BM25 ---
+    BM25_K1: float = _field(lambda: _env_float("BM25_K1", 1.5))
+    BM25_B: float = _field(lambda: _env_float("BM25_B", 0.75))
+    BM25_MAX_QUERY_TERMS: int = _field(lambda: _env_int("BM25_MAX_QUERY_TERMS", 32))
+
+    # --- Serving ---
+    SERVICE_HOST: str = _field(lambda: _env_str("SERVICE_HOST", "0.0.0.0"))
+    SERVICE_PORT: int = _field(lambda: _env_int("SERVICE_PORT", 8001))
+    QUERY_MICRO_BATCH_WINDOW_MS: float = _field(
+        lambda: _env_float("QUERY_MICRO_BATCH_WINDOW_MS", 2.0)
+    )
+    QUERY_MAX_BATCH: int = _field(lambda: _env_int("QUERY_MAX_BATCH", 64))
+
+
+_config: Config | None = None
+
+
+def get_config() -> Config:
+    """Process-wide config singleton (reads the environment on first call)."""
+    global _config
+    if _config is None:
+        _config = Config()
+    return _config
+
+
+def reset_config() -> Config:
+    """Rebuild the singleton from the current environment."""
+    global _config
+    _config = Config()
+    return _config

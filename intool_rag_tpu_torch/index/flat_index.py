@@ -1,0 +1,155 @@
+"""Flat dense index over a ChunkStore (port of the flat branches of
+``intool_rag_tpu/index/flat_index.py``).
+
+``flat_plan`` picks the branch: the fused kernels (K1 over the bf16/f32
+store, K2 over an int8 mirror with ``DENSE_INT8``) when ``USE_PALLAS`` is
+on and the metric is ``cosine``/``ip``, else the blocked scan of
+:func:`..ops.topk.flat_topk`. Scores are in the clamped-cosine space. The
+IVF, segmented, bits and sharded routes are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import get_config
+from ..ops.flat_fused import choose_group_width, flat_topk_fused, flat_topk_fused_int8
+from ..ops.topk import clamp_cosine, flat_topk, rescore_candidates
+from .chunk_store import ChunkStore
+
+
+def dense_dispatch(
+    query_embeddings: torch.Tensor,
+    arrays: tuple,
+    *,
+    kind: str,
+    k: int,
+    metric: str,
+    valid_n: int,
+    group_l: int = 32,
+    precise: bool = True,
+    block_n: int = 0,
+    rescore: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense top-k for the flat branches (kind and statics from
+    :meth:`DenseFlatIndex.flat_plan`); corpus data arrives in ``arrays``."""
+    if kind == "fused_int8":
+        q8, s8, res = arrays
+        vals, rows = flat_topk_fused_int8(
+            query_embeddings, q8, s8, k, corpus_res=res, group_l=group_l, valid_n=valid_n,
+            tail="fold",
+        )
+    elif kind == "fused":
+        (corpus,) = arrays
+        vals, rows = flat_topk_fused(
+            query_embeddings, corpus, k, group_l=group_l, valid_n=valid_n, precise=precise,
+            tail="fold",
+        )
+    elif kind == "scan":
+        (corpus,) = arrays
+        vals, rows = flat_topk(
+            query_embeddings, corpus, k, metric=metric, block_n=block_n, valid_n=valid_n
+        )
+    else:
+        raise ValueError(f"unknown dense kind {kind!r}")
+    if rescore:
+        (corpus,) = arrays
+        rescored = rescore_candidates(query_embeddings, corpus, rows, metric=metric)
+        vals, order = torch.sort(rescored, dim=1, descending=True, stable=True)
+        rows = torch.gather(rows, 1, order)
+    if metric == "cosine":
+        vals = clamp_cosine(vals)
+    return vals, rows
+
+
+class DenseFlatIndex:
+    """Dense search over the store's embedding matrix."""
+
+    def __init__(self, store: ChunkStore, metric: str = "cosine") -> None:
+        self.store = store
+        self.metric = metric
+        self._q8 = None  # (codes int8, scales f32, residual | None) for DENSE_INT8
+        self._q8_built_at = -1
+
+    def _int8_mirror(self, residual: bool = False):
+        """int8 + scales mirror of the store for K2, quantized on the
+        store's device and cached per store mutation."""
+        if (
+            self._q8 is None
+            or self._q8_built_at != self.store.mutation_count
+            or (residual and self._q8[2] is None)
+        ):
+            from ..ops.quant import quantize_int8, quantize_int8_residual
+
+            if residual:
+                q8, res, s8 = quantize_int8_residual(self.store.embeddings)
+            else:
+                (q8, s8), res = quantize_int8(self.store.embeddings), None
+            self._q8 = (q8, s8, res)
+            self._q8_built_at = self.store.mutation_count
+        return self._q8
+
+    def routes_flat(self, cfg=None) -> bool:
+        """True when :meth:`flat_plan` describes the search. Raises for the
+        routes this port does not have yet."""
+        cfg = cfg or get_config()
+        if cfg.INDEX_KIND != "flat":
+            raise NotImplementedError(
+                f"INDEX_KIND={cfg.INDEX_KIND} is not ported yet (ROADMAP Queue A, capacity tiers)"
+            )
+        if cfg.SHARDED_SEARCH == "on":
+            raise NotImplementedError(
+                "SHARDED_SEARCH=on is not ported yet (ROADMAP Queue A, multi-device)"
+            )
+        return True
+
+    def search(self, query_embeddings: torch.Tensor, k: int, *, exact: bool | None = None):
+        """Top-k over valid rows. Returns (scores [Q,k], rows [Q,k])."""
+        store = self.store
+        q = query_embeddings.shape[0]
+        if store.valid_n == 0:
+            return (
+                torch.zeros((q, 0), dtype=torch.float32, device=store.device),
+                torch.zeros((q, 0), dtype=torch.int32, device=store.device),
+            )
+        k = min(k, store.valid_n)
+        if query_embeddings.shape[1] != store.dim_pad:
+            if query_embeddings.shape[1] != store.dim:
+                raise ValueError(f"query dim {query_embeddings.shape[1]} != store dim {store.dim}")
+            query_embeddings = torch.nn.functional.pad(
+                query_embeddings, (0, store.dim_pad - store.dim)
+            )
+        self.routes_flat()
+        arrays, statics = self.flat_plan(k, exact=exact)
+        return dense_dispatch(query_embeddings, arrays, **statics)
+
+    def flat_plan(self, k: int, *, exact: bool | None = None) -> tuple[tuple, dict]:
+        """(arrays, statics) for :func:`dense_dispatch`."""
+        cfg = get_config()
+        store = self.store
+        k = min(k, store.valid_n)
+        use_kernel = cfg.USE_PALLAS and self.metric in ("cosine", "ip") and exact is not True
+        if use_kernel:
+            group_l = min(32, choose_group_width(store.valid_n, k))
+            while group_l > 8 and store.n_pad % (128 * group_l) != 0:
+                group_l //= 2
+            if cfg.DENSE_INT8:
+                q8, s8, res = self._int8_mirror(residual=cfg.DENSE_INT8_RESIDUAL)
+                return (q8, s8, res), dict(
+                    kind="fused_int8", k=k, metric=self.metric, valid_n=store.valid_n,
+                    group_l=group_l,
+                )
+            if store.embeddings.dtype not in (torch.bfloat16, torch.float32):
+                raise NotImplementedError(
+                    f"the fused kernel K1 takes a bfloat16 or float32 store, not "
+                    f"{store.embeddings.dtype} (ROADMAP Queue C)"
+                )
+            return (store.embeddings,), dict(
+                kind="fused", k=k, metric=self.metric, valid_n=store.valid_n, group_l=group_l,
+                precise=store.embeddings.dtype == torch.bfloat16,
+            )
+        return (store.embeddings,), dict(
+            kind="scan", k=k, metric=self.metric, valid_n=store.valid_n,
+            block_n=min(cfg.SEARCH_BLOCK_N, store.n_pad),
+            rescore=store.embeddings.dtype != torch.float32,
+        )

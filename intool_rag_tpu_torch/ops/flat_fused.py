@@ -1,0 +1,321 @@
+"""Fused flat-search score + partial top-k (port of
+``intool_rag_tpu/ops/flat_pallas.py``).
+
+The scoring pass runs in the hand-written CUDA kernels of
+``kernels/flat_partial_topk.cu`` (K1: bf16/f32 corpus, K2: int8 corpus);
+they write only the ``[Q, N/group_l]`` grouped-max candidates, and the
+small top-k tail over those runs as torch ops. The same candidate arrays
+come from the plain versions :func:`partial_topk_reference` and
+:func:`partial_topk_int8_reference`; a wrapper takes them only for tensors
+that lie on the CPU. On a CUDA tensor it launches its kernel or raises.
+
+Candidate layout (the TPU kernels' contract, which the fold tail relies
+on): corpus block ``b`` covers rows ``[b·block_n, (b+1)·block_n)``,
+``block_n = 128·group_l``, and
+``cand[q, b·128 + lane] = max_j score[q, b·block_n + j·128 + lane]`` with
+the smallest maximizing ``j``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .topk import NEG_INF, blocked_topk, top_k
+
+LANES = 128
+_SOURCE = "flat_partial_topk.cu"
+
+
+class LaunchCount:
+    """Kernel launches a wrapper made, per variant (thread-safe)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.by_variant: dict[str, int] = {}
+
+    def add(self, variant: str) -> None:
+        with self._lock:
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.by_variant = {}
+
+    @property
+    def count(self) -> int:
+        return sum(self.by_variant.values())
+
+
+def choose_group_width(n: int, k: int, target_recall: float = 0.98) -> int:
+    """Largest power-of-two group width L (≤128) with expected recall
+    ``1 - k·L/(2N)`` ≥ target."""
+    l = 128
+    while l > 8 and 1.0 - (k * l) / (2.0 * max(n, 1)) < target_recall:
+        l //= 2
+    return l
+
+
+def _check_layout(corpus: torch.Tensor, group_l: int, valid_n: int, d_multiple: int) -> None:
+    n, d = corpus.shape
+    block_n = LANES * group_l
+    if n % block_n != 0 or d % d_multiple != 0:
+        raise ValueError(
+            f"corpus shape {tuple(corpus.shape)} not padded to ({block_n}, {d_multiple})"
+        )
+    if not 0 <= valid_n <= n:
+        raise ValueError(f"valid_n={valid_n} outside [0, {n}]")
+
+
+def _grouped_max(scores: torch.Tensor, group_l: int, valid_n: int):
+    """The shared epilogue (``_reduce_block``) on full [Q, N] scores."""
+    q, n = scores.shape
+    rows = torch.arange(n, device=scores.device)
+    scores = torch.where(rows[None, :] < valid_n, scores, NEG_INF)
+    nb = n // (LANES * group_l)
+    s3 = scores.reshape(q, nb, group_l, LANES)
+    gmax = s3.amax(dim=2)
+    j = torch.arange(group_l, device=scores.device, dtype=torch.int32)[None, None, :, None]
+    garg = torch.where(s3 == gmax[:, :, None, :], j, group_l).amin(dim=2)
+    lane = torch.arange(LANES, device=scores.device, dtype=torch.int32)
+    base = (torch.arange(nb, device=scores.device, dtype=torch.int32) * (LANES * group_l))[:, None]
+    idx = base[None] + garg * LANES + lane
+    return gmax.reshape(q, nb * LANES), idx.reshape(q, nb * LANES).to(torch.int32)
+
+
+def partial_topk_reference(q_hi, q_lo, corpus, group_l: int, valid_n: int):
+    """Plain version of K1: f32 products of the (bf16 or f32) operands,
+    ``q_hi·cᵀ + q_lo·cᵀ`` when ``q_lo`` is given, then the grouped max."""
+    c = corpus.float()
+    scores = q_hi.float() @ c.T
+    if q_lo is not None:
+        scores = scores + q_lo.float() @ c.T
+    return _grouped_max(scores, group_l, valid_n)
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a·bᵀ`` of int8 operands. float64 holds every partial
+    sum exactly (|sum| ≤ 127²·D < 2^53) and runs on both CPU and CUDA."""
+    return (a.double() @ b.double().T).to(torch.int32)
+
+
+def partial_topk_int8_reference(q1, q2, c1, c2, cscale, group_l: int, valid_n: int):
+    """Plain version of K2: ``f32(q1·c1) [+ f32(q2·c1)/128]
+    [+ f32(q1·c2)/128]``, times the row scale, in the TPU kernel's order,
+    then the grouped max."""
+    scores = _int_dot(q1, c1).float()
+    if q2 is not None:
+        scores = scores + _int_dot(q2, c1).float() * (1.0 / 128.0)
+    if c2 is not None:
+        scores = scores + _int_dot(q1, c2).float() * (1.0 / 128.0)
+    scores = scores * cscale.float()[None, :]
+    return _grouped_max(scores, group_l, valid_n)
+
+
+def _lib() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.load(_SOURCE)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flat_partial_topk_bf16.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+        lib.flat_partial_topk_f32.argtypes = [p, p, i, i, i, i, i, p, p, p]
+        lib.flat_partial_topk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p]
+        for fn in (lib.flat_partial_topk_bf16, lib.flat_partial_topk_f32, lib.flat_partial_topk_int8):
+            fn.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _cuda_operands(tensors, dtype, d):
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous() or t.shape[-1] != d:
+            raise ValueError(
+                f"kernel operand must be a contiguous CUDA {dtype} tensor with last dim {d}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if t.data_ptr() % 16 != 0:
+            raise ValueError("kernel operand is not 16-byte aligned")
+        if dev is not None and t.device != dev:
+            raise ValueError("kernel operands lie on different devices")
+        dev = t.device
+    return dev
+
+
+def _check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def partial_topk(q_hi, q_lo, corpus, group_l: int, valid_n: int):
+    """K1 candidates ``(vals [Q, N/group_l] f32, idx i32)``. ``corpus`` is
+    bf16 (``q_hi``/``q_lo`` bf16) or f32 (``q_hi`` f32, no ``q_lo``)."""
+    _check_layout(corpus, group_l, valid_n, 64 if corpus.dtype == torch.bfloat16 else 32)
+    if not corpus.is_cuda:
+        return partial_topk_reference(q_hi, q_lo, corpus, group_l, valid_n)
+    n, d = corpus.shape
+    q = q_hi.shape[0]
+    if corpus.dtype == torch.bfloat16:
+        dev = _cuda_operands((q_hi, q_lo, corpus), torch.bfloat16, d)
+    elif corpus.dtype == torch.float32 and q_lo is None:
+        dev = _cuda_operands((q_hi, corpus), torch.float32, d)
+    else:
+        raise ValueError(f"K1 takes a bfloat16 or float32 corpus, got {corpus.dtype}")
+    m = n // group_l
+    vals = torch.empty((q, m), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, m), dtype=torch.int32, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if corpus.dtype == torch.bfloat16:
+        rc = lib.flat_partial_topk_bf16(
+            _ptr(q_hi), _ptr(q_lo), _ptr(corpus), q, n, d, group_l, valid_n,
+            _ptr(vals), _ptr(idx), stream,
+        )
+    else:
+        rc = lib.flat_partial_topk_f32(
+            _ptr(q_hi), _ptr(corpus), q, n, d, group_l, valid_n, _ptr(vals), _ptr(idx), stream,
+        )
+    variant = "K1 f32" if corpus.dtype == torch.float32 else (
+        "K1 bf16" if q_lo is None else "K1 bf16 precise")
+    partial_topk.launches.add(variant)
+    _check_rc(rc, "partial_topk")
+    return vals, idx
+
+
+partial_topk.launches = LaunchCount()
+
+
+def partial_topk_int8(q1, q2, c1, c2, cscale, group_l: int, valid_n: int):
+    """K2 candidates ``(vals [Q, N/group_l] f32, idx i32)`` over int8
+    planes ``c1`` (+ residual ``c2``) with per-row scales ``cscale``."""
+    _check_layout(c1, group_l, valid_n, 128)
+    if c2 is not None and c2.shape != c1.shape:
+        raise ValueError(f"residual plane {tuple(c2.shape)} != {tuple(c1.shape)}")
+    if not c1.is_cuda:
+        return partial_topk_int8_reference(q1, q2, c1, c2, cscale, group_l, valid_n)
+    n, d = c1.shape
+    q = q1.shape[0]
+    dev = _cuda_operands((q1, q2, c1, c2), torch.int8, d)
+    if not (cscale.is_cuda and cscale.dtype == torch.float32 and cscale.is_contiguous()
+            and cscale.shape == (n,) and cscale.device == dev):
+        raise ValueError("corpus scales must be a contiguous CUDA float32 [N] tensor")
+    m = n // group_l
+    vals = torch.empty((q, m), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, m), dtype=torch.int32, device=dev)
+    rc = _lib().flat_partial_topk_int8(
+        _ptr(q1), _ptr(q2), _ptr(c1), _ptr(c2), _ptr(cscale), q, n, d, group_l, valid_n,
+        _ptr(vals), _ptr(idx), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    variant = {(False, False): "K2 int8", (True, False): "K2 int8+q2",
+               (False, True): "K2 int8+c2", (True, True): "K2 int8r"}[(q2 is not None, c2 is not None)]
+    partial_topk_int8.launches.add(variant)
+    _check_rc(rc, "partial_topk_int8")
+    return vals, idx
+
+
+partial_topk_int8.launches = LaunchCount()
+
+
+def split_query_bf16(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``q ≈ q_hi + q_lo`` as a bf16 pair (``flat_pallas.py:236-244``)."""
+    qf = queries.float()
+    q_hi = qf.to(torch.bfloat16)
+    q_lo = (qf - q_hi.float()).to(torch.bfloat16)
+    return q_hi.contiguous(), q_lo.contiguous()
+
+
+def split_query_int8(queries: torch.Tensor):
+    """``(q1, q2, s1)``: ``s1 = max(absmax, 1e-9)/127``,
+    ``q1 = round(clip(q/s1))``, ``q2 = round(128·(q/s1 − q1))`` on the
+    fixed s1/128 grid (``flat_pallas.py:439-450``)."""
+    qf = queries.float()
+    s1 = qf.abs().amax(dim=1, keepdim=True).clamp_min(1e-9) / 127.0
+    scaled = qf / s1
+    q1f = torch.round(scaled.clamp(-127.0, 127.0))
+    q2 = torch.round(128.0 * (scaled - q1f)).to(torch.int8)
+    return q1f.to(torch.int8).contiguous(), q2.contiguous(), s1
+
+
+def _candidates_topk(cand_vals, cand_idx, k: int, *, tail: str):
+    """Top-k over the candidate arrays. ``fold``: elementwise fold-by-2
+    (``a >= b`` keeps the first half), then an exact top-k; ``exact``:
+    :func:`blocked_topk`. (JAX's ``approx_max_k`` has no torch
+    counterpart; on the CPU it equals the exact top-k used here.)"""
+    if tail not in ("fold", "exact"):
+        raise ValueError(f"tail must be 'fold' or 'exact', got {tail!r}")
+    k_eff = min(k, cand_vals.shape[1])
+    if tail == "fold" and cand_vals.shape[1] >= 8 * k_eff:
+        half = cand_vals.shape[1] // 2
+        a, b = cand_vals[:, :half], cand_vals[:, half : 2 * half]
+        take_a = a >= b
+        fold_vals = torch.where(take_a, a, b)
+        fold_idx = torch.where(take_a, cand_idx[:, :half], cand_idx[:, half : 2 * half])
+        top_vals, top_pos = top_k(fold_vals, k_eff)
+        return top_vals, torch.gather(fold_idx, 1, top_pos)
+    top_vals, top_pos = blocked_topk(cand_vals, k_eff, block=1024)
+    return top_vals, torch.gather(cand_idx, 1, top_pos)
+
+
+def flat_topk_fused(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    *,
+    group_l: int = 16,
+    valid_n: int | None = None,
+    tail: str = "fold",
+    precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused flat MIPS top-k over a bf16 or f32 corpus (counterpart of
+    ``flat_topk_pallas``). ``corpus [N, D]`` has N a multiple of
+    ``128·group_l``. ``precise`` (bf16 corpus only) adds the split-query
+    compensation pass so scores match an f32 query against the bf16
+    corpus. Returns ``(scores [Q, k] f32, rows [Q, k] i32)``."""
+    n = corpus.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    if corpus.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flat_topk_fused takes a bfloat16 or float32 corpus, got {corpus.dtype}")
+    if precise and corpus.dtype == torch.bfloat16:
+        q_hi, q_lo = split_query_bf16(queries)
+    else:
+        q_hi, q_lo = queries.to(corpus.dtype).contiguous(), None
+    vals, idx = partial_topk(q_hi, q_lo, corpus, group_l, valid_n)
+    return _candidates_topk(vals, idx, k, tail=tail)
+
+
+def flat_topk_fused_int8(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k: int,
+    *,
+    corpus_res: torch.Tensor | None = None,
+    group_l: int = 32,
+    valid_n: int | None = None,
+    tail: str = "fold",
+    precise: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused flat MIPS top-k over an int8 corpus (counterpart of
+    ``flat_topk_pallas_int8``): ``corpus_q [N, D]`` int8 with per-row
+    ``corpus_scale [N]`` and optional residual plane ``corpus_res``. The
+    per-query scale is applied after the tail (it is constant within a
+    row). Returns ``(scores [Q, k] f32, rows [Q, k] i32)``."""
+    if corpus_q.dtype != torch.int8:
+        raise ValueError(f"corpus must be int8, got {corpus_q.dtype}")
+    n = corpus_q.shape[0]
+    valid_n = n if valid_n is None else int(valid_n)
+    q1, q2, s1 = split_query_int8(queries)
+    vals, idx = partial_topk_int8(
+        q1, q2 if precise else None, corpus_q, corpus_res, corpus_scale, group_l, valid_n
+    )
+    vals, idx = _candidates_topk(vals, idx, k, tail=tail)
+    return vals * s1, idx

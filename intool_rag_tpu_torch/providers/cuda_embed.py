@@ -1,0 +1,108 @@
+"""Embedding provider: batched encoder inference on the GPU (port of
+``intool_rag_tpu/providers/tpu_embed.py`` and
+``providers/base.py::instruction_prefix``).
+
+Batches pad to the same (batch, sequence) buckets as the JAX provider.
+Weights are explicit: an encoder passed in, or the checkpoint named by the
+``checkpoint`` argument or ``EMBEDDING_CHECKPOINT``. A missing checkpoint
+raises; there is no silent random fallback.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ..config import get_config
+from ..models.encoder import TextEncoder, load_encoder
+from ..models.tokenizer import SimpleTokenizer
+
+_SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _bucket(n: int, buckets=_SEQ_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def instruction_prefix(is_query: bool) -> str:
+    """Embedding instruction prefix from config."""
+    cfg = get_config()
+    return cfg.EMBEDDING_QUERY_INSTRUCTION if is_query else cfg.EMBEDDING_PASSAGE_INSTRUCTION
+
+
+class CudaEmbeddingProvider:
+    """EmbeddingProvider over :class:`TextEncoder` on one device."""
+
+    def __init__(
+        self,
+        encoder: TextEncoder | None = None,
+        *,
+        checkpoint: str | None = None,
+        tokenizer=None,
+        device: str | torch.device | None = None,
+    ) -> None:
+        cfg = get_config()
+        if encoder is None:
+            path = checkpoint or cfg.EMBEDDING_CHECKPOINT
+            if not path:
+                raise ValueError(
+                    "no encoder weights: pass an encoder or a checkpoint, or set EMBEDDING_CHECKPOINT"
+                )
+            encoder = load_encoder(path, device=device)
+        self.encoder = encoder.eval()
+        self.encoder_config = encoder.config
+        self.device = next(encoder.parameters()).device
+        self.tokenizer = tokenizer or SimpleTokenizer(
+            vocab_size=self.encoder_config.vocab_size,
+            max_length=min(self.encoder_config.max_position - 2, 8192),
+        )
+        self.batch_size = cfg.EMBEDDING_BATCH_SIZE
+        # the tokenizer memo and the module are shared by service threads
+        self._lock = threading.Lock()
+
+    @property
+    def dimension(self) -> int:
+        return self.encoder_config.hidden_size
+
+    def embed_batch(self, texts: list[str], *, is_query: bool = False) -> np.ndarray:
+        if not texts:
+            return np.zeros((0, self.dimension), np.float32)
+        prefix = instruction_prefix(is_query)
+        if prefix:
+            texts = [prefix + t for t in texts]
+        out = np.zeros((len(texts), self.dimension), np.float32)
+        for start in range(0, len(texts), self.batch_size):
+            batch = texts[start : start + self.batch_size]
+            out[start : start + len(batch)] = self._encode_device(batch)[: len(batch)].cpu().numpy()
+        return out
+
+    def embed_batch_device(self, texts: list[str], *, is_query: bool = False):
+        """One micro-batch embedded and left on the device (rows past
+        ``len(texts)`` are bucket padding); None when the batch exceeds
+        one micro-batch (callers then use :meth:`embed_batch`)."""
+        if not texts or len(texts) > self.batch_size:
+            return None
+        prefix = instruction_prefix(is_query)
+        if prefix:
+            texts = [prefix + t for t in texts]
+        return self._encode_device(texts)
+
+    @torch.no_grad()
+    def _encode_device(self, batch: list[str]) -> torch.Tensor:
+        with self._lock:
+            ids, mask = self.tokenizer.encode_batch(batch)
+            b_pad = _bucket(len(batch), _BATCH_BUCKETS)
+            s_pad = _bucket(ids.shape[1])
+            ids_p = np.full((b_pad, s_pad), self.tokenizer.pad_id, np.int32)
+            mask_p = np.zeros((b_pad, s_pad), np.int32)
+            ids_p[: len(batch), : ids.shape[1]] = ids
+            mask_p[: len(batch), : ids.shape[1]] = mask
+            return self.encoder(
+                torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device)
+            )

@@ -1,0 +1,136 @@
+"""Page-level retrieval (port of ``intool_rag_tpu/query/retriever.py``;
+the reranker wiring waits for a later slice).
+
+Flow: embed query → corpus-wide hybrid top-K chunks → group by
+(doc, page) → page score = avg(chunk scores) + min(0.05·n_chunks, 0.15),
+times ``TABLE_BOOST_MULTIPLIER`` for pages with tables → top-N pages with
+citation metadata.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import torch
+
+from ..config import get_config
+from ..index.registry import CorpusRegistry
+from ..ingest.schemas import NodeLevel
+
+# same pattern as intool_rag_tpu/ingest/chunker.py
+_TABLE_HINT = re.compile(r"(\|.+\|)|(\t.+\t)|(^\s*[-+=]{3,}\s*$)", re.M)
+
+
+@dataclasses.dataclass
+class RetrievedChunk:
+    doc_id: str
+    chunk_id: str
+    page: int
+    text: str
+    score: float
+    has_table: bool = False
+
+
+@dataclasses.dataclass
+class PageRanking:
+    doc_id: str
+    page: int
+    score: float
+    chunks: list[RetrievedChunk]
+    source_file: str = ""
+    chapter: str | None = None
+    section: str | None = None
+    subsection: str | None = None
+    title: str | None = None
+
+
+def _chunks(hits: list[dict]) -> list[RetrievedChunk]:
+    return [
+        RetrievedChunk(
+            doc_id=h["doc_id"], chunk_id=h["chunk_id"], page=h["page"], text=h["text"],
+            score=h["score"], has_table=bool(_TABLE_HINT.search(h["text"])),
+        )
+        for h in hits
+    ]
+
+
+class PageLevelRetriever:
+    def __init__(self, registry: CorpusRegistry, provider) -> None:
+        self.registry = registry
+        self.provider = provider
+
+    def _embed(self, queries: list[str]) -> torch.Tensor:
+        """Query embeddings on the corpus device; a provider with
+        ``embed_batch_device`` keeps them on the card."""
+        emb_dev_fn = getattr(self.provider, "embed_batch_device", None)
+        emb = emb_dev_fn(list(queries), is_query=True) if emb_dev_fn else None
+        if emb is None:
+            emb = torch.as_tensor(self.provider.embed_batch(list(queries), is_query=True))
+        return emb[: len(queries)].to(self.registry.device)
+
+    def retrieve_chunks(
+        self, query: str, *, project: str | None = None, limit: int | None = None
+    ) -> list[RetrievedChunk]:
+        return self.retrieve_chunks_batch([query], [project], limit=limit)[0]
+
+    def retrieve_chunks_batch(
+        self, queries: list[str], projects: list[str | None], *, limit: int | None = None
+    ) -> list[list[RetrievedChunk]]:
+        """One embedding forward + one device search for the whole batch;
+        per-query project filters apply on the host."""
+        cfg = get_config()
+        limit = limit or cfg.RETRIEVAL_CANDIDATES
+        fetch = limit * 4 if any(p is not None for p in projects) else limit
+        hit_lists = self.registry.search(list(queries), self._embed(queries), fetch)
+        out: list[list[RetrievedChunk]] = []
+        for hits, project in zip(hit_lists, projects):
+            if project is not None:
+                hits = [h for h in hits if self.registry.doc_projects.get(h["doc_id"]) == project]
+            chunks = _chunks(hits[:limit])
+            kept = [c for c in chunks if c.score >= cfg.RETRIEVAL_MIN_SCORE]
+            out.append(kept or chunks[:5])
+        return out
+
+    def rank_pages(self, chunks: list[RetrievedChunk], top_pages: int | None = None) -> list[PageRanking]:
+        cfg = get_config()
+        top_pages = top_pages or cfg.TOP_PAGES
+        groups: dict[tuple[str, int], list[RetrievedChunk]] = {}
+        for chunk in chunks:
+            groups.setdefault((chunk.doc_id, chunk.page), []).append(chunk)
+        rankings: list[PageRanking] = []
+        for (doc_id, page), page_chunks in groups.items():
+            avg = sum(c.score for c in page_chunks) / len(page_chunks)
+            boost = min(cfg.PAGE_CHUNK_BOOST * len(page_chunks), cfg.PAGE_CHUNK_BOOST_CAP)
+            score = avg + boost
+            if cfg.TABLE_CONTEXT_PRIORITY and any(c.has_table for c in page_chunks):
+                score *= cfg.TABLE_BOOST_MULTIPLIER
+            ranking = PageRanking(doc_id=doc_id, page=page, score=score, chunks=page_chunks)
+            self._attach_citation(ranking)
+            rankings.append(ranking)
+        rankings.sort(key=lambda r: -r.score)
+        return rankings[:top_pages]
+
+    def _attach_citation(self, ranking: PageRanking) -> None:
+        """Chapter/section/subsection from the semantic tree via the page's
+        best chunk's node ancestry."""
+        page_index = self.registry.page_indexes.get(ranking.doc_id)
+        if page_index is None:
+            return
+        ranking.source_file = page_index.source_file
+        best = max(ranking.chunks, key=lambda c: c.score)
+        node_id = self.registry.chunk_nodes.get((ranking.doc_id, best.chunk_id), "")
+        node = page_index.get_node(node_id) if node_id else None
+        if node is None:
+            nodes = page_index.nodes_for_page(ranking.page)
+            node = nodes[0] if nodes else None
+        if node is None:
+            return
+        ranking.title = node.title
+        for ancestor in page_index.ancestry(node.node_id):
+            if ancestor.level is NodeLevel.CHAPTER:
+                ranking.chapter = ancestor.title
+            elif ancestor.level is NodeLevel.SECTION:
+                ranking.section = ancestor.title
+            elif ancestor.level is NodeLevel.SUBSECTION:
+                ranking.subsection = ancestor.title

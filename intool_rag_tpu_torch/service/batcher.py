@@ -1,0 +1,100 @@
+"""Request micro-batching (copy of ``intool_rag_tpu/service/batcher.py``):
+concurrent queries coalesce into one batched device search.
+
+Protocol: the first request to arrive becomes the batch leader, waits
+``window_ms`` for followers, then executes the whole batch with one
+call into the batched retrieval path; followers block on events.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Any, Callable
+
+from ..config import get_config
+
+logger = logging.getLogger(__name__)
+
+
+class _Pending:
+    __slots__ = ("query", "project", "event", "result", "error")
+
+    def __init__(self, query: str, project: str | None) -> None:
+        self.query = query
+        self.project = project
+        self.event = threading.Event()
+        self.result: Any = None
+        self.error: Exception | None = None
+
+
+class QueryBatcher:
+    """Coalesces ``submit`` calls into batched ``runner`` invocations.
+
+    ``runner(queries, projects) -> list[result]`` must be thread-safe.
+    """
+
+    def __init__(
+        self,
+        runner: Callable[[list[str], list[str | None]], list],
+        *,
+        window_ms: float | None = None,
+        max_batch: int | None = None,
+    ) -> None:
+        cfg = get_config()
+        self.runner = runner
+        self.window_s = (
+            window_ms if window_ms is not None else cfg.QUERY_MICRO_BATCH_WINDOW_MS
+        ) / 1000.0
+        self.max_batch = max_batch or cfg.QUERY_MAX_BATCH
+        self._lock = threading.Lock()
+        self._pending: list[_Pending] = []
+        self._leader_active = False
+        self.batches_run = 0
+        self.requests_served = 0
+
+    def submit(self, query: str, project: str | None = None):
+        req = _Pending(query, project)
+        with self._lock:
+            self._pending.append(req)
+            is_leader = not self._leader_active
+            if is_leader:
+                self._leader_active = True
+        if is_leader:
+            if self.window_s > 0:
+                time.sleep(self.window_s)
+            self._run_batch()
+        req.event.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _run_batch(self) -> None:
+        with self._lock:
+            batch = self._pending[: self.max_batch]
+            self._pending = self._pending[self.max_batch :]
+            # a new leader will be elected by the next submit
+            self._leader_active = bool(self._pending)
+        if not batch:
+            return
+        try:
+            results = self.runner(
+                [r.query for r in batch], [r.project for r in batch]
+            )
+            for req, result in zip(batch, results):
+                req.result = result
+        except Exception as exc:
+            logger.error("batched query failed: %s", exc)
+            for req in batch:
+                req.error = exc
+        finally:
+            self.batches_run += 1
+            self.requests_served += len(batch)
+            for req in batch:
+                req.event.set()
+            # if followers piled past max_batch, drain them too
+            with self._lock:
+                more = bool(self._pending)
+            if more:
+                self._run_batch()
