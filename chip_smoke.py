@@ -1,27 +1,44 @@
 """Drives the PyTorch/CUDA port on one NVIDIA GPU and checks it.
 
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
-``--phases 1,2`` runs a subset. Phases:
+``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone).
+Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
-   (one nvcc per source) and prints the build time.
+   (one nvcc per source, all started together) and prints the build time
+   and each kernel's registers and shared memory.
 2. kernels vs plain: every K1 (``partial_topk``) and K2
    (``partial_topk_int8``) variant against its plain PyTorch version on
    the card, at the shapes of ``CHECK_SHAPES`` (the service store's among
    them). K2 must match bit for bit; K1 values to atol 1e-4 on unit-norm
-   data, ids wherever the within-group gap is above 2e-4.
+   data, ids wherever the within-group gap is above 2e-4. K3
+   (``bits_scan``) at the shapes of ``K3_CHECKS`` (the service store's and
+   the capacity run's among them, with empty slots and an all-empty
+   list): values to rtol 2e-5 / atol 1e-5, ids wherever the within-group
+   gap is above 1e-5. K4 (``quantize_int8_stochastic``): scales bit-equal,
+   every code at floor or floor+1, seeds repeatable and distinct, the
+   64-seed mean unbiased, and the rounding-up rate within 3 sigma of the
+   plain version's.
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
-   (bf16 and f32 for K1, the int8 and int8r mirrors for K2). Launch
-   counts per kernel variant are read around each run (the main path);
-   a run that launches any other variant than its store's fails.
+   (bf16 and f32 for K1, the int8 and int8r mirrors for K2, and the
+   ``INDEX_KIND=bits`` capacity tier for K3). Launch counts per kernel
+   variant are set to 0 before each run and read after it (the main
+   path); a run that launches any other variant than its store's fails.
 4. search at scale: 1M x d1024 corpus, 256 queries embedded by the
    ``bge_m3``-width encoder (random weights from a seed), 100 candidates
    per side, k = 10, through ``_fused_hybrid_search`` with K2 and K1;
    recall@10 against the exact hybrid oracle must be >= 0.99, and each
    path must launch its kernel. The kernel table then checks and times
    every variant against its plain version on the phase-4 inputs.
+5. capacity run: the 1-bit tier at full width. 3,000,000 x d1024 rows
+   with micro-cluster structure stream into an ``IVFBitsIndex`` (nlist
+   256, 13 blocks of 1,024 slots per list, host int8 refine tier) in
+   twelve appends; 256 queries, k 10 of a refined pool of 100, nprobe
+   8/16/32. Recall@10 and pool@100 against a streamed exact-f32 oracle
+   must be >= 0.95 at nprobe 16, and the dense side may launch K3 only.
+   K3 and K4 then join the kernel table.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -85,11 +103,12 @@ def phase_build(state: dict) -> None:
     state["card"] = card_line()
     log(f"card: {state['card']}")
     t0 = time.perf_counter()
-    for source in build.SOURCES:
+    for source in build.SOURCES:  # the first load builds every missing library, all at once
         build.load(source)
     state["build_s"] = time.perf_counter() - t0
     for name, text in build.BUILD_LOG.items():
-        kept = [ln for ln in text.splitlines() if "registers" in ln or "smem" in ln or "spill" in ln]
+        kept = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines()
+                if "registers" in ln or "smem" in ln or "spill" in ln]
         log(f"built {name}: " + " | ".join(kept))
     log(f"kernel build {state['build_s']:.1f} s")
 
@@ -201,8 +220,163 @@ def phase_kernels(state: dict) -> None:
                     checks += 1
         del corpus, cb, c1, c2, cs
     torch.cuda.empty_cache()
+    for shape in K3_CHECKS:
+        args, kw = _k3_inputs(gen, *shape, dev)
+        kout = _k3_kernel(args, kw)
+        torch.cuda.synchronize()
+        errs["K3"] = max(errs.get("K3", 0.0), _compare_k3(args, kw, kout, _k3_plain(args, kw)))
+        checks += 1
+        del args, kout
+        torch.cuda.empty_cache()
+    with_bad_width = _k3_inputs(gen, 128, 128, 1, 4, 2, 8, 8, dev)
+    try:  # a plane width the kernel cannot tile raises; it never takes the plain version
+        bad = list(with_bad_width[0])
+        bad[0], bad[1] = bad[0][:, :64].contiguous(), bad[1][:, :8].contiguous()
+        _k3_kernel(bad, with_bad_width[1])
+    except ValueError as exc:
+        log(f"phase 2: D=64 refused as expected: {exc}")
+    else:
+        raise AssertionError("K3 accepted D=64, which it cannot tile")
+    errs["K4"] = _check_k4(dev)
+    checks += 1
     state["max_abs_err"] = errs
     log(f"phase 2: {checks} kernel-vs-plain checks passed; max |err| {json.dumps(errs)}")
+
+
+# (d, block_n, blocks_per_list, nlist, nprobe, queries, group_l); the last
+# eight are the shapes the main paths give the kernel: the phase-3 service
+# store at batch 8 and 16, and the phase-5 capacity run at nprobe 8/16/32
+# on a batch of 256 and on the 64 oracle queries
+K3_CHECKS = [
+    (128, 128, 2, 24, 8, 64, 8),
+    (128, 128, 2, 24, 1, 8, 1),
+    (256, 128, 3, 24, 16, 64, 32),
+    (256, 1024, 1, 20, 8, 8, 8),
+    (384, 128, 2, 24, 16, 256, 1),
+    (384, 1024, 2, 20, 8, 64, 32),
+    (1024, 128, 2, 24, 8, 256, 8),
+    (1024, 1024, 2, 20, 16, 64, 1),
+    (1024, 1024, 1, 20, 1, 8, 32),
+    (384, 1024, 1, 1024, 64, 8, 8),
+    (384, 1024, 1, 1024, 64, 16, 8),
+    (1024, 1024, 13, 256, 8, 256, 8),
+    (1024, 1024, 13, 256, 16, 256, 8),
+    (1024, 1024, 13, 256, 32, 256, 8),
+    (1024, 1024, 13, 256, 8, 64, 8),
+    (1024, 1024, 13, 256, 16, 64, 8),
+    (1024, 1024, 13, 256, 32, 64, 8),
+]
+
+
+def _k3_inputs(gen, d, block_n, bpl, nlist, nprobe, q, group_l, dev, empty_frac=0.2):
+    """A random list-major store (a fifth of the slots empty, list 1 all
+    empty and probed by tile 0) with a random probe table, as
+    ``(qb, codes, scales, probe_blocks, c_sel)`` and the scan's statics."""
+    n_blocks = nlist * bpl
+    codes = torch.randint(0, 256, (n_blocks * block_n, d // 8), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    scales = 0.05 + 0.1 * torch.rand((n_blocks, 8, block_n), generator=gen, device=dev)
+    empty = torch.rand((n_blocks, block_n), generator=gen, device=dev) < empty_frac
+    empty[bpl : 2 * bpl] = True
+    scales[:, 0, :] = torch.where(empty, -1.0, scales[:, 0, :])
+    lists = torch.rand((q // 8, nlist), generator=gen, device=dev).argsort(dim=1)[:, :nprobe]
+    lists[0, 0] = 1
+    probe_blocks = (lists * bpl).to(torch.int32).contiguous()
+    c_sel = torch.randn((q, nprobe), generator=gen, device=dev)
+    qb = _unit(gen, (q, d), dev).bfloat16().contiguous()
+    return (qb, codes, scales, probe_blocks, c_sel), dict(
+        blocks_per_list=bpl, block_n=block_n, group_l=group_l)
+
+
+def _k3_kernel(args, kw):
+    from intool_rag_tpu_torch.ops.bits_scan import bits_scan
+
+    return bits_scan(*args, **kw)
+
+
+def _k3_plain(args, kw):
+    from intool_rag_tpu_torch.ops.bits_scan import bits_scan_reference
+
+    return bits_scan_reference(*args, **kw)
+
+
+def _compare_k3(args, kw, kout, pout) -> float:
+    """Max |value diff| of K3's candidates against the plain version's.
+    Raises unless the -inf pattern is equal, values agree to rtol 2e-5 /
+    atol 1e-5 (f32 sums of bf16 products in another order), an all -inf
+    group reports g = 0, and every other id that differs is the kernel's
+    pick within 1e-5 of the group max."""
+    (kv, ki), (pv, pi) = kout, pout
+    finite = torch.isfinite(pv)
+    if not torch.equal(finite, torch.isfinite(kv)):
+        raise AssertionError("K3: -inf pattern differs from the plain version")
+    delta = (kv[finite] - pv[finite]).abs()
+    err = delta.max().item() if delta.numel() else 0.0
+    if (delta > 1e-5 + 2e-5 * pv[finite].abs()).any():
+        raise AssertionError(f"K3 value error {err} beyond rtol 2e-5 / atol 1e-5")
+    diff = ki != pi
+    if (diff & ~finite).any():
+        raise AssertionError("K3: an all -inf group does not report its first slot")
+    if diff.any():
+        block_n, lw = kw["block_n"], kw["block_n"] // kw["group_l"]
+        v1, i1 = _k3_plain(args, {**kw, "group_l": 1})  # every slot's score
+        qi, col = diff.nonzero(as_tuple=True)
+        col1 = (col // lw) * block_n + ki[qi, col].long() % block_n
+        if not torch.equal(i1[qi, col1], ki[qi, col]):
+            raise AssertionError("K3: a differing id lies outside its block")
+        gap = (pv[qi, col] - v1[qi, col1]).abs().max().item()
+        if gap > 1e-5:
+            raise AssertionError(f"K3: id differs at within-group gap {gap}")
+    return err
+
+
+def _check_k4(dev) -> float:
+    """K4 against its plain version. The two draw from different random
+    streams, so the checks are those that do not depend on the stream.
+    Returns the largest deviation of the 64-seed mean from x."""
+    from intool_rag_tpu_torch.ops.quant import (
+        dequantize_int8, quantize_int8_stochastic, quantize_int8_stochastic_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape in ((4096, 1024), (257, 1000), (64, 384), (250_000, 1024)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        x = x * (0.5 + torch.rand((shape[0], 1), generator=gen, device=dev))
+        q, scale = quantize_int8_stochastic(x, seed=11)
+        torch.cuda.synchronize()
+        pq, p_scale = quantize_int8_stochastic_reference(x, seed=11)
+        if not torch.equal(scale, p_scale):
+            raise AssertionError(f"K4 {shape}: scales are not bit-equal to the plain version's")
+        scaled = (x / scale[:, None]).clamp(-127.0, 127.0)
+        lo = torch.floor(scaled)
+        qf = q.float()
+        if not ((qf == lo) | (qf == (lo + 1).clamp(max=127.0))).all():
+            raise AssertionError(f"K4 {shape}: a code is neither floor nor floor+1")
+        if not torch.equal(q, quantize_int8_stochastic(x, seed=11)[0]):
+            raise AssertionError(f"K4 {shape}: the same seed gave another output")
+        if torch.equal(q, quantize_int8_stochastic(x, seed=12)[0]):
+            raise AssertionError(f"K4 {shape}: another seed gave the same output")
+        frac = (scaled - lo).double()
+        n = frac.numel()
+        sigma = (2.0 * (frac * (1.0 - frac)).sum()).sqrt().item() / n
+        up_kernel = (qf > lo).double().mean().item()
+        up_plain = (pq.float() > lo).double().mean().item()
+        if abs(up_kernel - up_plain) > 3.0 * sigma:
+            raise AssertionError(
+                f"K4 {shape}: rounding-up rate {up_kernel} vs plain {up_plain}, 3 sigma = {3 * sigma}")
+        log(f"phase 2 K4 {shape}: up-rate kernel {up_kernel:.6f} plain {up_plain:.6f} "
+            f"expected {frac.mean().item():.6f} (sigma {sigma:.2e})")
+        del x, q, pq, scaled, lo, qf, frac
+    # unbiased: the 64-seed mean of the dequantized output is within 0.35 steps of x
+    x = torch.linspace(-1, 1, 4 * 128, device=dev).reshape(4, 128)
+    acc = torch.zeros_like(x)
+    for seed in range(64):
+        acc += dequantize_int8(*quantize_int8_stochastic(x, seed=seed))
+    dev_max = (acc / 64 - x).abs().max().item()
+    if dev_max >= 0.35 / 127.0:
+        raise AssertionError(f"K4: 64-seed mean off by {dev_max} >= 0.35 steps ({0.35 / 127.0})")
+    torch.cuda.empty_cache()
+    return dev_max
 
 
 # ------------------------------------------------------------------ phase 3
@@ -215,6 +389,10 @@ SERVICE_STORES = [  # (label, env, the only kernel variant that store may launch
     ("K1 f32 store", {"INDEX_DTYPE": "float32", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0"}, "K1 f32"),
     ("K2 int8 mirror", {"DENSE_INT8": "1", "DENSE_INT8_RESIDUAL": "0"}, "K2 int8+q2"),
     ("K2 int8r mirror", {"DENSE_INT8": "1", "DENSE_INT8_RESIDUAL": "1"}, "K2 int8r"),
+    # the 1-bit capacity tier with the default IVF_NLIST 1024 / IVF_NPROBE 64:
+    # about 50 rows per list, one 1,024-slot block per list
+    ("K3 bits tier", {"INDEX_KIND": "bits", "IVF_REFINE_K": "100", "DENSE_INT8": "0",
+                      "DENSE_INT8_RESIDUAL": "0"}, "K3"),
 ]
 
 
@@ -272,17 +450,24 @@ def _post(port: int, question: str) -> tuple[float, dict]:
     return time.perf_counter() - t0, body
 
 
-def _launches() -> dict[str, int]:
+def _wrappers():
+    from intool_rag_tpu_torch.ops.bits_scan import bits_scan
     from intool_rag_tpu_torch.ops.flat_fused import partial_topk, partial_topk_int8
+    from intool_rag_tpu_torch.ops.quant import quantize_int8_stochastic
 
-    return {**partial_topk.launches.by_variant, **partial_topk_int8.launches.by_variant}
+    return partial_topk, partial_topk_int8, bits_scan, quantize_int8_stochastic
+
+
+def _launches() -> dict[str, int]:
+    out: dict[str, int] = {}
+    for wrapper in _wrappers():
+        out.update(wrapper.launches.by_variant)
+    return out
 
 
 def _reset_launches() -> None:
-    from intool_rag_tpu_torch.ops.flat_fused import partial_topk, partial_topk_int8
-
-    partial_topk.launches.reset()
-    partial_topk_int8.launches.reset()
+    for wrapper in _wrappers():
+        wrapper.launches.reset()
 
 
 def _serve_and_query(label: str, env: dict, variant: str, provider, questions, expected) -> dict:
@@ -310,6 +495,15 @@ def _serve_and_query(label: str, env: dict, variant: str, provider, questions, e
         server.shutdown()
     if set(launches) != {variant}:
         raise AssertionError(f"{label}: main path launched {launches}, expected only {variant}")
+    dense = service.registry.engine.dense
+    if variant == "K3":  # the staged hybrid path over the tier, built once from the whole store
+        tier = dense._ivf
+        if dense.routes_flat() or tier is None or tier.total_rows != len(service.registry.store):
+            raise AssertionError(f"{label}: /search did not go through the capacity tier")
+        log(f"phase 3 {label}: nlist {tier.nlist}, {tier.blocks_per_list} block(s) per list, "
+            f"{tier.bytes_resident / 1e6:.1f} MB on the card, {tier.bytes_host / 1e6:.1f} MB on the host")
+    elif not dense.routes_flat():
+        raise AssertionError(f"{label}: a flat store routed to the capacity tier")
     lat = sorted(r[0] for r in results)
     for (_, body), want in zip(results, expected):
         if want is None:
@@ -350,7 +544,7 @@ def phase_service(state: dict) -> None:
         # encoder_mid was trained without a query instruction; the JAX
         # package's own quality tests for it also set it empty
         base = {"STORAGE_DIR": tmp, "INDEX_DTYPE": "bfloat16", "USE_PALLAS": "1",
-                "EMBEDDING_QUERY_INSTRUCTION": ""}
+                "EMBEDDING_QUERY_INSTRUCTION": "", "INDEX_KIND": "flat", "IVF_REFINE_K": "0"}
         runs = [
             _serve_and_query(label, {**base, **env}, variant, provider, questions, expected)
             for label, env, variant in SERVICE_STORES
@@ -573,12 +767,243 @@ def _kernel_table(state, q_emb, corpus, c1, c2, cs, n) -> list[dict]:
     return rows
 
 
-PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale}
+
+# ------------------------------------------------------------------ phase 5
+
+CAP_ROWS, CAP_CHUNK, CAP_NLIST, CAP_BLOCK_N = 3_000_000, 250_000, 256, 1024
+CAP_POOL, CAP_GROUP, CAP_KMEANS_ITERS, CAP_NPROBES = 100, 8, 8, (8, 16, 32)
+MICRO_GROUP, MICRO_RADIUS = 10, 0.35
+
+
+def micro_chunk(seed: int, centers: torch.Tensor, rows: int) -> torch.Tensor:
+    """One chunk of the micro-cluster corpus, regenerated from its seed:
+    every ``MICRO_GROUP`` consecutive rows share a micro-centre (a topic
+    centre plus a radius-spread offset of norm ~``MICRO_RADIUS``) and
+    scatter around it at ~10 % of that offset, so a query perturbed from a
+    row has its group as true neighbours at a margin a quantizer can
+    resolve. Unit-norm f32 rows on the centres' device."""
+    dev, d = centers.device, centers.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_micro = rows // MICRO_GROUP
+
+    def log_uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=gen, device=dev)
+        return torch.exp(math.log(lo) + (math.log(hi) - math.log(lo)) * u)
+
+    ids = torch.randint(0, centers.shape[0], (n_micro,), generator=gen, device=dev)
+    u = torch.randn((n_micro, d), generator=gen, device=dev) / math.sqrt(d)
+    r_micro = MICRO_RADIUS * log_uniform((n_micro, 1), 0.5, 1.5)
+    micro = centers[ids] + r_micro * u
+    s_row = 0.1 * r_micro[:, None, :] * log_uniform((n_micro, MICRO_GROUP, 1), 0.5, 2.0)
+    w = torch.randn((n_micro, MICRO_GROUP, d), generator=gen, device=dev) / math.sqrt(d)
+    out = (micro[:, None, :] + s_row * w).reshape(n_micro * MICRO_GROUP, d)
+    return out / out.norm(dim=1, keepdim=True)
+
+
+def _recall(got: np.ndarray, oracle: np.ndarray) -> float:
+    return sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got, oracle)) / oracle.size
+
+
+def _scan_bound(probe_blocks, bpl, block_n, d, q, n_cand) -> tuple[float, str, dict]:
+    """Least time (ms) for this scan: max(bytes / HBM rate, operations /
+    bf16 peak). Bytes: every DISTINCT probed block once (codes + scales),
+    queries, probe table and centroid dots once, candidates written once.
+    Operations: 2 x 8 queries x D for every slot a tile scans."""
+    blocks = probe_blocks.long()[:, :, None] + torch.arange(bpl, device=probe_blocks.device)
+    distinct = int(torch.unique(blocks).numel())
+    scanned = int(blocks.numel())
+    block_bytes = block_n * (d // 8 + 32)
+    nbytes = distinct * block_bytes + q * d * 2 + probe_blocks.numel() * 4 * 2 + q * n_cand * 8
+    ops = 2.0 * 8 * d * scanned * block_n
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, ops / H100_PEAK["bf16"]
+    detail = {"distinct_block_mb": distinct * block_bytes / 1e6,
+              "scanned_block_mb": scanned * block_bytes / 1e6, "candidate_mb": q * n_cand * 8 / 1e6}
+    return 1000 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), detail
+
+
+def phase_capacity(state: dict) -> None:
+    from intool_rag_tpu_torch.index.bits_index import IVFBitsIndex, tile_probes
+    from intool_rag_tpu_torch.ops.bits_scan import bits_scan, decode_bits_planar
+    from intool_rag_tpu_torch.ops.flat_fused import _candidates_topk
+    from intool_rag_tpu_torch.ops.quant import (
+        quantize_int8_stochastic, quantize_int8_stochastic_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    d, n_chunks = DIM, CAP_ROWS // CAP_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(0)
+    centers = _unit(gen, (CAP_NLIST, d), dev)
+
+    t0 = time.perf_counter()
+    index = IVFBitsIndex.train(
+        micro_chunk(1, centers, CAP_CHUNK), CAP_NLIST, capacity=int(1.06 * CAP_ROWS),
+        block_n=CAP_BLOCK_N, iters=CAP_KMEANS_ITERS, refine=True, device=dev,
+    )
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    if index.blocks_per_list != 13:
+        raise AssertionError(f"phase 5: {index.blocks_per_list} blocks per list, expected 13")
+    t0 = time.perf_counter()
+    q_src = None
+    for c in range(n_chunks):
+        chunk = micro_chunk(1 + c, centers, CAP_CHUNK)
+        index.append(chunk)
+        if c == 3:
+            q_src = chunk[:Q_SCALE].clone()
+        del chunk
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    once = {
+        "rows": index.total_rows, "kmeans_s": kmeans_s, "ingest_rows_per_s": CAP_ROWS / ingest_s,
+        "card_mb": index.bytes_resident / 1e6, "host_mb": index.bytes_host / 1e6,
+        "lists": index.nlist, "blocks_per_list": index.blocks_per_list,
+        "fill_max": int(index.fill.max()), "cap_l": index.cap_l,
+    }
+    log(f"phase 5 ingest: {json.dumps(once)}")
+
+    # queries: perturbed copies of known rows; 4 sets, the last for warm-up
+    noise = 0.1 * 0.35 / math.sqrt(d)
+    qs = []
+    for i in range(4):
+        qgen = torch.Generator(device=dev).manual_seed(100 + i)
+        qn = q_src + noise * torch.randn((Q_SCALE, d), generator=qgen, device=dev)
+        qs.append(qn / qn.norm(dim=1, keepdim=True))
+    # streamed exact-f32 oracle on ORACLE_Q queries, chunks regenerated from their seeds
+    q_sub = qs[0][:ORACLE_Q]
+    best_v = torch.full((ORACLE_Q, TOP_K), float("-inf"), device=dev)
+    best_i = torch.full((ORACLE_Q, TOP_K), -1, dtype=torch.long, device=dev)
+    for c in range(n_chunks):
+        v, p = torch.topk(q_sub @ micro_chunk(1 + c, centers, CAP_CHUNK).T, TOP_K, dim=1)
+        mv, mi = torch.cat([best_v, v], dim=1), torch.cat([best_i, p + c * CAP_CHUNK], dim=1)
+        best_v, pos = torch.topk(mv, TOP_K, dim=1)
+        best_i = torch.gather(mi, 1, pos)
+    oracle = best_i.cpu().numpy()
+
+    def search(qv, k, nprobe, refine_k):
+        return index.search(qv, k, nprobe=nprobe, refine_k=refine_k, group_l=CAP_GROUP)
+
+    # ---- the main path: counts set to 0 just before, read just after
+    _reset_launches()
+    results: dict[int, dict] = {}
+    for nprobe in CAP_NPROBES:
+        search(qs[3], TOP_K, nprobe, CAP_POOL)  # warm-up: host tier consolidation, allocations
+        times = []
+        for qv in qs[:3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search(qv, TOP_K, nprobe, CAP_POOL)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        vals, rows = search(q_sub, TOP_K, nprobe, CAP_POOL)
+        _, pool = search(q_sub, CAP_POOL, nprobe, None)
+        if not (torch.isfinite(vals).all() and tuple(rows.shape) == (ORACLE_Q, TOP_K)):
+            raise AssertionError(f"phase 5 nprobe {nprobe}: malformed result")
+        results[nprobe] = {
+            "qps_mean": Q_SCALE / float(np.mean(times)), "qps_runs": [Q_SCALE / t for t in times],
+            "ms_per_batch": 1000 * float(np.mean(times)),
+            "recall@10": _recall(rows.cpu().numpy(), oracle),
+            "pool@100": _recall(pool.cpu().numpy(), oracle),
+        }
+    launches = _launches()
+    if set(launches) != {"K3"}:
+        raise AssertionError(f"phase 5: the dense side launched {launches}, expected only K3")
+    state.setdefault("launches_scale", {})["K3"] = launches["K3"]
+
+    # ---- per-stage times on each nprobe's own inputs (not counted as the main path)
+    bpl, block_n = index.blocks_per_list, index.block_n
+    scan_kw = dict(blocks_per_list=bpl, block_n=block_n, group_l=CAP_GROUP)
+    table_args = None
+    for nprobe in CAP_NPROBES:
+        qf = qs[0]
+        order, q_sorted, probes, c_sel = tile_probes(qf, index.centroids, nprobe)
+        args = (q_sorted.bfloat16().contiguous(), index.codes, index.scales,
+                (probes * bpl).to(torch.int32).contiguous(), c_sel.contiguous())
+        cand = bits_scan(*args, **scan_kw)
+        _, pool_rows = search(qf, CAP_POOL, nprobe, None)
+        refine = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index._refine(qf, pool_rows, TOP_K)
+            torch.cuda.synchronize()
+            refine.append(1000 * (time.perf_counter() - t0))
+        bound = _scan_bound(args[3], bpl, block_n, d, Q_SCALE, cand[0].shape[1])
+        results[nprobe].update({
+            "probes_ms": cuda_ms(lambda: tile_probes(qf, index.centroids, nprobe)),
+            "k3_ms": cuda_ms(lambda: bits_scan(*args, **scan_kw)),
+            "k3_bound_ms": bound[0], **bound[2],
+            "tail_ms": cuda_ms(lambda: _candidates_topk(*cand, CAP_POOL, tail="fold")),
+            "refine_ms": float(np.mean(refine)),
+        })
+        if nprobe == 16:
+            table_args = args
+        del cand
+    state["capacity"] = {"once": once, "by_nprobe": results}
+    log(f"phase 5 (3M x d1024, Q 256, k 10 of pool 100, group_l 8): {json.dumps(results)}")
+    r16 = results[16]
+    if r16["recall@10"] < 0.95 or r16["pool@100"] < 0.95:
+        raise AssertionError(
+            f"phase 5: nprobe 16 recall@10 {r16['recall@10']} / pool@100 {r16['pool@100']} < 0.95")
+
+    # ---- kernel table rows: K3 on the nprobe-16 inputs, K4 on one append chunk
+    errs = state.get("max_abs_err", {})
+    kernel = lambda: bits_scan(*table_args, **scan_kw)
+    plain = lambda: _k3_plain(table_args, scan_kw)
+    err = _compare_k3(table_args, scan_kw, kernel(), plain())
+    n_cand = 16 * bpl * block_n // CAP_GROUP
+    bound = _scan_bound(table_args[3], bpl, block_n, d, Q_SCALE, n_cand)
+    k3_row = {
+        "name": "K3", "route": "cuda", "source": "intool_rag_tpu_torch/kernels/bits_scan.cu",
+        "replaces": "intool_rag_tpu/ops/bits_pallas.py:79",
+        "launches": state.get("launches", {}).get("K3"), "launches_scale": launches["K3"],
+        "max_abs_err": max(err, errs.get("K3", 0.0)),
+        "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+        "bound_ms": bound[0], "bound_by": bound[1], **bound[2],
+    }
+    # product-only library time: the probed blocks decoded to bf16 once, then
+    # one torch.bmm over the 32 tiles
+    codes3 = index.codes.reshape(-1, block_n, d // 8)
+    tiles = []
+    for t in range(Q_SCALE // 8):
+        blk = (table_args[3][t].long()[:, None] + torch.arange(bpl, device=dev)).reshape(-1)
+        per_slot = index.scales[blk].permute(0, 2, 1).reshape(-1, 8).abs()
+        tiles.append(decode_bits_planar(codes3[blk].reshape(-1, d // 8), per_slot).bfloat16())
+    decoded = torch.stack(tiles)  # [32, slots per tile, D]
+    del tiles
+    q_tiles = table_args[0].reshape(Q_SCALE // 8, 8, d)
+    k3_row["library_ms"] = cuda_ms(lambda: torch.bmm(q_tiles, decoded.transpose(1, 2)), iters=5, warmup=1)
+    del decoded
+    torch.cuda.empty_cache()
+    log(f"kernel {json.dumps(k3_row)}")
+
+    x = micro_chunk(1, centers, CAP_CHUNK)
+    k4_row = {
+        "name": "K4", "route": "cuda", "source": "intool_rag_tpu_torch/kernels/quant_stochastic.cu",
+        "replaces": "intool_rag_tpu/ops/quant.py:66",
+        # read from the wrapper's counter like every other row: null where no
+        # service ran. No served path calls the stochastic quantizer (nor does
+        # one in the JAX package), so a run's counters hold no K4 entry
+        "launches": state["launches"].get("K4", 0) if "launches" in state else None,
+        "launches_scale": launches.get("K4", 0),
+        "max_abs_err": errs["K4"] if "K4" in errs else _check_k4(dev),
+        "ms": cuda_ms(lambda: quantize_int8_stochastic(x, seed=1)),
+        "plain_ms": cuda_ms(lambda: quantize_int8_stochastic_reference(x, seed=1), iters=3, warmup=1),
+        "bound_ms": 1000 * (x.numel() * 5 + x.shape[0] * 4) / H100_HBM_BYTES_S, "bound_by": "bytes",
+        "library_ms": None,
+    }
+    log(f"kernel {json.dumps(k4_row)}")
+    state.setdefault("kernels", []).extend([k3_row, k4_row])
+
+
+PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4")
+    parser.add_argument("--phases", default="1,2,3,4,5")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -79,6 +79,10 @@ class Config:
     SEARCH_BLOCK_N: int = _field(lambda: _env_int("SEARCH_BLOCK_N", 16384))
     SHARDED_SEARCH: str = _field(lambda: _env_str("SHARDED_SEARCH", "auto"))
     USE_PALLAS: bool = _field(lambda: _env_bool("USE_PALLAS", True))
+    IVF_NLIST: int = _field(lambda: _env_int("IVF_NLIST", 1024))
+    IVF_NPROBE: int = _field(lambda: _env_int("IVF_NPROBE", 64))
+    # candidate pool the host int8 tier rescores exactly (0 = off)
+    IVF_REFINE_K: int = _field(lambda: _env_int("IVF_REFINE_K", 0))
 
     # --- BM25 ---
     BM25_K1: float = _field(lambda: _env_float("BM25_K1", 1.5))

@@ -1,14 +1,20 @@
 """Flat dense index over a ChunkStore (port of the flat branches of
 ``intool_rag_tpu/index/flat_index.py``).
 
-``flat_plan`` picks the branch: the fused kernels (K1 over the bf16/f32
-store, K2 over an int8 mirror with ``DENSE_INT8``) when ``USE_PALLAS`` is
-on and the metric is ``cosine``/``ip``, else the blocked scan of
-:func:`..ops.topk.flat_topk`. Scores are in the clamped-cosine space. The
-IVF, segmented, bits and sharded routes are not ported yet and raise.
+``flat_plan`` picks the flat branch: the fused kernels (K1 over the
+bf16/f32 store, K2 over an int8 mirror with ``DENSE_INT8``) when
+``USE_PALLAS`` is on and the metric is ``cosine``/``ip``, else the blocked
+scan of :func:`..ops.topk.flat_topk`. Scores are in the clamped-cosine
+space. With ``INDEX_KIND=bits`` a store of at least ``_IVF_MIN_ROWS`` rows
+searches through the 1-bit capacity tier (``bits_index.IVFBitsIndex``),
+kept in step with the store by incremental appends; smaller stores search
+flat. The ``ivf``, ``ivf_residual``, ``segmented`` and sharded routes are
+not ported yet and raise once a store is large enough to take them.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -65,9 +71,14 @@ def dense_dispatch(
 class DenseFlatIndex:
     """Dense search over the store's embedding matrix."""
 
+    # below this the IVF kinds search flat: too few rows per list to train
+    _IVF_MIN_ROWS = 4096
+
     def __init__(self, store: ChunkStore, metric: str = "cosine") -> None:
         self.store = store
         self.metric = metric
+        self._ivf = None  # the capacity-tier index, built on first routed search
+        self._ivf_store_ref = None
         self._q8 = None  # (codes int8, scales f32, residual | None) for DENSE_INT8
         self._q8_built_at = -1
 
@@ -89,19 +100,62 @@ class DenseFlatIndex:
             self._q8_built_at = self.store.mutation_count
         return self._q8
 
-    def routes_flat(self, cfg=None) -> bool:
-        """True when :meth:`flat_plan` describes the search. Raises for the
-        routes this port does not have yet."""
-        cfg = cfg or get_config()
-        if cfg.INDEX_KIND != "flat":
-            raise NotImplementedError(
-                f"INDEX_KIND={cfg.INDEX_KIND} is not ported yet (ROADMAP Queue A, capacity tiers)"
+    def _bits_index(self):
+        """Capacity tier (INDEX_KIND=bits): list-major binary-residual
+        store with streaming appends. Only the NEW rows are appended on a
+        store mutation; a rebuild (fresh k-means, capacity 4× the current
+        rows) happens only when the store object changes or the fixed
+        capacity is outgrown."""
+        from .bits_index import IVFBitsIndex
+
+        cfg = get_config()
+        store = self.store
+        need = store.valid_n
+        fresh = (
+            not isinstance(self._ivf, IVFBitsIndex)
+            or self._ivf_store_ref is None
+            or self._ivf_store_ref() is not store
+            or self._ivf.total_rows > need
+            or need > self._ivf.n_cap - self._ivf.nlist  # spill headroom
+        )
+        if fresh:
+            sample = store.embeddings[: min(need, 8 * cfg.IVF_NLIST)]
+            self._ivf = IVFBitsIndex.train(
+                sample, cfg.IVF_NLIST,
+                capacity=max(4 * need, 64 * cfg.IVF_NLIST),
+                refine=cfg.IVF_REFINE_K > 0, device=store.device,
             )
+            self._ivf_store_ref = weakref.ref(store)
+        idx = self._ivf
+        chunk = 500_000
+        for done in range(idx.total_rows, need, chunk):
+            idx.append(store.embeddings[done : min(done + chunk, need)])
+        return idx
+
+    def _routes_ivf(self, cfg, exact: bool | None) -> bool:
+        return (
+            cfg.INDEX_KIND in ("ivf", "ivf_residual", "segmented", "bits")
+            and exact is not True
+            and self.store.valid_n >= self._IVF_MIN_ROWS
+            and self.metric in ("cosine", "ip")
+        )
+
+    def routes_flat(self, cfg=None, *, exact: bool | None = None) -> bool:
+        """True when :meth:`search` takes a flat branch, so :meth:`flat_plan`
+        describes it; False when it goes through the capacity tier. Raises
+        for the routes this port does not have yet."""
+        cfg = cfg or get_config()
         if cfg.SHARDED_SEARCH == "on":
             raise NotImplementedError(
                 "SHARDED_SEARCH=on is not ported yet (ROADMAP Queue A, multi-device)"
             )
-        return True
+        if not self._routes_ivf(cfg, exact):
+            return True
+        if cfg.INDEX_KIND != "bits":
+            raise NotImplementedError(
+                f"INDEX_KIND={cfg.INDEX_KIND} is not ported yet (ROADMAP Queue A, capacity tiers)"
+            )
+        return False
 
     def search(self, query_embeddings: torch.Tensor, k: int, *, exact: bool | None = None):
         """Top-k over valid rows. Returns (scores [Q,k], rows [Q,k])."""
@@ -119,7 +173,14 @@ class DenseFlatIndex:
             query_embeddings = torch.nn.functional.pad(
                 query_embeddings, (0, store.dim_pad - store.dim)
             )
-        self.routes_flat()
+        cfg = get_config()
+        if not self.routes_flat(cfg, exact=exact):  # raises for the kinds not ported
+            ivf = self._bits_index()
+            kwargs = {"refine_k": cfg.IVF_REFINE_K} if cfg.IVF_REFINE_K > 0 else {}
+            vals, rows = ivf.search(query_embeddings, k, nprobe=cfg.IVF_NPROBE, **kwargs)
+            if self.metric == "cosine":
+                vals = clamp_cosine(vals)
+            return vals, rows
         arrays, statics = self.flat_plan(k, exact=exact)
         return dense_dispatch(query_embeddings, arrays, **statics)
 

@@ -2,8 +2,12 @@
 ``intool_rag_tpu/index/hybrid.py``).
 
 Dense candidates come from the flat index (the fused kernels on the
-card), sparse candidates from the BM25 postings ops; fusion is weighted
-(``VECTOR_WEIGHT``/``BM25_WEIGHT``) or RRF per ``FUSION_MODE``.
+card) or, with ``INDEX_KIND=bits``, from the capacity tier; sparse
+candidates from the BM25 postings ops; fusion is weighted
+(``VECTOR_WEIGHT``/``BM25_WEIGHT``) or RRF per ``FUSION_MODE``. Flat routes
+run as one function over device tensors (:func:`_fused_hybrid_search`); the
+capacity tier takes the staged path (dense search, then BM25, then fusion),
+since it manages its own host refine step.
 """
 
 from __future__ import annotations
@@ -114,19 +118,25 @@ class HybridEngine:
         k = min(k, kc)
         use_hybrid = (cfg.HYBRID_SEARCH_ENABLED if hybrid is None else hybrid) and self.bm25 is not None
         query_embeddings = query_embeddings.to(dev)
+        if use_hybrid and self.dense.routes_flat(cfg):
+            if query_embeddings.shape[1] not in (self.store.dim, self.store.dim_pad):
+                raise ValueError(
+                    f"query dim {query_embeddings.shape[1]} != store dim {self.store.dim}"
+                )
+            arrays, statics = self.dense.flat_plan(kc)
+            statics.pop("k")
+            qt, qf, b_arrays, b_statics = self.bm25.topk_plan(query_texts)
+            return _fused_hybrid_search(
+                query_embeddings, arrays, qt, qf, b_arrays, cfg.VECTOR_WEIGHT, cfg.BM25_WEIGHT,
+                k=k, kc=kc, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K, **statics, **b_statics,
+            )
+        # staged: dense-only searches and the capacity tier
+        d_vals, d_rows = self.dense.search(query_embeddings, kc)
         if not use_hybrid:
-            d_vals, d_rows = self.dense.search(query_embeddings, kc)
             d_rows = torch.where(torch.isfinite(d_vals), d_rows, -1)
             return d_vals[:, :k], d_rows[:, :k]
-        self.dense.routes_flat(cfg)
-        if query_embeddings.shape[1] not in (self.store.dim, self.store.dim_pad):
-            raise ValueError(
-                f"query dim {query_embeddings.shape[1]} != store dim {self.store.dim}"
-            )
-        arrays, statics = self.dense.flat_plan(kc)
-        statics.pop("k")
-        qt, qf, b_arrays, b_statics = self.bm25.topk_plan(query_texts)
-        return _fused_hybrid_search(
-            query_embeddings, arrays, qt, qf, b_arrays, cfg.VECTOR_WEIGHT, cfg.BM25_WEIGHT,
-            k=k, kc=kc, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K, **statics, **b_statics,
+        s_vals, s_rows = self.bm25.topk(query_texts, kc)
+        return _fuse(
+            d_vals, d_rows, s_vals, s_rows, k, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K,
+            w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT,
         )

@@ -85,7 +85,12 @@ class CorpusRegistry:
             self.engine = None
             return
         self.bm25 = BM25Index.build(self.store.texts, device=self.device)
-        self.engine = HybridEngine(self.store, self.bm25)
+        # the same store keeps its dense index, so the capacity tier appends
+        # the new rows instead of retraining and re-encoding the corpus
+        dense = self.engine.dense if self.engine else None
+        if dense is not None and dense.store is not self.store:
+            dense = None
+        self.engine = HybridEngine(self.store, self.bm25, dense=dense)
 
     def add_document(self, doc_id: str) -> int:
         """Load one persisted document into the live corpus (BM25 rebuilt

@@ -16,11 +16,12 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("flat_partial_topk.cu",)
+SOURCES = ("flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
@@ -68,14 +69,18 @@ def _build(source: str, target: Path) -> str:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library for ``source``, built first if needed."""
+    """The loaded library for ``source``. If it is not built yet, every
+    library of :data:`SOURCES` that is missing is built with it: one ``nvcc``
+    per source, all started together."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
             target = _target(source)
             if not target.exists():
-                BUILD_LOG[source] = _build(source, target)
+                missing = [s for s in dict.fromkeys((source, *SOURCES)) if not _target(s).exists()]
+                with ThreadPoolExecutor(max_workers=len(missing)) as pool:
+                    logs = list(pool.map(lambda s: _build(s, _target(s)), missing))
+                BUILD_LOG.update(zip(missing, logs))
             lib = ctypes.CDLL(str(target))
             _loaded[source] = lib
         return lib
-

@@ -72,7 +72,13 @@ class PageLevelRetriever:
     def retrieve_chunks(
         self, query: str, *, project: str | None = None, limit: int | None = None
     ) -> list[RetrievedChunk]:
-        return self.retrieve_chunks_batch([query], [project], limit=limit)[0]
+        """One query; the project filter applies inside the registry's
+        (4× over-fetched) candidate pool."""
+        cfg = get_config()
+        limit = limit or cfg.RETRIEVAL_CANDIDATES
+        hits = self.registry.search([query], self._embed([query]), limit, project=project)[0]
+        chunks = _chunks(hits)
+        return [c for c in chunks if c.score >= cfg.RETRIEVAL_MIN_SCORE] or chunks[:5]
 
     def retrieve_chunks_batch(
         self, queries: list[str], projects: list[str | None], *, limit: int | None = None
