@@ -1,8 +1,8 @@
 """Drives the PyTorch/CUDA port on one NVIDIA GPU and checks it.
 
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
-``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone).
-Phases:
+``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
+``1,2,6`` for ingest alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -18,7 +18,11 @@ Phases:
    gap is above 1e-5. K4 (``quantize_int8_stochastic``): scales bit-equal,
    every code at floor or floor+1, seeds repeatable and distinct, the
    64-seed mean unbiased, and the rounding-up rate within 3 sigma of the
-   plain version's.
+   plain version's. K5 (``flash_attention_segments``) at the shapes of
+   ``K5_CHECKS`` (f32 and bf16; S 128, 1024, 2048; B 1 and 3; H 16 and 6)
+   on every layout of ``_segment_layouts`` and on rows no key matches, and
+   at S 8192 one head at a time: atol 2e-5 (f32) and 2e-2 (bf16) on
+   unit-variance inputs; unsupported shapes must raise.
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
@@ -39,6 +43,29 @@ Phases:
    8/16/32. Recall@10 and pool@100 against a streamed exact-f32 oracle
    must be >= 0.95 at nprobe 16, and the dense side may launch K3 only.
    K3 and K4 then join the kernel table.
+6. ingest at full width: the ``bge_m3``-width encoder (24 x 1024, 16 heads,
+   bf16, ``flash_min_len`` 1024, random weights from a seed) behind the
+   port's HTTP service on a fresh ``STORAGE_DIR``, twice. Packed:
+   ``EMBED_PACKED=1 EMBED_PACK_WIDTH=2048``, eight form-feed-paginated
+   text files and one text PDF the script writes itself (Flate content
+   streams, a font readable only through its ToUnicode CMap) go through
+   ``POST /ingest``, one of them with ``mode=async`` and
+   ``GET /jobs/{id}``; a few hundred chunks at the default ``CHUNK_*``.
+   Long context: packing off and ``CHUNK_*_CHARS`` raised, so that pages
+   of 600-7,000 tokens stay whole and land in the 1024, 2048, 4096 and
+   8192 buckets. After each run K5 must have launched 24 times per
+   encoder forward at S >= 1024 and nothing else, its plain version not
+   at all, and peak device memory must lie far below one row's f32
+   logits at S 8192. Then ``/search`` must return the quoted chunk of
+   every document in the top 5 (the encoder's weights are random, so BM25
+   carries this: it gets weight 0.7), ``GET /documents/{id}`` must show
+   the tree, ``DELETE /documents/{id}`` must remove that document's
+   chunks from ``/search`` and leave the others, and the appended BM25
+   vocabulary must equal a fresh build's. The same batches embedded on
+   the K5 route and with ``flash_min_len=0``, and packed against padded,
+   must agree to cosine 0.999 row by row. K5's time per launch at each
+   shape, the encoder forward and K5's kernel-table rows (S 8192, with
+   the library's attention beside it) follow.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -239,6 +266,8 @@ def phase_kernels(state: dict) -> None:
         raise AssertionError("K3 accepted D=64, which it cannot tile")
     errs["K4"] = _check_k4(dev)
     checks += 1
+    for dt, err in _check_k5(dev).items():
+        errs[f"K5 {'bf16' if dt == 'bfloat16' else 'f32'}"] = err
     state["max_abs_err"] = errs
     log(f"phase 2: {checks} kernel-vs-plain checks passed; max |err| {json.dumps(errs)}")
 
@@ -379,6 +408,107 @@ def _check_k4(dev) -> float:
     return dev_max
 
 
+# (dtype, B, H, S) of the K5 checks; every segment layout of _segment_layouts runs at
+# each. The last four are the shapes the ingest runs of phase 6 give the kernel (its
+# fifth, B 4 at S 8192, is checked one head at a time below).
+K5_CHECKS = [
+    ("float32", 1, 16, 128), ("float32", 3, 6, 1024), ("float32", 1, 6, 2048),
+    ("bfloat16", 3, 16, 128), ("bfloat16", 1, 6, 1024), ("bfloat16", 3, 16, 1024),
+    ("bfloat16", 1, 16, 2048), ("bfloat16", 3, 6, 2048),
+    ("bfloat16", 2, 16, 2048), ("bfloat16", 4, 16, 1024), ("bfloat16", 4, 16, 2048),
+    ("bfloat16", 4, 16, 4096),
+]
+K5_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # on unit-variance q, k, v
+
+
+def _segment_layouts(rng: np.random.Generator, b: int, s: int) -> dict[str, np.ndarray]:
+    """Segment-id layouts ``[b, s]`` i32 the encoder can hand to K5: one
+    segment; the 0/1 mask of rows with a padded tail; packed rows of 1..12
+    segments with pads; 61-token segments, which straddle every 64-key tile
+    boundary and leave whole key tiles masked for most rows; the packed
+    layout with row 0 all pads."""
+    pos = np.arange(s)[None, :]
+    tail = (pos < rng.integers(1, s + 1, size=(b, 1))).astype(np.int32)
+    packed = np.zeros((b, s), np.int32)
+    for r in range(b):
+        p = int(rng.integers(1, 13))
+        used = int(rng.integers(max(p, s // 2), s + 1))
+        cuts = np.sort(rng.choice(np.arange(1, used), size=p - 1, replace=False)) if p > 1 else []
+        bounds = [0, *cuts, used]
+        for i in range(p):
+            packed[r, bounds[i] : bounds[i + 1]] = i + 1
+    straddle = np.broadcast_to(pos // 61 + 1, (b, s)).astype(np.int32).copy()
+    straddle[:, s - s // 10 :] = 0
+    pads = packed.copy()
+    pads[0] = 0
+    return {"one": np.ones((b, s), np.int32), "mask": tail, "packed": packed,
+            "straddle": straddle, "all-pad row": pads}
+
+
+def _check_k5(dev) -> dict[str, float]:
+    """K5 against its plain version on the card: max |diff| per dtype.
+    Raises beyond ``K5_ATOL``. S 8192 is compared one head at a time, so the
+    plain version's logits stay at 1.1 GB."""
+    from intool_rag_tpu_torch.ops.flash_attention import (
+        flash_attention_plain, flash_attention_segments,
+    )
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    checks = 0
+
+    def compare(name, q, k, v, seg_q, seg_kv):
+        nonlocal checks
+        out = flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, seg_q, seg_kv, 0.125)
+        err = (out.float() - want.float()).abs().max().item()
+        dt = str(q.dtype).split(".")[-1]
+        if not (torch.isfinite(out.float()).all() and err <= K5_ATOL[dt]):
+            raise AssertionError(f"K5 {dt} {tuple(q.shape)} layout {name!r}: max |diff| {err} > {K5_ATOL[dt]}")
+        errs[dt] = max(errs[dt], err)
+        checks += 1
+
+    for dt, b, h, s in K5_CHECKS:
+        dtype = getattr(torch, dt)
+        for name, seg_np in _segment_layouts(rng, b, s).items():
+            # the encoder's layout: [B, S, H*64] projections viewed as [B, H, S, 64]
+            q, k, v = (torch.randn((b, s, h, 64), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                       for _ in range(3))
+            seg = torch.as_tensor(seg_np, device=dev)
+            compare(name, q, k, v, seg, seg)
+        # rows whose segment id no key carries average v over every key
+        compare("no key for a row", q, k, v, torch.roll(seg, 37, dims=1).contiguous(), seg)
+    for dt in ("float32", "bfloat16"):
+        seg_np = _segment_layouts(rng, 4, 8192)
+        for name in ("mask", "packed"):
+            q, k, v = (torch.randn((4, 16, 8192, 64), generator=gen, device=dev).to(getattr(torch, dt))
+                       for _ in range(3))
+            seg = torch.as_tensor(seg_np[name], device=dev)
+            out = flash_attention_segments(q, k, v, seg, seg, 0.125)
+            torch.cuda.synchronize()
+            for head in (0, 7, 15):
+                want = flash_attention_plain(q[:, head : head + 1], k[:, head : head + 1],
+                                             v[:, head : head + 1], seg, seg, 0.125)
+                err = (out[:, head : head + 1].float() - want.float()).abs().max().item()
+                if err > K5_ATOL[dt]:
+                    raise AssertionError(f"K5 {dt} S 8192 {name} head {head}: max |diff| {err}")
+                errs[dt] = max(errs[dt], err)
+                checks += 1
+                del want
+    for bad, why in (((1, 2, 192, 64), "S % 128"), ((1, 2, 128, 32), "head dim")):
+        x = torch.zeros(bad, device=dev, dtype=torch.bfloat16)
+        try:  # an unsupported shape raises; it never takes the plain version
+            flash_attention_segments(x, x, x, *(torch.zeros(bad[0], bad[2], dtype=torch.int32, device=dev),) * 2, 0.125)
+        except ValueError:
+            continue
+        raise AssertionError(f"K5 accepted a shape it cannot tile ({why})")
+    torch.cuda.empty_cache()
+    log(f"phase 2 K5: {checks} kernel-vs-plain checks passed; max |err| {json.dumps(errs)}")
+    return errs
+
+
 # ------------------------------------------------------------------ phase 3
 
 ROOT = Path(__file__).resolve().parent
@@ -452,10 +582,11 @@ def _post(port: int, question: str) -> tuple[float, dict]:
 
 def _wrappers():
     from intool_rag_tpu_torch.ops.bits_scan import bits_scan
+    from intool_rag_tpu_torch.ops.flash_attention import flash_attention_segments
     from intool_rag_tpu_torch.ops.flat_fused import partial_topk, partial_topk_int8
     from intool_rag_tpu_torch.ops.quant import quantize_int8_stochastic
 
-    return partial_topk, partial_topk_int8, bits_scan, quantize_int8_stochastic
+    return partial_topk, partial_topk_int8, bits_scan, quantize_int8_stochastic, flash_attention_segments
 
 
 def _launches() -> dict[str, int]:
@@ -998,12 +1129,429 @@ def phase_capacity(state: dict) -> None:
     state.setdefault("kernels", []).extend([k3_row, k4_row])
 
 
-PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity}
+# ------------------------------------------------------------------ phase 6
+
+INGEST_SEED = 6
+PACKED_DOCS, PACKED_PAGES = 8, 12          # text files; plus one PDF of PDF_PAGES pages
+PDF_PAGES = 10
+PACK_WIDTH = 2048
+# pages (= chunks) of the long-context documents, in tokens: one document per
+# sequence bucket and one that mixes them
+LONG_DOCS = {
+    "long-1024": (620, 700, 840, 980), "long-2048": (1200, 1500, 1900),
+    "long-4096": (2300, 3000, 3900), "long-8192": (4500, 6500, 7000),
+    "long-mixed": (650, 1700, 3300, 5200),
+}
+LONG_BUCKETS = {1024, 2048, 4096, 8192}
+# layers, hidden, heads, flash_min_len, dtype, K5 variant: the bge_m3 configuration
+INGEST_WIDTH = (24, 1024, 16, 1024, "bfloat16", "K5 bf16")
+
+
+def _ingest_vocab(rng: np.random.Generator) -> list[str]:
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    return ["".join(rng.choice(letters, size=rng.integers(3, 10))) for _ in range(20_000)]
+
+
+def _sentences(rng, vocab, n_words: int) -> str:
+    """``n_words`` Zipf-distributed pseudo-words as sentences of 8-20 words."""
+    picks = (rng.zipf(1.3, size=n_words) - 1) % len(vocab)
+    out, pos = [], 0
+    while pos < n_words:
+        n = int(rng.integers(8, 21))
+        out.append(" ".join(vocab[w] for w in picks[pos : pos + n]).capitalize() + ".")
+        pos += n
+    return " ".join(out)
+
+
+def _paged_text(rng, vocab, pages: int, title: str) -> str:
+    """A text document paginated by form feeds: a numbered heading and a few
+    blank-line-separated paragraphs per page (about 3 default-size chunks)."""
+    out = []
+    for p in range(pages):
+        paras = [_sentences(rng, vocab, int(rng.integers(40, 110))) for _ in range(int(rng.integers(3, 6)))]
+        out.append(f"{p + 1}. {title} part {p + 1}\n\n" + "\n\n".join(paras))
+    return "\f".join(out)
+
+
+def _long_text(rng, vocab, page_tokens: tuple[int, ...]) -> str:
+    """One paragraph of about ``n`` tokens per page (the tokenizer drops stopwords
+    and one-letter words; the pseudo-words have three letters or more)."""
+    return "\f".join(f"{i + 1}. Section {i + 1}\n\n" + _sentences(rng, vocab, n - 6)
+                     for i, n in enumerate(page_tokens))
+
+
+def _text_pdf(page_texts: list[str]) -> bytes:
+    """A text PDF: Flate content streams and one font whose codes only its
+    ToUnicode CMap maps to text (shown as hex strings), classic xref table."""
+    import zlib
+
+    def flate(data: bytes) -> bytes:
+        z = zlib.compress(data)
+        return b"<< /Length %d /Filter /FlateDecode >>\nstream\n" % len(z) + z + b"\nendstream"
+
+    chars = sorted({c for t in page_texts for c in t if c != "\n"})
+    code = {c: 0x21 + i for i, c in enumerate(chars)}
+    bfchar = "\n".join(f"<{code[c]:02X}> <{ord(c):04X}>" for c in chars)
+    cmap = (
+        "/CIDInit /ProcSet findresource begin 12 dict begin begincmap\n"
+        "/CMapName /Adobe-Identity-UCS def /CMapType 2 def\n"
+        "1 begincodespacerange <00> <FF> endcodespacerange\n"
+        f"{len(chars)} beginbfchar\n{bfchar}\nendbfchar\n"
+        "endcmap CMapName currentdict /CMap defineresource pop end end\n"
+    ).encode()
+    n = len(page_texts)
+    pages_id, catalog = 3 + 2 * n, 4 + 2 * n
+    bodies = {1: b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica /ToUnicode 2 0 R >>", 2: flate(cmap)}
+    for i, text in enumerate(page_texts):
+        ops = [b"BT /F1 10 Tf 72 760 Td 12 TL"]
+        for j, line in enumerate(text.split("\n")):
+            ops.append((b"T* " if j else b"") + b"<" + "".join(f"{code[c]:02X}" for c in line).encode() + b"> Tj")
+        ops.append(b"ET")
+        bodies[3 + i] = flate(b"\n".join(ops))
+        bodies[3 + n + i] = (b"<< /Type /Page /Parent %d 0 R /MediaBox [0 0 612 792] /Resources << /Font "
+                             b"<< /F1 1 0 R >> >> /Contents %d 0 R >>" % (pages_id, 3 + i))
+    kids = b" ".join(b"%d 0 R" % (3 + n + i) for i in range(n))
+    bodies[pages_id] = b"<< /Type /Pages /Kids [%s] /Count %d >>" % (kids, n)
+    bodies[catalog] = b"<< /Type /Catalog /Pages %d 0 R >>" % pages_id
+    out, offsets = bytearray(b"%PDF-1.4\n"), {}
+    for num in sorted(bodies):
+        offsets[num] = len(out)
+        out += b"%d 0 obj\n" % num + bodies[num] + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % (catalog + 1)
+    for num in range(1, catalog + 1):
+        out += b"%010d 00000 n \n" % offsets[num]
+    out += b"trailer\n<< /Size %d /Root %d 0 R >>\nstartxref\n%d\n%%%%EOF" % (catalog + 1, catalog, xref)
+    return bytes(out)
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None, ctype: str | None = None) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    with urllib.request.urlopen(req, timeout=600) as resp:  # a status of 400 and above raises
+        return json.loads(resp.read())
+
+
+def _upload(port: int, project: str, doc_id: str, name: str, data: bytes, mode: str = "sync") -> dict:
+    boundary = "----chipsmoke6"
+    body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{name}"\r\n'
+            "Content-Type: application/octet-stream\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    path = f"/ingest?project={project}&doc_id={doc_id}" + ("&mode=async" if mode == "async" else "")
+    out = _http(port, "POST", path, body, f"multipart/form-data; boundary={boundary}")
+    if mode != "async":
+        if not out["success"]:
+            raise AssertionError(f"/ingest of {name} failed: {out}")
+        return out
+    deadline = time.time() + 600
+    while time.time() < deadline:
+        job = _http(port, "GET", f"/jobs/{out['job_id']}")
+        if job["status"] in ("done", "failed"):
+            break
+        time.sleep(0.05)
+    if job["status"] != "done":
+        raise AssertionError(f"async ingest of {name} ended as {job}")
+    return job["result"]
+
+
+def _k5_bound(seg: torch.Tensor, heads: int, elem: int) -> dict:
+    """Least time (ms) for K5 on these segment ids: the operations are
+    4 x 64 per (query, key) pair of equal id and per head, over the bf16
+    tensor-core rate (f32: the CUDA-core rate); the bytes q, k, v and the
+    output once plus both id arrays. ``dense_ms`` counts every pair."""
+    b, s = seg.shape
+    pairs = sum(int((torch.bincount(row) ** 2).sum()) for row in seg.long())
+    peak = H100_PEAK["bf16" if elem == 2 else "f32"]
+    t_bytes = (4 * b * heads * s * 64 * elem + 2 * 4 * b * s) / H100_HBM_BYTES_S
+    t_ops = 4.0 * heads * 64 * pairs / peak
+    return {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dense_bound_ms": 1000 * max(t_bytes, 4.0 * heads * 64 * b * s * s / peak)}
+
+
+def _k5_inputs(seg: torch.Tensor, heads: int, dtype, gen):
+    b, s = seg.shape
+    return [torch.randn((b, s, heads, 64), generator=gen, device=seg.device).to(dtype).transpose(1, 2)
+            for _ in range(3)]
+
+
+def _cosine_rows(a: np.ndarray, b: np.ndarray) -> float:
+    return float(((a * b).sum(axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+
+
+def _ingest_run(label: str, env: dict, encoder, uploads: list, forwards: list) -> dict:
+    """One service on a fresh STORAGE_DIR: ingest ``uploads`` through
+    ``POST /ingest``, check the counters, then serve ``/search``,
+    ``GET /documents/{id}`` and ``DELETE /documents/{id}``."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.index.bm25_index import BM25Index
+    from intool_rag_tpu_torch.ops.flash_attention import flash_attention_plain
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
+        os.environ.update({"STORAGE_DIR": tmp, "INDEX_DTYPE": "bfloat16", "INDEX_KIND": "flat",
+                           "IVF_REFINE_K": "0", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0",
+                           "USE_PALLAS": "1", "LLM_PROVIDER": "heuristic",
+                           # the encoder's weights are random, so its CLS vectors lie within rounding
+                           # of each other and the dense rank is noise: BM25 carries the quoted
+                           # chunk, and gets the larger weight so that a chunk outside the dense
+                           # candidates still wins the fusion
+                           "BM25_WEIGHT": "0.7", "VECTOR_WEIGHT": "0.3", **env})
+        config.reset_config()
+        provider = CudaEmbeddingProvider(encoder, model_name="bge_m3-width-random")  # reads EMBED_PACKED
+        service = RAGService(provider, device=DEVICE)
+        server = ServiceServer(service, host="127.0.0.1", port=0)
+        server.start_background()
+        try:
+            # ---- the main path: counts set to 0 just before, read just after
+            _reset_launches()
+            flash_attention_plain.calls.reset()
+            forwards.clear()
+            torch.cuda.reset_peak_memory_stats()
+            timings = {"host": 0.0, "embed": 0.0, "persist": 0.0, "append": 0.0}
+            t0 = time.perf_counter()
+            chunks = 0
+            for project, doc_id, name, data, mode in uploads:
+                out = _upload(server.port, project, doc_id, name, data, mode)
+                chunks += out["total_chunks"] if mode == "sync" else out["chunk_count"]
+                for key in timings:  # one worker: the document just ingested is the last one
+                    timings[key] += service.last_ingest_timings[key]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ingest_forwards = list(forwards)
+            launches = _launches()
+            plain_calls = flash_attention_plain.calls.count
+            peak_mb = torch.cuda.max_memory_allocated() / 1e6
+
+            long_forwards = [f for f in ingest_forwards if f[1] >= 1024]
+            if not long_forwards or launches.get(INGEST_WIDTH[5], 0) != INGEST_WIDTH[0] * len(long_forwards):
+                raise AssertionError(
+                    f"{label}: K5 launched {launches.get(INGEST_WIDTH[5], 0)} times for {len(long_forwards)} "
+                    f"encoder forwards at S >= 1024 (expected {INGEST_WIDTH[0]} each)")
+            if plain_calls or set(launches) != {INGEST_WIDTH[5]}:
+                raise AssertionError(f"{label}: ingest called the plain version {plain_calls} times, "
+                                     f"launched {launches}")
+            logits_mb = 16 * 8192 * 8192 * 4 / 1e6  # one row's [16, S, S] f32 at S 8192
+            if peak_mb > 0.75 * logits_mb:
+                raise AssertionError(f"{label}: peak device memory {peak_mb:.0f} MB is not far below "
+                                     f"the {logits_mb:.0f} MB of one row's f32 logits at S 8192")
+
+            store = service.registry.store
+            tokens = int(sum(provider.tokenizer.encode_batch(store.texts[i : i + 64])[1].sum()
+                             for i in range(0, len(store), 64)))
+            row_tokens = sum(b * s for b, s in ingest_forwards)
+            if len(store) != chunks:
+                raise AssertionError(f"{label}: {chunks} chunks ingested, {len(store)} in the live corpus")
+            fresh_vocab = len(BM25Index.build(store.texts, device=DEVICE).vocab)
+            if service.registry.stats()["bm25_vocab"] != fresh_vocab:
+                raise AssertionError(f"{label}: appended BM25 vocabulary != a fresh build's {fresh_vocab}")
+
+            # ---- it serves: a quote of one chunk per document comes back in the top 5
+            _reset_launches()
+            rng = np.random.default_rng(INGEST_SEED)
+            doc_ids = [u[1] for u in uploads]
+            quotes = {}
+            for doc_id in doc_ids:
+                rows = store.rows_for_doc(doc_id)
+                row = rows[int(rng.integers(len(rows)))]
+                quotes[doc_id] = (store.chunk_ids[row], store.texts[row])
+
+            def check_found(doc_id):
+                hits = _http(server.port, "POST", "/search", json.dumps({"question": quotes[doc_id][1]}).encode(),
+                             "application/json")["hits"]
+                top = [(h["doc_id"], h["chunk_id"]) for h in hits[:5]]
+                if (doc_id, quotes[doc_id][0]) not in top:
+                    raise AssertionError(f"{label}: quoted chunk {(doc_id, quotes[doc_id][0])} not in top 5 {top}")
+                return hits
+
+            for doc_id in doc_ids:
+                check_found(doc_id)
+            detail = _http(server.port, "GET", f"/documents/{doc_ids[0]}")
+            if not detail["nodes"] or detail["chunk_count"] < 1:
+                raise AssertionError(f"{label}: GET /documents/{doc_ids[0]} shows no tree: {detail}")
+            victim = doc_ids[1]
+            if _http(server.port, "DELETE", f"/documents/{victim}") != {"deleted": victim}:
+                raise AssertionError(f"{label}: DELETE /documents/{victim} failed")
+            hits = _http(server.port, "POST", "/search", json.dumps({"question": quotes[victim][1]}).encode(),
+                         "application/json")["hits"]
+            if any(h["doc_id"] == victim for h in hits):
+                raise AssertionError(f"{label}: deleted document {victim} still comes back from /search")
+            for doc_id in doc_ids:
+                if doc_id != victim:
+                    check_found(doc_id)
+            search_launches = _launches()
+            if "K1 bf16 precise" not in search_launches:
+                raise AssertionError(f"{label}: /search after ingest launched {search_launches}, not K1")
+            texts_by_doc = {d: [store.texts[r] for r in store.rows_for_doc(d)] for d in doc_ids}
+        finally:
+            server.shutdown()
+            service.tasks.shutdown()
+    out = {
+        "run": label, "documents": len(uploads), "chunks": chunks, "tokens": tokens,
+        "encoder_forwards": len(ingest_forwards), "forwards_at_s_ge_1024": len(long_forwards),
+        "forward_shapes": sorted({f for f in ingest_forwards}),
+        "real_token_share": tokens / row_tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "host_s": timings["host"], "embed_s": timings["embed"],
+        "persist_append_s": timings["persist"] + timings["append"],
+        "k5_launches": launches[INGEST_WIDTH[5]], "plain_calls": plain_calls, "peak_mb": peak_mb,
+        "search_launches": search_launches,
+    }
+    log(f"phase 6 {label}: {json.dumps(out)}")
+    out["texts_by_doc"] = texts_by_doc
+    return out
+
+
+def phase_ingest(state: dict) -> None:
+    import dataclasses
+
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.ops.flash_attention import flash_attention_plain
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(INGEST_SEED)
+    cfg = EncoderConfig.bge_m3()
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.flash_min_len, cfg.dtype) != INGEST_WIDTH[:5]:
+        raise AssertionError(f"phase 6 expects the bge_m3 width, got {cfg}")
+    encoder = TextEncoder(cfg, device=dev).init_random(gen).eval()
+    forwards: list[tuple[int, int]] = []
+    encoder.register_forward_pre_hook(lambda _m, args: forwards.append(tuple(args[0].shape)))
+
+    rng = np.random.default_rng(INGEST_SEED)
+    vocab = _ingest_vocab(rng)
+    packed_uploads = [
+        (f"project{d % 2}", f"text{d:02d}", f"text{d:02d}.txt",
+         _paged_text(rng, vocab, PACKED_PAGES, f"Report {d}").encode(), "async" if d == 2 else "sync")
+        for d in range(PACKED_DOCS)
+    ]
+    pdf_pages = [f"{p + 1}. Invoice part {p + 1}\n" + "\n".join(
+        _sentences(rng, vocab, int(rng.integers(60, 120))) for _ in range(4)) for p in range(PDF_PAGES)]
+    packed_uploads.append(("project0", "pdf00", "invoice.pdf", _text_pdf(pdf_pages), "sync"))
+    long_uploads = [(f"project{i % 2}", name, f"{name}.txt", _long_text(rng, vocab, pages).encode(),
+                     "async" if i == 1 else "sync") for i, (name, pages) in enumerate(LONG_DOCS.items())]
+
+    packed = _ingest_run("packed ingest", {"EMBED_PACKED": "1", "EMBED_PACK_WIDTH": str(PACK_WIDTH)},
+                         encoder, packed_uploads, forwards)
+    if not 200 <= packed["chunks"] <= 1000 or not all(1024 <= s <= PACK_WIDTH for _, s in packed["forward_shapes"]):
+        raise AssertionError(f"phase 6 packed ingest: {packed['chunks']} chunks in rows {packed['forward_shapes']}")
+    long = _ingest_run("long-context ingest",
+                       {"EMBED_PACKED": "0", "CHUNK_MAX_CHARS": "200000", "CHUNK_TARGET_CHARS": "200000"},
+                       encoder, long_uploads, forwards)
+    if {s for _, s in long["forward_shapes"]} != LONG_BUCKETS:
+        raise AssertionError(f"phase 6 long-context ingest: buckets {long['forward_shapes']}")
+
+    # ---- same answers both ways (not the main path): the K5 route against the
+    # same weights with flash_min_len = 0 (pair-mask / key-mask route), and
+    # packed against padded
+    os.environ.update({"EMBED_PACKED": "1", "EMBED_PACK_WIDTH": str(PACK_WIDTH)})
+    enc0 = TextEncoder(dataclasses.replace(cfg, flash_min_len=0), device=dev).eval()
+    enc0.load_state_dict(encoder.state_dict())
+    k5_packed, mask_packed = CudaEmbeddingProvider(encoder), CudaEmbeddingProvider(enc0)
+    os.environ["EMBED_PACKED"] = "0"
+    k5_padded, mask_padded = CudaEmbeddingProvider(encoder), CudaEmbeddingProvider(enc0)
+    sample = [t for texts in packed["texts_by_doc"].values() for t in texts[:6]]
+    long_sample = [t for d in ("long-1024", "long-2048") for t in long["texts_by_doc"][d]]
+    flash_attention_plain.calls.reset()
+    a = k5_packed.embed_batch(sample)
+    cos = {
+        "packed: K5 vs pair mask": _cosine_rows(a, mask_packed.embed_batch(sample)),
+        "packed (K5) vs padded": _cosine_rows(a, k5_padded.embed_batch(sample)),
+        "long (S <= 2048): K5 vs key mask": _cosine_rows(k5_padded.embed_batch(long_sample),
+                                                         mask_padded.embed_batch(long_sample)),
+    }
+    log(f"phase 6 same answers both ways, min cosine over rows: {json.dumps(cos)}")
+    if min(cos.values()) < 0.999 or flash_attention_plain.calls.count:
+        raise AssertionError(f"phase 6: routes disagree (cosine {cos}) or the plain version ran")
+    del enc0, mask_packed, mask_padded
+    torch.cuda.empty_cache()
+
+    for run in (packed, long):
+        run.pop("texts_by_doc")
+    state["ingest"] = {"packed": packed, "long": long, "cosine": cos}
+    _k5_times_and_rows(state, encoder, gen)
+
+
+def _k5_times_and_rows(state: dict, encoder, gen) -> None:
+    """K5 per launch at each shape the ingest runs gave it, the encoder
+    forward, and K5's rows of the kernel table (not the main path)."""
+    from intool_rag_tpu_torch.ops.flash_attention import (
+        flash_attention_plain, flash_attention_segments,
+    )
+
+    dev, cfg = torch.device(DEVICE), encoder.config
+    packed, long = state["ingest"]["packed"], state["ingest"]["long"]
+    k5_times = []
+    shapes = sorted({f for f in packed["forward_shapes"] + long["forward_shapes"]})
+    for b, s in shapes:
+        if (b, s) in packed["forward_shapes"]:  # a packed row: ~100-token segments
+            seg = (torch.arange(s, device=dev) // 100 + 1).to(torch.int32).repeat(b, 1)
+        else:
+            seg = (torch.arange(s, device=dev)[None] < int(0.8 * s)).to(torch.int32).repeat(b, 1)
+        q, k, v = _k5_inputs(seg, 16, torch.bfloat16, gen)
+        ms = cuda_ms(lambda: flash_attention_segments(q, k, v, seg, seg, 0.125), iters=5, warmup=1)
+        k5_times.append({"B": b, "S": s, "ms": ms, **_k5_bound(seg, 16, 2)})
+    log(f"phase 6 K5 per launch: {json.dumps(k5_times)}")
+    fwd = {}
+    for b, s in ((4, 2048), (1, 8192)):
+        ids = torch.randint(4, cfg.vocab_size, (b, s), generator=gen, device=dev, dtype=torch.int32)
+        mask = torch.ones_like(ids)
+        with torch.no_grad():
+            fwd[f"S{s}_B{b}_ms"] = cuda_ms(lambda: encoder(ids, mask), iters=3, warmup=1)
+    log(f"phase 6 encoder forward (bge_m3 width, bf16): {json.dumps(fwd)}")
+
+    # ---- kernel table rows: the long-context shape (one row of S 8192, the 0/1
+    # mask of a 6,500-token chunk as segment ids), bf16 and f32
+    seg = (torch.arange(8192, device=dev)[None] < 6500).to(torch.int32)
+    pair = (seg[:, None, :, None] == seg[:, None, None, :])
+    rows = []
+    for dt, name in ((torch.bfloat16, "K5 bf16"), (torch.float32, "K5 f32")):
+        q, k, v = (x.contiguous() for x in _k5_inputs(seg, 16, dt, gen))
+        kernel = lambda: flash_attention_segments(q, k, v, seg, seg, 0.125)
+        plain = lambda: flash_attention_plain(q, k, v, seg, seg, 0.125)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=pair, scale=0.125)
+        err = (kernel().float() - plain().float()).abs().max().item()
+        lib_err = (kernel().float() - library().float()).abs().max().item()  # reported, not a bar
+        if err > K5_ATOL[str(dt).split(".")[-1]]:
+            raise AssertionError(f"{name} at S 8192: |kernel - plain| {err}")
+        torch.cuda.empty_cache()
+        row = {
+            "name": name, "route": "cuda", "source": "intool_rag_tpu_torch/kernels/flash_attention.cu",
+            "replaces": "intool_rag_tpu/models/encoder.py:138",
+            # main path: the two ingest runs of this phase; the f32 variant serves f32 encoders only
+            "launches": (packed["k5_launches"] + long["k5_launches"]) if dt == torch.bfloat16 else None,
+            "max_abs_err": max(err, state.get("max_abs_err", {}).get(name, 0.0)),
+            "ms": cuda_ms(kernel, iters=5, warmup=1), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            **_k5_bound(seg, 16, q.element_size()),
+            "library_ms": cuda_ms(library, iters=5, warmup=1), "max_abs_diff_library": lib_err,
+        }
+        if dt == torch.bfloat16:  # the library call at the packed rows' width too
+            seg2 = (torch.arange(2048, device=dev) // 100 + 1).to(torch.int32).repeat(4, 1)
+            q2, k2, v2 = (x.contiguous() for x in _k5_inputs(seg2, 16, dt, gen))
+            pair2 = (seg2[:, None, :, None] == seg2[:, None, None, :])
+            row["s2048_b4"] = {
+                "ms": cuda_ms(lambda: flash_attention_segments(q2, k2, v2, seg2, seg2, 0.125), iters=5, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q2, k2, v2, attn_mask=pair2, scale=0.125), iters=5, warmup=1),
+                **_k5_bound(seg2, 16, 2),
+            }
+        rows.append(row)
+        log(f"kernel {json.dumps(row)}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    state["ingest"].update({"k5_per_launch": k5_times, "forward": fwd})
+    state.setdefault("kernels", []).extend(rows)
+
+
+PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
+          6: phase_ingest}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5")
+    parser.add_argument("--phases", default="1,2,3,4,5,6")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -40,6 +40,7 @@ class Config:
     """Runtime configuration; every field has an env-var override."""
 
     # --- Embedding ---
+    EMBEDDING_MODEL: str = _field(lambda: _env_str("EMBEDDING_MODEL", "BAAI/bge-m3"))
     EMBEDDING_BATCH_SIZE: int = _field(lambda: _env_int("EMBEDDING_BATCH_SIZE", 64))
     EMBEDDING_CHECKPOINT: str = _field(lambda: _env_str("EMBEDDING_CHECKPOINT", ""))
     EMBEDDING_QUERY_INSTRUCTION: str = _field(
@@ -51,6 +52,15 @@ class Config:
     EMBEDDING_PASSAGE_INSTRUCTION: str = _field(
         lambda: _env_str("EMBEDDING_PASSAGE_INSTRUCTION", "")
     )
+
+    # --- Semantic analysis at ingest ---
+    LLM_PROVIDER: str = _field(lambda: _env_str("LLM_PROVIDER", ""))
+
+    # --- Chunking ---
+    CHUNK_MAX_CHARS: int = _field(lambda: _env_int("CHUNK_MAX_CHARS", 1000))
+    CHUNK_MIN_CHARS: int = _field(lambda: _env_int("CHUNK_MIN_CHARS", 100))
+    CHUNK_TARGET_CHARS: int = _field(lambda: _env_int("CHUNK_TARGET_CHARS", 600))
+    CHUNK_OVERLAP_CHARS: int = _field(lambda: _env_int("CHUNK_OVERLAP_CHARS", 0))
 
     # --- Retrieval ---
     RETRIEVAL_CANDIDATES: int = _field(lambda: _env_int("RETRIEVAL_CANDIDATES", 50))
@@ -96,6 +106,15 @@ class Config:
         lambda: _env_float("QUERY_MICRO_BATCH_WINDOW_MS", 2.0)
     )
     QUERY_MAX_BATCH: int = _field(lambda: _env_int("QUERY_MAX_BATCH", 64))
+
+    @property
+    def UPLOAD_DIR(self) -> Path:
+        return self.STORAGE_DIR / "uploads"
+
+    def ensure_dirs(self) -> None:
+        """Create the storage directories (explicit, not at import)."""
+        for d in (self.STORAGE_DIR, self.UPLOAD_DIR):
+            d.mkdir(parents=True, exist_ok=True)
 
 
 _config: Config | None = None

@@ -11,3 +11,19 @@ class VectorStoreError(RAGError):
 
 class IndexNotFoundError(VectorStoreError):
     pass
+
+
+class IngestError(RAGError):
+    pass
+
+
+class DocumentLoadError(IngestError):
+    pass
+
+
+class UnsupportedFormatError(DocumentLoadError):
+    pass
+
+
+class PDFParseError(DocumentLoadError):
+    pass

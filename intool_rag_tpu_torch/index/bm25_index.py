@@ -16,6 +16,8 @@ Postings are impact-ordered (descending weight) per term, capped at
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,6 +52,8 @@ class BM25Params:
 
 class BM25Index:
     """Sparse keyword index over a chunk corpus."""
+
+    _counted = None  # counted-term representation (lets append() extend the index)
 
     def __init__(
         self,
@@ -91,7 +95,41 @@ class BM25Index:
         cls, texts: list[str], params: BM25Params | None = None, device: str | torch.device | None = None
     ) -> "BM25Index":
         params = params or BM25Params.from_config()
-        return cls._from_counts(cls._count_terms(texts), len(texts), params, device)
+        counted = cls._count_terms(texts)
+        index = cls._from_counts(counted, len(texts), params, device)
+        index._counted = counted  # kept for incremental append
+        return index
+
+    def append(self, texts: list[str]) -> "BM25Index":
+        """Incremental extension: tokenize only the NEW texts, merge the
+        counted representations, and rebuild the postings vectorized; idf and
+        avgdl are recomputed exactly over the union. Returns a new index on
+        the same device (the old one stays valid)."""
+        if not texts:
+            return self
+        if self._counted is None:
+            raise ValueError("index was loaded without counts; rebuild instead")
+        old_vocab, old_df, old_indptr, old_terms, old_counts, old_len = self._counted
+        new_vocab, new_df, new_indptr, new_terms, new_counts, new_len = self._count_terms(texts)
+        # merge the vocabularies (both sorted) and remap both term-id spaces
+        merged = sorted(set(old_vocab) | set(new_vocab))
+        merged_pos = {t: i for i, t in enumerate(merged)}
+        old_map = np.asarray([merged_pos[t] for t in old_vocab], np.int32)
+        new_map = np.asarray([merged_pos[t] for t in new_vocab], np.int32)
+        pair_terms = np.concatenate([
+            old_map[old_terms] if len(old_terms) else old_terms,
+            new_map[new_terms] if len(new_terms) else new_terms,
+        ])
+        df = np.zeros(len(merged), np.int32)
+        df[old_map] += old_df  # each map is injective, so plain indexing adds once per term
+        df[new_map] += new_df
+        counted = (
+            merged, df, np.concatenate([old_indptr, new_indptr[1:] + old_indptr[-1]]), pair_terms,
+            np.concatenate([old_counts, new_counts]), np.concatenate([old_len, new_len]),
+        )
+        index = self._from_counts(counted, len(old_len) + len(new_len), self.params, self.device)
+        index._counted = counted
+        return index
 
     @staticmethod
     def _count_terms(texts: list[str]):
@@ -210,3 +248,37 @@ class BM25Index:
         qt = torch.as_tensor(qt_np, device=self.device)
         qf = torch.as_tensor(qf_np, device=self.device)
         return qt, qf, arrays, statics
+
+    # ---------------- persistence (the JAX package's files) ----------------
+
+    def save(self, path: Path | str) -> None:
+        """``<path>.npz`` (arrays) + ``<path>.meta.json``, as the JAX
+        package's ``BM25Index.save`` writes them."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            path,
+            term_start=self.term_start.cpu().numpy(), term_len=self.term_len.cpu().numpy(),
+            post_docs=self.post_docs.cpu().numpy(), post_w=self.post_w.cpu().numpy(),
+            idf=self.idf.cpu().numpy(),
+        )
+        meta = {
+            "n_docs": self.n_docs, "avgdl": self.avgdl, "k1": self.params.k1, "b": self.params.b,
+            "p_max": self.params.p_max, "vocab": self.vocab,
+        }
+        Path(str(path) + ".meta.json").write_text(json.dumps(meta, ensure_ascii=False), encoding="utf-8")
+
+    @classmethod
+    def load(cls, path: Path | str, device: str | torch.device | None = None) -> "BM25Index":
+        """An index either package saved. It comes without counts, so it
+        searches but cannot :meth:`append`."""
+        path = Path(path)
+        meta = json.loads(Path(str(path) + ".meta.json").read_text(encoding="utf-8"))
+        with np.load(f"{path}.npz") as arrays:
+            return cls(
+                vocab=meta["vocab"], term_start=arrays["term_start"], term_len=arrays["term_len"],
+                post_docs=arrays["post_docs"], post_w=arrays["post_w"], idf=arrays["idf"],
+                n_docs=meta["n_docs"],
+                params=BM25Params(k1=meta["k1"], b=meta["b"], p_max=meta["p_max"]),
+                avgdl=meta["avgdl"], device=device,
+            )

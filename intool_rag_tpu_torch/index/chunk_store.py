@@ -10,7 +10,9 @@ blocks divide N; ``valid_n`` masks the tail. D pads to 128.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,6 +51,7 @@ class ChunkStore:
             )
         self.dim = dim
         self.dim_pad = _round_up(dim, _DIM_BLOCK)
+        self._dtype_name = dtype
         self.dtype = _DTYPES[dtype]
         self.device = resolve_device(device)
         self.valid_n = 0
@@ -73,6 +76,9 @@ class ChunkStore:
 
     def ref(self, row: int) -> ChunkRef:
         return ChunkRef(self.doc_ids[row], self.chunk_ids[row], int(self.pages[row]))
+
+    def rows_for_doc(self, doc_id: str) -> list[int]:
+        return [i for i, d in enumerate(self.doc_ids) if d == doc_id]
 
     def append(
         self,
@@ -109,3 +115,64 @@ class ChunkStore:
         self.pages = np.concatenate([self.pages, np.asarray(pages, np.int32)])
         self.texts.extend(texts)
         self.mutation_count += 1
+
+    def without_doc(self, doc_id: str) -> tuple["ChunkStore", int]:
+        """Copy-on-write removal: ``(new store without the doc's rows, rows
+        removed)``. This store is untouched, so a search that holds it keeps
+        a consistent row ↔ identity mapping. The kept rows are gathered on
+        the device."""
+        keep = [i for i, d in enumerate(self.doc_ids) if d != doc_id]
+        removed = self.valid_n - len(keep)
+        if removed == 0:
+            return self, 0
+        new = ChunkStore(self.dim, self._dtype_name, device=self.device)
+        new._embeddings = torch.zeros(
+            (_round_up(max(len(keep), 1), _ROW_BLOCK), self.dim_pad), dtype=self.dtype, device=self.device
+        )
+        new._embeddings[: len(keep)] = self._embeddings[torch.as_tensor(keep, dtype=torch.long, device=self.device)]
+        new.doc_ids = [self.doc_ids[i] for i in keep]
+        new.chunk_ids = [self.chunk_ids[i] for i in keep]
+        new.pages = self.pages[keep]
+        new.texts = [self.texts[i] for i in keep]
+        new.valid_n = len(keep)
+        new.mutation_count = self.mutation_count + 1
+        return new, removed
+
+    # ---------------- persistence (the JAX package's files) ----------------
+
+    def save(self, path: Path | str) -> None:
+        """``<path>.npz`` (f32 embeddings, pages) + ``<path>.meta.json``, as
+        the JAX package's ``ChunkStore.save`` writes them."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            path,
+            embeddings=self._embeddings[: self.valid_n, : self.dim].float().cpu().numpy(),
+            pages=self.pages,
+        )
+        meta = {
+            "dim": self.dim, "dtype": self._dtype_name, "valid_n": self.valid_n,
+            "doc_ids": self.doc_ids, "chunk_ids": self.chunk_ids, "texts": self.texts,
+        }
+        Path(str(path) + ".meta.json").write_text(json.dumps(meta, ensure_ascii=False), encoding="utf-8")
+
+    @classmethod
+    def load(cls, path: Path | str, device: str | torch.device | None = None) -> "ChunkStore":
+        """A store either package saved, on ``device``."""
+        path = Path(path)
+        meta = json.loads(Path(str(path) + ".meta.json").read_text(encoding="utf-8"))
+        store = cls(dim=meta["dim"], dtype=meta["dtype"], device=device)
+        with np.load(f"{path}.npz") as arrays:
+            emb, pages = arrays["embeddings"], arrays["pages"]
+        n = emb.shape[0]
+        if n:
+            store._embeddings = torch.zeros(
+                (_round_up(n, _ROW_BLOCK), store.dim_pad), dtype=store.dtype, device=store.device
+            )
+            store._embeddings[:n, : store.dim] = torch.as_tensor(emb).to(store.device, store.dtype)
+            store.valid_n = n
+            store.doc_ids = list(meta["doc_ids"])
+            store.chunk_ids = list(meta["chunk_ids"])
+            store.texts = list(meta["texts"])
+            store.pages = np.asarray(pages, np.int32)
+        return store

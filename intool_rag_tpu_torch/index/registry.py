@@ -85,21 +85,41 @@ class CorpusRegistry:
             self.engine = None
             return
         self.bm25 = BM25Index.build(self.store.texts, device=self.device)
-        # the same store keeps its dense index, so the capacity tier appends
-        # the new rows instead of retraining and re-encoding the corpus
-        dense = self.engine.dense if self.engine else None
-        if dense is not None and dense.store is not self.store:
-            dense = None
-        self.engine = HybridEngine(self.store, self.bm25, dense=dense)
+        self.engine = HybridEngine(self.store, self.bm25)
 
     def add_document(self, doc_id: str) -> int:
-        """Load one persisted document into the live corpus (BM25 rebuilt
-        over the union; incremental BM25 append waits for /ingest)."""
+        """Load one persisted document into the live corpus. BM25 extends
+        incrementally: only the new document's texts are tokenized."""
         with self._lock:
             texts = self._add_doc_locked(doc_id)
-            self._rebuild_bm25_locked()
+            if self.bm25 is not None and self.bm25._counted is not None:
+                self.bm25 = self.bm25.append(texts)
+                # the same store object keeps its dense index, so the capacity
+                # tier appends the new rows instead of retraining and
+                # re-encoding the corpus
+                self.engine = HybridEngine(
+                    self.store, self.bm25, dense=self.engine.dense if self.engine else None
+                )
+            else:
+                self._rebuild_bm25_locked()
             self.version += 1
             return len(texts)
+
+    def remove_document(self, doc_id: str) -> bool:
+        """Delete a document's artifacts and drop its rows from the live
+        corpus. The store is replaced copy-on-write, so a concurrent search
+        that holds the old store and engine keeps consistent row identities;
+        the dense index rebuilds over the new store."""
+        with self._lock:
+            removed = self.storage.delete_document(doc_id)
+            if self.store is not None:
+                self.store, _ = self.store.without_doc(doc_id)
+                self._rebuild_bm25_locked()
+            self.doc_projects.pop(doc_id, None)
+            self.page_indexes.pop(doc_id, None)
+            self.chunk_nodes = {k: v for k, v in self.chunk_nodes.items() if k[0] != doc_id}
+            self.version += 1
+            return removed
 
     def search(
         self,

@@ -38,6 +38,10 @@ _LEVEL_DEPTH = {
     NodeLevel.PARAGRAPH: 4,
 }
 
+def make_node_id(ordinal: int) -> str:
+    return f"n_{ordinal:03d}"
+
+
 def make_chunk_id(page: int, index: int) -> str:
     return f"c_{page:03d}_{index:03d}"
 
@@ -106,6 +110,10 @@ class PageIndex:
             path.append(node)
             node = self.get_parent(node.node_id)
         return list(reversed(path))
+
+    def add_node(self, node: SemanticNode) -> None:
+        self.nodes.append(node)
+        self._by_id[node.node_id] = node
 
     def to_dict(self) -> dict[str, Any]:
         return {

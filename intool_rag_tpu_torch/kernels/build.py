@@ -21,7 +21,7 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu")
+SOURCES = ("flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",

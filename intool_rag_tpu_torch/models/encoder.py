@@ -1,10 +1,21 @@
-"""Transformer text encoder, XLM-RoBERTa architecture (port of the
-unpacked path of ``intool_rag_tpu/models/encoder.py``).
+"""Transformer text encoder, XLM-RoBERTa architecture (port of
+``intool_rag_tpu/models/encoder.py``; sequence parallelism, its
+``ring_axis``, is not ported).
 
-- RoBERTa positions: ``cumsum(mask)·mask + pad_token_id``;
+- RoBERTa positions: ``cumsum(mask)·mask + pad_token_id``, restarting at
+  each segment of a packed row;
 - post-LayerNorm blocks (attention → add & LN → exact-GELU MLP → add & LN);
-- masked attention logits set to the dtype's most negative value;
-- CLS pooling and L2 normalization (``[B, H] f32``).
+- attention by one of three routes, chosen from the shape and the config
+  alone: rows of ``S >= flash_min_len`` with ``S % 128 == 0`` go through
+  :func:`..ops.flash_attention.flash_attention_segments` (the CUDA kernel on
+  the card, its plain version on the CPU), packed or not; shorter packed
+  rows build the pairwise segment mask; the rest mask pad keys;
+- CLS pooling and L2 normalization (``[B, H] f32``, or ``[B, P, H]`` for the
+  P segments of packed rows), or the last hidden state (``pool=False``).
+
+On the flash route a pad query attends to the pad keys only, on the key-mask
+route to the valid keys, so hidden states at pad positions differ between
+routes (in both packages); only valid positions are ever read.
 
 Parameters load from the JAX package's flax checkpoints through
 :func:`load_encoder_checkpoint` + :func:`params_from_jax` (no flax
@@ -23,6 +34,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.flash_attention import flash_attention_segments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +49,9 @@ class EncoderConfig:
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
     dtype: str = "bfloat16"  # compute (and here storage) dtype
+    # rows at least this long take the flash-attention route (no [S, S]
+    # logits, which BGE-M3's 8192-token inputs need); 0 disables it
+    flash_min_len: int = 1024
 
     @classmethod
     def bge_m3(cls) -> "EncoderConfig":
@@ -59,25 +74,37 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig) -> None:
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.flash_min_len = cfg.flash_min_len
         h = cfg.hidden_size
         self.query = nn.Linear(h, h)
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
         self.output = nn.Linear(h, h)
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
         b, s, h = hidden.shape
         dh = h // self.num_heads
 
-        def heads(x):
-            return x.reshape(b, s, self.num_heads, dh).transpose(1, 2)  # [B, H, S, dh]
+        def heads(x):  # a view, [B, H, S, dh]: nothing is copied
+            return x.view(b, s, self.num_heads, dh).transpose(1, 2)
 
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
-        logits = (q.float() @ k.float().transpose(-1, -2)) / dh**0.5
-        logits = logits.masked_fill(~mask[:, None, None, :].bool(), torch.finfo(torch.float32).min)
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        attn = (probs @ v).transpose(1, 2).reshape(b, s, h)
-        return self.output(attn)
+        if self.flash_min_len and s >= self.flash_min_len and s % 128 == 0:
+            # pads carry segment id 0 (valid tokens 1, or 1..P in a packed
+            # row), so they attend among themselves and no row is empty
+            seg = (mask if segment_ids is None else segment_ids).to(torch.int32).contiguous()
+            attn = flash_attention_segments(q, k, v, seg, seg, 1.0 / dh**0.5)
+        else:
+            if segment_ids is not None:
+                keep = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]  # [B, 1, S, S]
+            else:
+                keep = mask[:, None, None, :].bool()
+            logits = (q.float() @ k.float().transpose(-1, -2)) / dh**0.5
+            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+            attn = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+        return self.output(attn.transpose(1, 2).reshape(b, s, h))
 
 
 class EncoderLayer(nn.Module):
@@ -90,17 +117,21 @@ class EncoderLayer(nn.Module):
         self.mlp_output = nn.Linear(cfg.intermediate_size, h)
         self.output_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        hidden = self.attention_ln(hidden + self.attention(hidden, mask))
+    def forward(
+        self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        hidden = self.attention_ln(hidden + self.attention(hidden, mask, segment_ids))
         mlp = self.mlp_output(nn.functional.gelu(self.intermediate(hidden), approximate="none"))
         return self.output_ln(hidden + mlp)
 
 
 class TextEncoder(nn.Module):
     """``forward(input_ids [B, S], attention_mask [B, S])`` → L2-normalized
-    CLS embeddings ``[B, H] f32``. Parameters are created on ``device`` in
-    the config's dtype; they are uninitialized until
-    :meth:`init_random` or ``load_state_dict``."""
+    CLS embeddings ``[B, H] f32``; with ``segment_ids`` and ``cls_index``
+    (packed rows, ``models/packing.py``) one embedding per segment,
+    ``[B, P, H]``; with ``pool=False`` the last hidden state ``[B, S, H]``
+    f32. Parameters are created on ``device`` in the config's dtype; they
+    are uninitialized until :meth:`init_random` or ``load_state_dict``."""
 
     def __init__(self, config: EncoderConfig, device: str | torch.device | None = None) -> None:
         super().__init__()
@@ -128,19 +159,46 @@ class TextEncoder(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
         return self
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        *,
+        pool: bool = True,
+        positions: torch.Tensor | None = None,
+        segment_ids: torch.Tensor | None = None,
+        cls_index: torch.Tensor | None = None,
+    ) -> torch.Tensor:
         cfg = self.config
         mask = attention_mask.long()
-        positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
+        if positions is None and segment_ids is not None:
+            # packed rows: positions restart at each segment, so a packed
+            # text sees the position ids it would see alone. Segments are
+            # contiguous: subtract the running valid count at each segment's
+            # start (carried forward by cummax) from the global running count.
+            seg = segment_ids.long()
+            valid = (seg > 0).long()
+            c = torch.cumsum(valid, dim=1)
+            change = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool), seg[:, 1:] != seg[:, :-1]], dim=1)
+            base = torch.where(change, c - valid, torch.zeros_like(c))
+            positions = (c - torch.cummax(base, dim=1).values) * valid + cfg.pad_token_id
+        elif positions is None:
+            positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
         hidden = (
             self.word_emb(input_ids.long())
-            + self.pos_emb(positions)
+            + self.pos_emb(positions.long())
             + self.type_emb(torch.zeros_like(input_ids, dtype=torch.long))
         )
         hidden = self.emb_ln(hidden)
         for layer in self.layers:
-            hidden = layer(hidden, mask)
-        cls = hidden[:, 0, :].float()
+            hidden = layer(hidden, mask, segment_ids)
+        if not pool:
+            return hidden.float()
+        if cls_index is not None:  # each segment's first token -> [B, P, H]
+            index = cls_index.long()[:, :, None].expand(-1, -1, hidden.shape[-1])
+            cls = torch.gather(hidden, 1, index).float()
+        else:
+            cls = hidden[:, 0, :].float()
         return cls / cls.norm(dim=-1, keepdim=True).clamp_min(1e-9)
 
 
@@ -174,7 +232,9 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 def load_encoder_checkpoint(path) -> tuple[EncoderConfig, dict]:
     """Read a checkpoint written by the JAX package's
     ``save_encoder_checkpoint``: ``(config, params tree of f32 numpy)``.
-    Raises ``FileNotFoundError`` for a missing file."""
+    Every field of the checkpoint's config is carried over but ``ring_axis``
+    (sequence parallelism is not ported). Raises ``FileNotFoundError`` for a
+    missing file."""
     from .msgpack import unpackb
 
     path = Path(path)

@@ -2,7 +2,11 @@
 ``intool_rag_tpu/providers/tpu_embed.py`` and
 ``providers/base.py::instruction_prefix``).
 
-Batches pad to the same (batch, sequence) buckets as the JAX provider.
+Batches pad to the same (batch, sequence) buckets as the JAX provider, or,
+with ``EMBED_PACKED=1``, pack several texts into each fixed-width row
+behind block-diagonal attention (``models/packing.py``;
+``EMBED_PACK_WIDTH`` sets the row width, default 512). Rows of 1,024 tokens
+and more, packed or padded, take the encoder's flash-attention route.
 Weights are explicit: an encoder passed in, or the checkpoint named by the
 ``checkpoint`` argument or ``EMBEDDING_CHECKPOINT``. A missing checkpoint
 raises; there is no silent random fallback.
@@ -10,6 +14,7 @@ raises; there is no silent random fallback.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from ..config import get_config
 from ..models.encoder import TextEncoder, load_encoder
+from ..models.packing import build_packed_arrays, pack_bins, shrink_width
 from ..models.tokenizer import SimpleTokenizer
 
 _SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -46,8 +52,10 @@ class CudaEmbeddingProvider:
         checkpoint: str | None = None,
         tokenizer=None,
         device: str | torch.device | None = None,
+        model_name: str | None = None,
     ) -> None:
         cfg = get_config()
+        self.model_name = model_name or cfg.EMBEDDING_MODEL
         if encoder is None:
             path = checkpoint or cfg.EMBEDDING_CHECKPOINT
             if not path:
@@ -63,6 +71,8 @@ class CudaEmbeddingProvider:
             max_length=min(self.encoder_config.max_position - 2, 8192),
         )
         self.batch_size = cfg.EMBEDDING_BATCH_SIZE
+        self.packed = os.getenv("EMBED_PACKED", "0") not in ("0", "false", "")
+        self.pack_width = int(os.getenv("EMBED_PACK_WIDTH", "512"))
         # the tokenizer memo and the module are shared by service threads
         self._lock = threading.Lock()
 
@@ -76,6 +86,8 @@ class CudaEmbeddingProvider:
         prefix = instruction_prefix(is_query)
         if prefix:
             texts = [prefix + t for t in texts]
+        if self.packed:
+            return self._embed_batch_packed(texts)
         out = np.zeros((len(texts), self.dimension), np.float32)
         for start in range(0, len(texts), self.batch_size):
             batch = texts[start : start + self.batch_size]
@@ -85,8 +97,9 @@ class CudaEmbeddingProvider:
     def embed_batch_device(self, texts: list[str], *, is_query: bool = False):
         """One micro-batch embedded and left on the device (rows past
         ``len(texts)`` are bucket padding); None when the batch exceeds
-        one micro-batch (callers then use :meth:`embed_batch`)."""
-        if not texts or len(texts) > self.batch_size:
+        one micro-batch or packing is on (callers then use
+        :meth:`embed_batch`)."""
+        if not texts or len(texts) > self.batch_size or self.packed:
             return None
         prefix = instruction_prefix(is_query)
         if prefix:
@@ -106,3 +119,37 @@ class CudaEmbeddingProvider:
             return self.encoder(
                 torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device)
             )
+
+    @torch.no_grad()
+    def _embed_batch_packed(self, texts: list[str]) -> np.ndarray:
+        """Packed encode: first-fit-decreasing bins of fixed-width rows,
+        block-diagonal attention, one CLS per segment. Each text's
+        computation is the padded path's; only the layout differs. Every
+        launch is dispatched before any result is copied back."""
+        pad = self.tokenizer.pad_id
+        with self._lock:
+            ids_list: list[list[int]] = []
+            for start in range(0, len(texts), self.batch_size):
+                ids, mask = self.tokenizer.encode_batch(texts[start : start + self.batch_size])
+                ids_list.extend(row[keep.astype(bool)].tolist() for row, keep in zip(ids, mask))
+            w = max(self.pack_width, -(-max(len(r) for r in ids_list) // 128) * 128)
+            bins = pack_bins([len(r) for r in ids_list], w)
+            w = shrink_width(bins, w)
+            r_launch = max(1, (self.batch_size * 256) // w)  # about a padded batch's tokens
+            pending = []
+            for s in range(0, len(bins), r_launch):
+                ids, seg, cls, idxmat = build_packed_arrays(ids_list, bins[s : s + r_launch], w, pad)
+                seg_t = torch.as_tensor(seg, device=self.device)
+                emb = self.encoder(
+                    torch.as_tensor(ids, device=self.device), (seg_t > 0).to(torch.int32),
+                    segment_ids=seg_t, cls_index=torch.as_tensor(cls, device=self.device),
+                )
+                pending.append((idxmat, emb))
+        out = np.zeros((len(ids_list), self.dimension), np.float32)
+        for idxmat, emb in pending:
+            valid = idxmat >= 0
+            out[idxmat[valid]] = emb.cpu().numpy()[valid]  # [n, P, H]
+        return out
+
+    def embed_single(self, text: str, *, is_query: bool = False) -> np.ndarray:
+        return self.embed_batch([text], is_query=is_query)[0]

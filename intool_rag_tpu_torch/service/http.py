@@ -43,10 +43,13 @@ def make_handler(service: RAGService):
         def do_POST(self) -> None:  # noqa: N802
             self._respond("POST")
 
+        def do_DELETE(self) -> None:  # noqa: N802
+            self._respond("DELETE")
+
         def do_OPTIONS(self) -> None:  # noqa: N802
             self.send_response(204)
             self.send_header("Access-Control-Allow-Origin", "*")
-            self.send_header("Access-Control-Allow-Methods", "GET, POST, OPTIONS")
+            self.send_header("Access-Control-Allow-Methods", "GET, POST, DELETE, OPTIONS")
             self.send_header("Access-Control-Allow-Headers", "Content-Type")
             self.end_headers()
 

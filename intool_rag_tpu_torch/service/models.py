@@ -57,3 +57,15 @@ class HealthResponse:
     chunks: int
     backend: str
     version: str
+
+
+@dataclasses.dataclass
+class IngestResponse:
+    success: bool
+    doc_id: str
+    source_file: str
+    project: str
+    total_pages: int
+    total_chunks: int
+    vectors_indexed: int
+    processing_time_seconds: float

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, flax, pydantic or JAX-package import,
-and CUDA is never silently replaced by the CPU."""
+"""The port stands alone: no JAX, flax, pydantic or JAX-package import, no
+library attention or compiler in place of a hand-written kernel, and CUDA is
+never silently replaced by the CPU."""
 
 from __future__ import annotations
 
@@ -10,7 +11,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "pydantic", "msgpack", "intool_rag_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "pydantic", "msgpack", "intool_rag_tpu", "flash_attn", "xformers")
+# what would stand in for a hand-written kernel; chip_smoke.py may time a
+# library call beside a kernel, the package never calls one
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn", "xformers", "torch.compile")
 
 
 def _port_files():
@@ -33,6 +37,26 @@ def _imported_roots(path: Path):
 def test_no_forbidden_imports(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in _port_files() if p.name != "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_library_kernel_in_the_package(path):
+    text = path.read_text(encoding="utf-8")
+    bad = [name for name in LIBRARY_KERNELS if name in text]
+    assert not bad, f"{path} mentions {bad}"
+
+
+def test_new_modules_are_covered():
+    names = {str(p.relative_to(ROOT / "intool_rag_tpu_torch")) for p in _port_files()[:-1]}
+    assert {"ops/flash_attention.py", "models/packing.py", "ingest/pdf.py", "ingest/pipeline.py",
+            "llm/semantic/factory.py", "providers/heuristic_semantic.py", "tasks.py",
+            "service/multipart.py"} <= names
+    kernels = {p.name for p in (ROOT / "intool_rag_tpu_torch" / "kernels").glob("*.cu")}
+    assert "flash_attention.cu" in kernels
+    for cu in kernels:  # no PyTorch header in a kernel source: it would take minutes to build
+        assert "torch/" not in (ROOT / "intool_rag_tpu_torch" / "kernels" / cu).read_text()
 
 
 def test_resolve_device_raises_without_cuda():
