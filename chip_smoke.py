@@ -2,7 +2,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
-``1,2,6`` for ingest alone). Phases:
+``1,2,6`` for ingest alone, ``1,2,7`` for training alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -22,7 +22,12 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    ``K5_CHECKS`` (f32 and bf16; S 128, 1024, 2048; B 1 and 3; H 16 and 6)
    on every layout of ``_segment_layouts`` and on rows no key matches, and
    at S 8192 one head at a time: atol 2e-5 (f32) and 2e-2 (bf16) on
-   unit-variance inputs; unsupported shapes must raise.
+   unit-variance inputs; unsupported shapes must raise. K5's backward
+   kernels (dkv and dq) at the same shapes and layouts, on the encoder's
+   strided views, against the plain backward given the kernel forward's own
+   ``o, l, m``: atol 5e-5 (f32) and two bf16 steps of the largest gradient
+   (bf16); the forward's saved ``l, m`` against the plain version's; every
+   backward run twice, bit-equal; once through ``torch.autograd``.
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
@@ -66,6 +71,24 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    must agree to cosine 0.999 row by row. K5's time per launch at each
    shape, the encoder forward and K5's kernel-table rows (S 8192, with
    the library's attention beside it) follow.
+7. training at full width: ``make_train_step`` on the ``bge_m3``
+   configuration (24 x 1024, f32 master weights, bf16 compute, seeded
+   random init, AdamW), six steps on a fixed batch of 4 queries x S 128
+   (key-mask route) and 4 passages x S 2048 (K5 route), then two steps
+   with 2 pairs whose passages have S 8192. Per step K5 forward, dkv and dq
+   must each launch 24 times and their plain versions not at all, every
+   loss must be finite, the repeated batch's loss must fall, and the peak
+   device memory must lie far below 24 layers of f32 S x S logits. Then
+   gradients on a 2-layer copy, K5 route against ``flash_min_len=0``
+   (cosine >= 0.999 per parameter tensor); ``train_encoder_cached`` and
+   ``train_reranker`` on short rows at ``encoder_mid`` width on the synthetic
+   relevance task (trained encoder beats untrained on dense NDCG@10,
+   trained reranker beats hybrid retrieval); ``Reranker.score_pairs`` of
+   100 pairs at ``bge_m3`` width, packed rows through K5 against the
+   bucketed scores. K5 forward / dkv / dq per launch at the two training
+   shapes and the backward kernels' kernel-table rows (S 8192, beside the
+   plain backward and ``torch.autograd`` through the library's attention)
+   follow.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -268,6 +291,7 @@ def phase_kernels(state: dict) -> None:
     checks += 1
     for dt, err in _check_k5(dev).items():
         errs[f"K5 {'bf16' if dt == 'bfloat16' else 'f32'}"] = err
+    errs.update(_check_k5_backward(dev))
     state["max_abs_err"] = errs
     log(f"phase 2: {checks} kernel-vs-plain checks passed; max |err| {json.dumps(errs)}")
 
@@ -509,6 +533,114 @@ def _check_k5(dev) -> dict[str, float]:
     return errs
 
 
+# K5's backward kernels against the plain backward, on unit-variance q, k, v, do.
+# f32: the two sum up to 8,192 f32 products per value in another order. bf16:
+# p and ds are rounded to bf16 in both, but from exponentials that differ in
+# their last f32 bits, so a few of them round the other way, and each gradient
+# is rounded to bf16 once more: two bf16 steps (2^-7) of the largest gradient.
+K5_BWD_ATOL_F32 = 5e-5
+K5_BWD_REL_BF16 = 2.0 ** -7
+
+
+def _check_k5_backward(dev) -> dict[str, float]:
+    """K5 dkv and dq against ``flash_attention_backward_plain`` on the card,
+    both given the kernel forward's own ``o, l, m``: max |diff| per kernel
+    variant. Also holds the forward's saved ``l, m`` against the plain
+    version's, takes the gradient once through ``torch.autograd`` (the
+    Function), and runs every backward twice: the runs must be bit-equal.
+    S 8192 is compared one head at a time."""
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs: dict[str, float] = {}
+    checks = 0
+
+    def strided(shape, dtype):  # the encoder's layout: [B, S, H*64] viewed as [B, H, S, 64]
+        b, h, s, _ = shape
+        return torch.randn((b, s, h, 64), generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+    def hold(name, what, got, want, heads=slice(None)):
+        nonlocal checks
+        dt = "bf16" if got.dtype == torch.bfloat16 else "f32"
+        err = (got[:, heads].float() - want.float()).abs().max().item()
+        atol = K5_BWD_ATOL_F32 if dt == "f32" else max(K5_BWD_REL_BF16 * want.float().abs().max().item(), 2e-3)
+        if not (torch.isfinite(got.float()).all() and err <= atol):
+            raise AssertionError(f"K5 {what} {dt} {tuple(got.shape)} layout {name!r}: max |diff| {err} > {atol}")
+        key = f"K5 {'dq' if what == 'dq' else 'dkv'} {dt}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        checks += 1
+
+    def residuals_agree(name, l, m, pl, pm):
+        real = pm != fa.MASK_VALUE
+        if not (torch.equal(real, m != fa.MASK_VALUE)
+                and torch.allclose(m[real], pm[real], rtol=1e-5, atol=1e-5)
+                and torch.allclose(l, pl, rtol=2e-5, atol=0)):
+            raise AssertionError(f"K5 forward residuals differ from the plain version's, layout {name!r}: "
+                                 f"|dl| {(l - pl).abs().max().item()}, |dm| {(m[real] - pm[real]).abs().max().item()}")
+
+    def compare(name, q, k, v, seg_q, seg_kv):
+        do = strided(q.shape, q.dtype)
+        out, l, m = fa._forward_cuda(q, k, v, seg_q, seg_kv, 0.125, True)
+        _, pl, pm = fa.flash_attention_plain(q, k, v, seg_q, seg_kv, 0.125, save_residuals=True)
+        residuals_agree(name, l, m, pl, pm)
+        del pl, pm
+        got = fa.flash_attention_backward(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
+        again = fa.flash_attention_backward(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 backward {tuple(q.shape)} layout {name!r}: two runs differ")
+        want = fa.flash_attention_backward_plain(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            hold(name, what, g, w)
+        return do, got
+
+    for dt, b, h, s in K5_CHECKS:
+        dtype = getattr(torch, dt)
+        for name, seg_np in _segment_layouts(rng, b, s).items():
+            q, k, v = (strided((b, h, s, 64), dtype) for _ in range(3))
+            seg = torch.as_tensor(seg_np, device=dev)
+            do, got = compare(name, q, k, v, seg, seg)
+        # through torch.autograd: the Function's forward and backward give the same bits
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(fa.flash_attention_segments(*leaves, seg, seg, 0.125), leaves, do)
+        if not all(torch.equal(a, g) for a, g in zip(auto, got)):
+            raise AssertionError(f"K5 backward {dt} {(b, h, s)}: torch.autograd through the Function differs")
+        # rows whose segment id no key carries: every p = 1/l, and the gradient flows
+        compare("no key for a row", q, k, v, torch.roll(seg, 37, dims=1).contiguous(), seg)
+        del q, k, v, do, got, auto, leaves
+    for dt in ("float32", "bfloat16"):
+        seg_np = _segment_layouts(rng, 4, 8192)
+        for name in ("mask", "packed"):
+            q, k, v, do = (strided((4, 16, 8192, 64), getattr(torch, dt)) for _ in range(4))
+            seg = torch.as_tensor(seg_np[name], device=dev)
+            out, l, m = fa._forward_cuda(q, k, v, seg, seg, 0.125, True)
+            got = fa.flash_attention_backward(q, k, v, seg, seg, out, l, m, do, 0.125)
+            torch.cuda.synchronize()
+            for head in (0, 15):
+                hs = slice(head, head + 1)
+                want = fa.flash_attention_backward_plain(
+                    q[:, hs], k[:, hs], v[:, hs], seg, seg, out[:, hs], l[:, hs], m[:, hs], do[:, hs], 0.125)
+                for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                    hold(f"S 8192 {name} head {head}", what, g, w, hs)
+                del want
+            del q, k, v, do, out, l, m, got
+            torch.cuda.empty_cache()
+    x = torch.zeros((1, 2, 128, 64), device=dev, dtype=torch.bfloat16)
+    stat = torch.zeros((1, 2, 128), device=dev)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    for bad_do, why in ((x.float(), "do of another type"), (x[:, :1], "do of another shape")):
+        try:  # what the kernels cannot take raises; nothing falls back to the plain version
+            fa.flash_attention_backward(x, x, x, seg, seg, x, stat, stat, bad_do, 0.125)
+        except ValueError:
+            continue
+        raise AssertionError(f"K5 backward accepted {why}")
+    torch.cuda.empty_cache()
+    log(f"phase 2 K5 backward: {checks} kernel-vs-plain checks passed, every run repeated bit-equal; "
+        f"max |err| {json.dumps(errs)}")
+    return errs
+
+
 # ------------------------------------------------------------------ phase 3
 
 ROOT = Path(__file__).resolve().parent
@@ -582,11 +714,14 @@ def _post(port: int, question: str) -> tuple[float, dict]:
 
 def _wrappers():
     from intool_rag_tpu_torch.ops.bits_scan import bits_scan
-    from intool_rag_tpu_torch.ops.flash_attention import flash_attention_segments
+    from intool_rag_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_segments,
+    )
     from intool_rag_tpu_torch.ops.flat_fused import partial_topk, partial_topk_int8
     from intool_rag_tpu_torch.ops.quant import quantize_int8_stochastic
 
-    return partial_topk, partial_topk_int8, bits_scan, quantize_int8_stochastic, flash_attention_segments
+    return (partial_topk, partial_topk_int8, bits_scan, quantize_int8_stochastic, flash_attention_segments,
+            flash_attention_dkv, flash_attention_dq)
 
 
 def _launches() -> dict[str, int]:
@@ -1545,13 +1680,482 @@ def _k5_times_and_rows(state: dict, encoder, gen) -> None:
     state.setdefault("kernels", []).extend(rows)
 
 
+# ------------------------------------------------------------------ phase 7
+
+TRAIN_SEED = 7
+TRAIN_LR = 2e-5
+TRAIN_Q_LEN = 128                              # the queries' rows: key-mask route
+# (steps, pairs, passage S): the passages take the K5 route. InfoNCE needs as many
+# queries as passages, and two pairs at least for a loss that is not identically 0.
+TRAIN_RUNS = ((6, 4, 2048), (2, 2, 8192))
+# the short-row trainers at encoder_mid width: steps of the encoder, of the reranker, batch
+SHORT_STEPS, RERANK_STEPS, SHORT_BATCH = 300, 800, 64
+RERANK_PAIRS, RERANK_PACK_WIDTH = 100, 2048
+# packed against bucketed reranker scores at bge_m3 width, bf16: the two layouts round
+# 24 layers of bf16 activations at other places; the head's tanh keeps |score| below ~1
+RERANK_PACKED_ATOL = 0.05
+
+
+def _train_batch(gen, cfg, pairs: int, s_p: int, dev) -> dict:
+    """A fixed synthetic batch of ``pairs`` queries and passages: random ids,
+    every row padded after a tail of its own length (the first fills its row)."""
+
+    def rows(n, s):
+        ids = torch.randint(4, cfg.vocab_size, (n, s), generator=gen, device=dev, dtype=torch.int32)
+        lengths = torch.linspace(s, 0.55 * s, n, device=dev).long()[:, None]
+        mask = (torch.arange(s, device=dev)[None] < lengths).to(torch.int32)
+        ids = torch.where(mask.bool(), ids, torch.full_like(ids, cfg.pad_token_id))
+        ids[:, 0] = 0  # CLS
+        return ids, mask
+
+    q_ids, q_mask = rows(pairs, TRAIN_Q_LEN)
+    p_ids, p_mask = rows(pairs, s_p)
+    return {"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask}
+
+
+def _k5_counts() -> dict[str, int]:
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    return {"launches": _launches(), "plain_forward": fa.flash_attention_plain.calls.count,
+            "plain_backward": fa.flash_attention_backward_plain.calls.count}
+
+
+def _reset_k5_counts() -> None:
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    _reset_launches()
+    fa.flash_attention_plain.calls.reset()
+    fa.flash_attention_backward_plain.calls.reset()
+
+
+def _train_full_width(state: dict, dev, gen) -> None:
+    """A few contrastive steps at the bge_m3 width through K5 forward, dkv
+    and dq: the main path of this phase."""
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.train.contrastive import TrainState, make_optimizer, make_train_step
+
+    cfg = EncoderConfig.bge_m3()
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.flash_min_len, cfg.dtype) != INGEST_WIDTH[:5]:
+        raise AssertionError(f"phase 7 expects the bge_m3 width, got {cfg}")
+    layers = cfg.num_layers
+    model = TextEncoder(cfg, device=dev, param_dtype=torch.float32).init_random(gen).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    train_state = TrainState(model, *make_optimizer(model, TRAIN_LR))
+    step_fn = make_train_step(cfg)
+    runs = []
+    for steps, n_p, s_p in TRAIN_RUNS:
+        batch = _train_batch(gen, cfg, n_p, s_p, dev)
+        tokens = int(batch["q_mask"].sum() + batch["p_mask"].sum())
+        row_tokens = n_p * (TRAIN_Q_LEN + s_p)
+        torch.cuda.synchronize()
+        resident_mb = torch.cuda.memory_allocated() / 1e6
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_k5_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, loss = step_fn(train_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1000 * (time.perf_counter() - t0))
+            losses.append(loss)
+        counts = _k5_counts()
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        losses = [float(x) for x in torch.stack(losses).cpu()]
+        want = {"K5 bf16": layers * steps, "K5 dkv bf16": layers * steps, "K5 dq bf16": layers * steps}
+        if counts["launches"] != want or counts["plain_forward"] or counts["plain_backward"]:
+            raise AssertionError(f"phase 7 training at S {s_p}: counts {counts}, expected launches {want} "
+                                 "and no plain call")
+        # the first run repeats its batch six times: its loss must fall; the long run's two
+        # steps (one update between its two readings, on moments of the other batch) must be finite
+        if not all(math.isfinite(x) for x in losses) or (steps >= 6 and not losses[-1] < losses[0]):
+            raise AssertionError(f"phase 7 training at S {s_p}: losses {losses} are not finite and falling")
+        logits_mb = layers * n_p * cfg.num_heads * s_p * s_p * 4 / 1e6  # what autograd would keep without K5
+        warm = step_ms[1:]
+        run = {
+            "steps": steps, "queries": [n_p, TRAIN_Q_LEN], "passages": [n_p, s_p],
+            "tokens": tokens, "row_tokens": row_tokens, "losses": losses, "step_ms": step_ms,
+            "step_ms_after_first": float(np.median(warm)), "tokens_per_s": 1000 * tokens / float(np.median(warm)),
+            "launches": counts["launches"], "plain_calls": 0, "resident_before_mb": resident_mb,
+            "peak_mb": peak_mb, "s2_logits_24_layers_mb": logits_mb,
+        }
+        log(f"phase 7 training, bge_m3 width ({n_params / 1e6:.0f} M f32 masters, bf16 compute): {json.dumps(run)}")
+        runs.append(run)
+    long_run = runs[-1]
+    if long_run["peak_mb"] > 0.25 * long_run["s2_logits_24_layers_mb"]:
+        raise AssertionError(f"phase 7: peak {long_run['peak_mb']:.0f} MB is not far below the "
+                             f"{long_run['s2_logits_24_layers_mb']:.0f} MB of 24 layers of f32 logits at S 8192")
+    state["train"] = {"runs": runs, "parameters": n_params}
+    _step_breakdown(state, model, train_state, _train_batch(gen, cfg, *TRAIN_RUNS[0][1:], dev))
+    del model, train_state
+    torch.cuda.empty_cache()
+
+
+def _step_breakdown(state: dict, model, train_state, batch: dict) -> None:
+    """Where a training step's time goes at the first run's shape (not the
+    main path): forward, backward and optimizer by CUDA events, then one
+    step under ``torch.profiler`` for the device's busy share and the
+    kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from intool_rag_tpu_torch.train.contrastive import info_nce_loss
+
+    def forward():
+        return info_nce_loss(model(batch["q_ids"], batch["q_mask"]), model(batch["p_ids"], batch["p_mask"]), 0.05)
+
+    def events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    rounds = []
+    for _ in range(3):
+        fwd_ms, loss = events(forward)
+        bwd_ms, _ = events(loss.backward)
+        opt_ms, _ = events(train_state.optimizer.step)
+        train_state.optimizer.zero_grad(set_to_none=True)
+        rounds.append((fwd_ms, bwd_ms, opt_ms))
+    fwd_ms, bwd_ms, opt_ms = (float(np.median(x)) for x in zip(*rounds))
+    out = {"forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward().backward()
+        train_state.optimizer.step()
+        train_state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+    # kernels only: an operator's entry repeats the time of the kernels it launched
+    kernels = [(e.key, e.self_device_time_total / 1000, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms > 0:  # the profiler traced the card
+        # the profiler slows the host, not the kernels: the idle share is taken against the
+        # main path's own step time
+        step_ms = state["train"]["runs"][0]["step_ms_after_first"]
+        top = sorted(kernels, key=lambda k: -k[1])[:10]
+        out["profiled_step"] = {
+            "device_busy_ms": busy_ms, "kernel_launches": sum(calls for _, _, calls in kernels),
+            "step_ms": step_ms, "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+            "top_kernels": [{"name": name[:48], "ms": ms, "calls": calls} for name, ms, calls in top],
+        }
+    else:
+        out["profiled_step"] = "not measured: torch.profiler reported no device time"
+    state["train"]["step_breakdown"] = out
+    state["train"]["optimizer_ms"] = opt_ms
+    log(f"phase 7 step breakdown at {TRAIN_RUNS[0][1]} x S {TRAIN_RUNS[0][2]} (fused AdamW): {json.dumps(out)}")
+
+
+def _gradient_routes_agree(state: dict, dev, gen) -> None:
+    """Gradients on a 2-layer copy of the model: the K5 route (forward, dkv
+    and dq kernels) against the same weights with ``flash_min_len=0`` (pair
+    logits through torch autograd), cosine per parameter tensor.
+
+    With random weights every CLS vector lies within rounding of the others
+    and the InfoNCE loss sits at chance, so its gradient is a difference of
+    nearly equal embeddings: in bf16 it is made of the forward's rounding
+    noise on either route. So the bf16 kernels are held on a loss that reads
+    every valid position of the passages' last hidden state through a fixed
+    random projection, the step's own InfoNCE loss is held in f32, and its
+    bf16 cosine is printed beside them. The key biases are left out
+    everywhere: their true gradient is zero (a softmax does not see a
+    constant added to every logit of a row), what is computed is noise."""
+    import dataclasses
+
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.train.contrastive import info_nce_loss
+
+    def info_nce(model, batch, _proj):
+        return info_nce_loss(model(batch["q_ids"], batch["q_mask"]), model(batch["p_ids"], batch["p_mask"]), 0.05)
+
+    def projection(model, batch, proj):
+        hidden = model(batch["p_ids"], batch["p_mask"], pool=False)
+        return (hidden * proj).sum() / batch["p_mask"].sum()
+
+    out = {}
+    for label, dtype, loss_fn, bar in (("bf16 projection of the hidden state", "bfloat16", projection, 0.999),
+                                       ("f32 InfoNCE", "float32", info_nce, 0.999),
+                                       ("bf16 InfoNCE at chance", "bfloat16", info_nce, None)):
+        cfg = dataclasses.replace(EncoderConfig.bge_m3(), num_layers=2, dtype=dtype)
+        flash = TextEncoder(cfg, device=dev, param_dtype=torch.float32).init_random(gen).train()
+        masked = TextEncoder(dataclasses.replace(cfg, flash_min_len=0), device=dev, param_dtype=torch.float32).train()
+        masked.load_state_dict(flash.state_dict())
+        batch = _train_batch(gen, cfg, *TRAIN_RUNS[0][1:], dev)
+        proj = torch.randn(batch["p_ids"].shape + (cfg.hidden_size,), generator=gen, device=dev)
+        proj = proj * batch["p_mask"][:, :, None]  # pad positions differ between the routes by design
+        _reset_k5_counts()
+        grads = []
+        for model in (flash, masked):
+            loss_fn(model, batch, proj).backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+        counts = _k5_counts()
+        tag = "bf16" if dtype == "bfloat16" else "f32"
+        want = {f"K5 {tag}": 2, f"K5 dkv {tag}": 2, f"K5 dq {tag}": 2}
+        if counts["launches"] != want or counts["plain_forward"] or counts["plain_backward"]:
+            raise AssertionError(f"phase 7 gradient check ({label}): counts {counts}, expected {want}, no plain call")
+        cos = {}
+        for name, g in grads[0].items():
+            if name.endswith("key.bias") or grads[1][name] is None:
+                continue
+            a, b = g.double().flatten(), grads[1][name].double().flatten()
+            cos[name] = float((a @ b) / (a.norm() * b.norm()))
+        worst = min(cos, key=cos.get)
+        out[label] = {"min_cosine": cos[worst], "at": worst, "tensors": len(cos), "bar": bar}
+        log(f"phase 7 gradients, K5 route vs pair-mask route (2 layers, S {TRAIN_RUNS[0][2]}), {label}: "
+            f"min cosine {cos[worst]:.6f} at {worst} over {len(cos)} tensors")
+        if bar is not None and not cos[worst] >= bar:
+            raise AssertionError(f"phase 7: gradient cosine {cos[worst]} < {bar} at {worst} ({label})")
+        del flash, masked, grads, proj
+        torch.cuda.empty_cache()
+    state["train"]["gradient_cosine"] = out
+
+
+class _HashProvider:
+    """Deterministic lexical hash embeddings: what hybrid retrieval sees of
+    the synthetic relevance task before a trained model reorders it."""
+
+    def __init__(self, dim: int = 256) -> None:
+        self.dim = dim
+
+    def embed_batch(self, texts, is_query=False):
+        import hashlib
+
+        out = np.zeros((len(texts), self.dim), np.float32)
+        for i, t in enumerate(texts):
+            for w in t.split():
+                out[i, int.from_bytes(hashlib.md5(w.encode()).digest()[:4], "little") % self.dim] += 1.0
+        return out / np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-9)
+
+
+def _train_short_rows(state: dict, dev) -> None:
+    """The short-row trainers at encoder_mid width (6 x 384, f32) on the
+    synthetic relevance task: the trained encoder must beat the untrained
+    one on dense NDCG@10, the trained reranker must beat hybrid retrieval."""
+    import dataclasses
+
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.eval.harness import build_engine_from_texts, evaluate_engine
+    from intool_rag_tpu_torch.eval.synthetic import make_relevance_task
+    from intool_rag_tpu_torch.models.encoder import TextEncoder, load_encoder_checkpoint
+    from intool_rag_tpu_torch.models.reranker import Reranker
+    from intool_rag_tpu_torch.models.tokenizer import SimpleTokenizer
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.train.contrastive import tokenize_pairs, train_encoder_cached
+    from intool_rag_tpu_torch.train.rerank import build_pair_pool, train_reranker
+
+    os.environ.update({"EMBEDDING_QUERY_INSTRUCTION": "", "EMBED_PACKED": "0", "RERANK_PACKED": "0",
+                       "INDEX_KIND": "flat", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0",
+                       "BM25_WEIGHT": "0.3", "VECTOR_WEIGHT": "0.7"})
+    config.reset_config()
+    cfg = load_encoder_checkpoint(ENCODER_MID)[0]
+    rng = np.random.default_rng(TRAIN_SEED)
+    task = make_relevance_task(rng)
+    tok = SimpleTokenizer(vocab_size=cfg.vocab_size, max_length=48)
+    positive = task.train_labels > 0
+    pairs = tokenize_pairs(tok, [q for q, keep in zip(task.train_queries, positive) if keep],
+                           [p for p, keep in zip(task.train_passages, positive) if keep], max_len=32)
+
+    def dense_ndcg(encoder) -> float:
+        provider = CudaEmbeddingProvider(encoder, tokenizer=tok)
+        engine = build_engine_from_texts(task.texts, provider, device=dev)
+        return evaluate_engine(engine, provider, task.examples, k=10, modes=("dense",))["dense"]["ndcg@k"]
+
+    untrained = TextEncoder(cfg, device=dev).init_flax(torch.Generator(device=dev).manual_seed(0))
+    t0 = time.perf_counter()
+    encoder, means = train_encoder_cached(cfg, pairs, steps=SHORT_STEPS, batch=SHORT_BATCH, lr=1e-3,
+                                          steps_per_launch=50, device=dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc = {"steps": SHORT_STEPS, "batch": SHORT_BATCH, "pairs": int(positive.sum()), "mean_losses": means.tolist(),
+           "ms_per_step": 1000 * enc_s / SHORT_STEPS, "ndcg_untrained": dense_ndcg(untrained),
+           "ndcg_trained": dense_ndcg(encoder)}
+    log(f"phase 7 train_encoder_cached at encoder_mid width: {json.dumps(enc)}")
+    if not (means[-1] < means[0] and enc["ndcg_trained"] > enc["ndcg_untrained"]):
+        raise AssertionError(f"phase 7: the contrastive trainer did not improve the encoder: {enc}")
+
+    pool = build_pair_pool(tok, task.train_queries, task.train_passages, task.train_labels, max_len=32,
+                           augment_shuffle=1, rng=rng)
+    t0 = time.perf_counter()
+    params, means = train_reranker(cfg, pool, steps=RERANK_STEPS, batch=SHORT_BATCH, lr=3e-4,
+                                   steps_per_launch=50, device=dev)
+    torch.cuda.synchronize()
+    rer_s = time.perf_counter() - t0
+    reranker = Reranker.create(cfg, tokenizer=tok, params=params, device=dev)
+    hash_provider = _HashProvider()
+    engine = build_engine_from_texts(task.texts, hash_provider, device=dev)
+    quality = evaluate_engine(engine, hash_provider, task.examples, k=10, modes=("hybrid", "rerank"),
+                              reranker=reranker, rerank_candidates=30)
+    rer = {"steps": RERANK_STEPS, "batch": SHORT_BATCH, "pairs": len(pool.labels), "mean_losses": means.tolist(),
+           "ms_per_step": 1000 * rer_s / RERANK_STEPS, **quality}
+    log(f"phase 7 train_reranker at encoder_mid width: {json.dumps(rer)}")
+    if not (means[-1] < means[0] and quality["rerank"]["ndcg@k"] > quality["hybrid"]["ndcg@k"]):
+        raise AssertionError(f"phase 7: the trained reranker does not beat hybrid retrieval: {rer}")
+    state["train"].update({"encoder_short": enc, "reranker_short": rer})
+
+
+def _rerank_full_width(state: dict, dev, gen) -> None:
+    """``Reranker.score_pairs`` of 100 pairs at bge_m3 width (random weights
+    from a seed, bf16-resident body): packed rows of 2,048 tokens through K5
+    against the bucketed scores."""
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig
+    from intool_rag_tpu_torch.models.reranker import CrossEncoder, Reranker
+    from intool_rag_tpu_torch.models.tokenizer import SimpleTokenizer
+
+    cfg = EncoderConfig.bge_m3()
+    os.environ.update({"RERANK_PACKED": "0", "RERANK_PACK_WIDTH": str(RERANK_PACK_WIDTH)})
+    model = CrossEncoder(cfg, device=dev)
+    model.body.init_random(gen)
+    model.init_head(gen)
+    reranker = Reranker(model, SimpleTokenizer(vocab_size=cfg.vocab_size, max_length=512))
+    rng = np.random.default_rng(TRAIN_SEED)
+    vocab = _ingest_vocab(rng)
+    queries = [" ".join(rng.choice(vocab, size=int(rng.integers(4, 12)))) for _ in range(RERANK_PAIRS)]
+    passages = [_sentences(rng, vocab, int(rng.integers(60, 260))) for _ in range(RERANK_PAIRS)]
+    reranker.score_pairs(queries[:8], passages[:8])  # first-call allocations
+    out = {}
+    for label, packed in (("bucketed", False), ("packed", True)):
+        _reset_k5_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = reranker.score_pairs(queries, passages, packed=packed)
+        torch.cuda.synchronize()
+        out[label] = {"ms": 1000 * (time.perf_counter() - t0), "padding_waste": reranker.last_padding_waste,
+                      **_k5_counts()}
+        out[label + "_scores"] = scores
+    diff = float(np.abs(out.pop("packed_scores") - out.pop("bucketed_scores")).max())
+    out["max_abs_diff"] = diff
+    log(f"phase 7 Reranker.score_pairs, {RERANK_PAIRS} pairs at bge_m3 width: {json.dumps(out)}")
+    packed = out["packed"]
+    k5 = packed["launches"].get("K5 bf16", 0)
+    if (k5 == 0 or k5 % cfg.num_layers or set(packed["launches"]) != {"K5 bf16"} or packed["plain_forward"]
+            or out["bucketed"]["launches"] or diff > RERANK_PACKED_ATOL):
+        raise AssertionError(f"phase 7: packed reranker scoring went wrong: {out}")
+    state["train"]["rerank_full_width"] = out
+    del model, reranker
+    torch.cuda.empty_cache()
+
+
+def _k5_backward_bound(seg: torch.Tensor, heads: int, elem: int, what: str) -> dict:
+    """Least time (ms) for one backward kernel on these ids. Operations per
+    (query, key) pair of equal id and per head: dkv 8 x 64 (k.qT, v.doT,
+    pT.do, dsT.q), dq 6 x 64 (q.kT, do.vT, ds.k). Bytes: q, k, v, do read,
+    the gradients written (dkv two, dq one), l, m, di and both id arrays."""
+    b, s = seg.shape
+    pairs = sum(int((torch.bincount(row) ** 2).sum()) for row in seg.long())
+    per_pair, outputs = (8.0, 2) if what == "dkv" else (6.0, 1)
+    peak = H100_PEAK["bf16" if elem == 2 else "f32"]
+    t_bytes = ((4 + outputs) * b * heads * s * 64 * elem + 3 * 4 * b * heads * s + 2 * 4 * b * s) / H100_HBM_BYTES_S
+    t_ops = per_pair * heads * 64 * pairs / peak
+    return {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dense_bound_ms": 1000 * max(t_bytes, per_pair * heads * 64 * b * s * s / peak)}
+
+
+def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
+    """K5 forward, dkv and dq per launch at the two training shapes, and the
+    backward kernels' rows of the kernel table (not the main path)."""
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    per_launch = []
+    for b, s in ((4, 2048), (1, 8192)):
+        seg = (torch.arange(s, device=dev)[None] < torch.linspace(s, 0.55 * s, b, device=dev).long()[:, None])
+        seg = seg.to(torch.int32)
+        q, k, v, do = _k5_inputs(seg, 16, torch.bfloat16, gen) + _k5_inputs(seg, 16, torch.bfloat16, gen)[:1]
+        out, l, m = fa._forward_cuda(q, k, v, seg, seg, 0.125, True)
+        di = (out.float() * do.float()).sum(dim=-1).contiguous()
+        entry = {"B": b, "S": s,
+                 "fwd_ms": cuda_ms(lambda: fa._forward_cuda(q, k, v, seg, seg, 0.125, True), iters=5, warmup=1),
+                 "dkv_ms": cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, seg, seg, l, m, do, di, 0.125), iters=5, warmup=1),
+                 "dq_ms": cuda_ms(lambda: fa.flash_attention_dq(q, k, v, seg, seg, l, m, do, di, 0.125), iters=5, warmup=1),
+                 "backward_ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, seg, seg, out, l, m, do, 0.125), iters=5, warmup=1)}
+        for what in ("fwd", "dkv", "dq"):
+            bound = _k5_bound(seg, 16, 2) if what == "fwd" else _k5_backward_bound(seg, 16, 2, what)
+            entry[f"{what}_bound_ms"], entry[f"{what}_dense_bound_ms"] = bound["bound_ms"], bound["dense_bound_ms"]
+        per_launch.append(entry)
+    log(f"phase 7 K5 per launch (bf16, H 16): {json.dumps(per_launch)}")
+    state["train"]["k5_per_launch"] = per_launch
+    del q, k, v, do, out, l, m, di
+
+    # ---- kernel table rows: one row of S 8192, the 0/1 mask of a 6,500-token chunk as ids
+    seg = (torch.arange(8192, device=dev)[None] < 6500).to(torch.int32)
+    pair = (seg[:, None, :, None] == seg[:, None, None, :])
+    runs = state["train"]["runs"]
+    errs = state.get("max_abs_err", {})
+    rows = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (x.contiguous() for x in _k5_inputs(seg, 16, dt, gen))
+        do = _k5_inputs(seg, 16, dt, gen)[0].contiguous()
+        out, l, m = fa._forward_cuda(q, k, v, seg, seg, 0.125, True)
+        di = (out.float() * do.float()).sum(dim=-1).contiguous()
+        got = fa.flash_attention_backward(q, k, v, seg, seg, out, l, m, do, 0.125)
+        want = fa.flash_attention_backward_plain(q, k, v, seg, seg, out, l, m, do, 0.125)
+        diffs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        scale = max(w.float().abs().max().item() for w in want)
+        atol = K5_BWD_ATOL_F32 if dt == torch.float32 else max(K5_BWD_REL_BF16 * scale, 2e-3)
+        if max(diffs) > atol:
+            raise AssertionError(f"K5 backward {tag} at S 8192: |kernel - plain| {diffs} > {atol}")
+        del got, want
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, seg, seg, out, l, m, do, 0.125),
+                           iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=pair, scale=0.125)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters=5, warmup=1)
+        lib_grads = torch.autograd.grad(lib_out, leaves, do)
+        mine = fa.flash_attention_backward(q, k, v, seg, seg, out, l, m, do, 0.125)
+        lib_diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(mine, lib_grads))  # reported, not a bar
+        del lib_out, lib_grads, leaves, mine
+        kernels = {
+            "dkv": (lambda: fa.flash_attention_dkv(q, k, v, seg, seg, l, m, do, di, 0.125), max(diffs[1:])),
+            "dq": (lambda: fa.flash_attention_dq(q, k, v, seg, seg, l, m, do, di, 0.125), diffs[0]),
+        }
+        for what, (kernel, err) in kernels.items():
+            name = f"K5 {what} {tag}"
+            row = {
+                "name": name, "route": "cuda", "source": "intool_rag_tpu_torch/kernels/flash_attention_bwd.cu",
+                "replaces": "intool_rag_tpu/models/encoder.py:138",
+                # main path: this phase's training steps; the f32 variants serve f32 encoders only
+                "launches": sum(r["launches"][name] for r in runs) if dt == torch.bfloat16 else None,
+                "launches_per_step": INGEST_WIDTH[0] if dt == torch.bfloat16 else None,
+                "max_abs_err": max(err, errs.get(name, 0.0)),
+                "ms": cuda_ms(kernel, iters=5, warmup=1),
+                # the plain version and the library call each return dq, dk and dv together
+                "plain_ms": plain_ms, **_k5_backward_bound(seg, 16, q.element_size(), what),
+                "library_ms": library_ms, "plain_and_library_cover": "dq + dk + dv",
+                "max_abs_diff_library": lib_diff,
+            }
+            rows.append(row)
+            log(f"kernel {json.dumps(row)}")
+        del q, k, v, do, out, l, m, di
+        torch.cuda.empty_cache()
+    for row in state.get("kernels", []):  # the forward's row, where the ingest phase made one
+        if row["name"] == "K5 bf16":
+            row["launches_training"] = sum(r["launches"]["K5 bf16"] for r in runs)
+    state.setdefault("kernels", []).extend(rows)
+
+
+def phase_train(state: dict) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    _train_full_width(state, dev, gen)
+    _gradient_routes_agree(state, dev, gen)
+    _train_short_rows(state, dev)
+    _rerank_full_width(state, dev, gen)
+    _k5_backward_times_and_rows(state, dev, gen)
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
-          6: phase_ingest}
+          6: phase_ingest, 7: phase_train}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -56,6 +56,12 @@ class Config:
     # --- Semantic analysis at ingest ---
     LLM_PROVIDER: str = _field(lambda: _env_str("LLM_PROVIDER", ""))
 
+    # --- Reranker ---
+    RERANKER_MODEL: str = _field(lambda: _env_str("RERANKER_MODEL", "BAAI/bge-reranker-v2-m3"))
+    RERANKER_ENABLED: bool = _field(lambda: _env_bool("RERANKER_ENABLED", False))
+    RERANKER_TOP_K: int = _field(lambda: _env_int("RERANKER_TOP_K", 10))
+    RERANKER_CANDIDATES: int = _field(lambda: _env_int("RERANKER_CANDIDATES", 100))
+
     # --- Chunking ---
     CHUNK_MAX_CHARS: int = _field(lambda: _env_int("CHUNK_MAX_CHARS", 1000))
     CHUNK_MIN_CHARS: int = _field(lambda: _env_int("CHUNK_MIN_CHARS", 100))

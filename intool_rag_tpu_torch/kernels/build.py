@@ -4,7 +4,8 @@ Each ``*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded through :mod:`ctypes`. Nothing is
 built or loaded when this module is imported: :func:`load` builds on first
 use, into ``kernels/_build/`` (ignored by git), keyed by a hash of the
-source and flags so an edited source rebuilds. A failed build raises with
+source, the directory's ``*.cuh`` headers and the flags, so an edited
+source rebuilds. A failed build raises with
 the compiler's output; there is no fallback.
 """
 
@@ -21,7 +22,10 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu", "flash_attention.cu")
+SOURCES = (
+    "flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu", "flash_attention.cu",
+    "flash_attention_bwd.cu",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
@@ -50,7 +54,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = (KERNEL_DIR / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(KERNEL_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 

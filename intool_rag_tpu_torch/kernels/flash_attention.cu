@@ -40,6 +40,12 @@
 // 32-key tiles broadcast from shared memory, online softmax in chunks of 8
 // keys.
 //
+// A differentiated call also saves each row's sum l and max m ([B, H, S] f32,
+// m in the natural-exponent domain, the mask value itself for a row no key
+// matches) for the backward kernels of flash_attention_bwd.cu; the library
+// keeps the two apart as well, since m + log l would lose log l beside the
+// mask value.
+//
 // Still open: wgmma and TMA, double buffering of the k/v tiles (loads and
 // MMAs of one CTA do not overlap; several CTAs per SM hide part of it), and
 // skipping key tiles whose segment range cannot meet the query tile's, which
@@ -49,66 +55,26 @@
 // plain C interface (loaded through ctypes). The entry point returns the
 // cudaError_t of its launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int DH = 64;                       // head dim
-constexpr float MASK_VALUE = -2.3819763e38f;  // -0.7 * f32 max, the library's mask value
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, s;  // in elements
-};
-
 // ---------------------------------------------------------------- bf16
 
-constexpr int BM = 64;   // query rows per CTA
-constexpr int BN = 64;   // keys per tile
-constexpr int LDS = 72;  // padded shared-memory row, in bf16 values
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                                 uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// the running max leaves the exp2 domain for the saved residual; a row no key
+// matched keeps the mask value itself
+__device__ __forceinline__ float natural_max(float m2) {
+  return m2 == MASK_VALUE ? MASK_VALUE : m2 * LN2;
 }
 
-// Four 8x8 b16 matrices, transposed: lane l gives the address of stored row
-// l%8 of matrix l/8; thread (g, t) receives {M[2t][g], M[2t+1][g]} of each.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3, const void* row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [rows0, rows0 + 64) of one head into a padded shared tile, 16 bytes a thread
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride) {
-  for (int c = threadIdx.x; c < BN * (DH / 8); c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDS + col) =
-        __ldg(reinterpret_cast<const uint4*>(src + (long long)r * row_stride + col));
-  }
-}
-
+// SAVE: also write the row sums l and maxima m ([B, H, S] f32) the backward
+// kernels need; the inference instantiation has no such stores.
+template <bool SAVE>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ o, int S, Strides sq,
+                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ l_out, float* __restrict__ m_out, int S, Strides sq,
                   Strides sk, Strides sv, Strides so, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 k_s[BN * LDS];
   __shared__ __align__(16) __nv_bfloat16 v_s[BN * LDS];
@@ -233,6 +199,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   l_i[0] += __shfl_xor_sync(0xffffffffu, l_i[0], 2);
   l_i[1] += __shfl_xor_sync(0xffffffffu, l_i[1], 1);
   l_i[1] += __shfl_xor_sync(0xffffffffu, l_i[1], 2);
+  if (SAVE && t == 0) {
+    const long long row = ((long long)b * gridDim.y + h) * S + m0 + r0;
+    l_out[row] = l_i[0];
+    l_out[row + 8] = l_i[1];
+    m_out[row] = natural_max(m_i[0]);
+    m_out[row + 8] = natural_max(m_i[1]);
+  }
   const float inv0 = 1.f / l_i[0], inv1 = 1.f / l_i[1];
   __nv_bfloat16* o0 = o + b * so.b + h * so.h + (long long)(m0 + r0) * so.s;
   __nv_bfloat16* o1 = o0 + 8 * so.s;
@@ -251,10 +224,12 @@ constexpr int FM = 128;  // query rows per CTA, one per thread
 constexpr int FN = 32;   // keys per tile
 constexpr int FC = 8;    // keys per online-softmax step
 
+template <bool SAVE>
 __global__ void __launch_bounds__(FM)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, float* __restrict__ o, int S, Strides sq,
+                 const int* __restrict__ seg_kv, float* __restrict__ o,
+                 float* __restrict__ l_out, float* __restrict__ m_out, int S, Strides sq,
                  Strides sk, Strides sv, Strides so, float scale_log2) {
   __shared__ __align__(16) float k_s[FN * DH];
   __shared__ __align__(16) float v_s[FN * DH];
@@ -332,6 +307,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
   }
 
+  if (SAVE) {
+    const long long at = ((long long)b * gridDim.y + h) * S + row;
+    l_out[at] = l_i;
+    m_out[at] = natural_max(m_i);
+  }
   const float inv = 1.f / l_i;
   float4* op = reinterpret_cast<float4*>(o + b * so.b + h * so.h + (long long)row * so.s);
 #pragma unroll
@@ -346,26 +326,33 @@ extern "C" {
 
 // q, k, v, o: [B, H, S, 64] through (batch, head, row) strides in elements, the
 // 64 values of a head contiguous; bf16 when is_bf16, else f32. seg_q, seg_kv
-// [B, S] i32, contiguous. S a multiple of 128.
+// [B, S] i32, contiguous. S a multiple of 128. l_out, m_out: [B, H, S] f32,
+// contiguous, both given (a differentiated call) or both null (inference).
 int flash_attention_segments(const void* q, const void* k, const void* v, const void* seg_q,
-                             const void* seg_kv, void* o, int B, int H, int S, int is_bf16,
+                             const void* seg_kv, void* o, void* l_out, void* m_out, int B, int H,
+                             int S, int is_bf16,
                              long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                              long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                              long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                              float sm_scale, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S % 128 != 0)
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S % 128 != 0 ||
+      (l_out == nullptr) != (m_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool save = l_out != nullptr;
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   const float scale_log2 = sm_scale * LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    flash_bf16_kernel<<<dim3(S / BM, H, B), THREADS, 0, st>>>(
+    auto kernel = save ? flash_bf16_kernel<true> : flash_bf16_kernel<false>;
+    kernel<<<dim3(S / BM, H, B), THREADS, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int*)seg_q,
-        (const int*)seg_kv, (__nv_bfloat16*)o, S, sq, sk, sv, so, scale_log2);
+        (const int*)seg_kv, (__nv_bfloat16*)o, (float*)l_out, (float*)m_out, S, sq, sk, sv, so,
+        scale_log2);
   } else {
-    flash_f32_kernel<<<dim3(S / FM, H, B), FM, 0, st>>>(
+    auto kernel = save ? flash_f32_kernel<true> : flash_f32_kernel<false>;
+    kernel<<<dim3(S / FM, H, B), FM, 0, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const int*)seg_q, (const int*)seg_kv,
-        (float*)o, S, sq, sk, sv, so, scale_log2);
+        (float*)o, (float*)l_out, (float*)m_out, S, sq, sk, sv, so, scale_log2);
   }
   return (int)cudaGetLastError();
 }

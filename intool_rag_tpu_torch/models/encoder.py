@@ -17,9 +17,18 @@ On the flash route a pad query attends to the pad keys only, on the key-mask
 route to the valid keys, so hidden states at pad positions differ between
 routes (in both packages); only valid positions are ever read.
 
+Parameters live in ``param_dtype``. Serving keeps them in the compute
+dtype (bf16-resident weights, read once per forward). Training builds the
+model with ``param_dtype=torch.float32``: f32 master weights that every
+layer casts to the compute dtype at the point of use, as flax does with
+its f32 params, so the arithmetic of a forward is the same bit for bit and
+the optimizer updates f32 values. There is no dropout in either package, so
+``train()`` and ``eval()`` compute the same.
+
 Parameters load from the JAX package's flax checkpoints through
 :func:`load_encoder_checkpoint` + :func:`params_from_jax` (no flax
-needed). LayerNorm here is torch's two-pass variance where flax computes
+needed), and go back through :func:`params_to_jax` +
+:func:`save_encoder_checkpoint`, which writes a file both packages open. LayerNorm here is torch's two-pass variance where flax computes
 ``E[x²] − E[x]²``; in f32 the two agree to ~1e-7 relative.
 """
 
@@ -48,7 +57,7 @@ class EncoderConfig:
     type_vocab_size: int = 1
     pad_token_id: int = 1
     layer_norm_eps: float = 1e-5
-    dtype: str = "bfloat16"  # compute (and here storage) dtype
+    dtype: str = "bfloat16"  # compute dtype (and the parameters', unless param_dtype is given)
     # rows at least this long take the flash-attention route (no [S, S]
     # logits, which BGE-M3's 8192-token inputs need); 0 disables it
     flash_min_len: int = 1024
@@ -70,16 +79,42 @@ class EncoderConfig:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.dtype]
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype: master weights of
+    another dtype are cast at the point of use (a no-op when they match)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that computes in its input's dtype (see :class:`Linear`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.layer_norm(
+            x, self.normalized_shape, self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps
+        )
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``dtype``. The cast follows
+    the gather, so a master table is never cast whole; the values equal
+    those of a table cast first."""
+
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        return nn.functional.embedding(ids, self.weight).to(dtype or self.weight.dtype)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig) -> None:
         super().__init__()
         self.num_heads = cfg.num_heads
         self.flash_min_len = cfg.flash_min_len
         h = cfg.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.output = nn.Linear(h, h)
+        self.query = Linear(h, h)
+        self.key = Linear(h, h)
+        self.value = Linear(h, h)
+        self.output = Linear(h, h)
 
     def forward(
         self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
@@ -112,10 +147,10 @@ class EncoderLayer(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.attention = SelfAttention(cfg)
-        self.attention_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
-        self.intermediate = nn.Linear(h, cfg.intermediate_size)
-        self.mlp_output = nn.Linear(cfg.intermediate_size, h)
-        self.output_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.attention_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.intermediate = Linear(h, cfg.intermediate_size)
+        self.mlp_output = Linear(cfg.intermediate_size, h)
+        self.output_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
 
     def forward(
         self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
@@ -130,21 +165,28 @@ class TextEncoder(nn.Module):
     CLS embeddings ``[B, H] f32``; with ``segment_ids`` and ``cls_index``
     (packed rows, ``models/packing.py``) one embedding per segment,
     ``[B, P, H]``; with ``pool=False`` the last hidden state ``[B, S, H]``
-    f32. Parameters are created on ``device`` in the config's dtype; they
-    are uninitialized until :meth:`init_random` or ``load_state_dict``."""
+    f32. Parameters are created on ``device`` in ``param_dtype`` (default:
+    the config's compute dtype; ``torch.float32`` for training with f32
+    master weights); they are uninitialized until :meth:`init_random` or
+    ``load_state_dict``."""
 
-    def __init__(self, config: EncoderConfig, device: str | torch.device | None = None) -> None:
+    def __init__(
+        self,
+        config: EncoderConfig,
+        device: str | torch.device | None = None,
+        param_dtype: torch.dtype | None = None,
+    ) -> None:
         super().__init__()
         self.config = config
         cfg = config
         with torch.device("meta"):
-            self.word_emb = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-            self.pos_emb = nn.Embedding(cfg.max_position, cfg.hidden_size)
-            self.type_emb = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
-            self.emb_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+            self.word_emb = Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.pos_emb = Embedding(cfg.max_position, cfg.hidden_size)
+            self.type_emb = Embedding(cfg.type_vocab_size, cfg.hidden_size)
+            self.emb_ln = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
             self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
         self.to_empty(device=resolve_device(device))
-        self.to(cfg.torch_dtype)
+        self.to(param_dtype or cfg.torch_dtype)
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator, std: float = 0.02) -> "TextEncoder":
@@ -157,6 +199,21 @@ class TextEncoder(nn.Module):
                 p.fill_(1.0)
             else:
                 p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
+        return self
+
+    @torch.no_grad()
+    def init_flax(self, generator: torch.Generator) -> "TextEncoder":
+        """Seeded random weights with the scales of the JAX package's
+        ``init_params`` (flax's defaults): matrices normal(0, 1/sqrt(fan_in)),
+        embeddings normal(0, 1/sqrt(hidden)), zero biases, unit LayerNorm
+        scales. Training from scratch starts here."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif "_ln" in name:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) / p.shape[1] ** 0.5)
         return self
 
     def forward(
@@ -184,10 +241,11 @@ class TextEncoder(nn.Module):
             positions = (c - torch.cummax(base, dim=1).values) * valid + cfg.pad_token_id
         elif positions is None:
             positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
+        dtype = cfg.torch_dtype
         hidden = (
-            self.word_emb(input_ids.long())
-            + self.pos_emb(positions.long())
-            + self.type_emb(torch.zeros_like(input_ids, dtype=torch.long))
+            self.word_emb(input_ids.long(), dtype)
+            + self.pos_emb(positions.long(), dtype)
+            + self.type_emb(torch.zeros_like(input_ids, dtype=torch.long), dtype)
         )
         hidden = self.emb_ln(hidden)
         for layer in self.layers:
@@ -227,6 +285,81 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def load_torch_state_dict(config: EncoderConfig, state_dict: dict) -> dict[str, torch.Tensor]:
+    """Map an HF ``XLMRobertaModel`` state dict (tensors or numpy arrays)
+    onto :class:`TextEncoder`'s: released BGE-M3 weights load through this
+    when they are available locally. Only names change; both sides store
+    ``nn.Linear`` weights as ``[out, in]``."""
+
+    def t(name):
+        return torch.as_tensor(state_dict[name]).detach().float()
+
+    out: dict[str, torch.Tensor] = {}
+
+    def put(dst: str, src: str) -> None:
+        out[f"{dst}.weight"], out[f"{dst}.bias"] = t(f"{src}.weight"), t(f"{src}.bias")
+
+    out["word_emb.weight"] = t("embeddings.word_embeddings.weight")
+    out["pos_emb.weight"] = t("embeddings.position_embeddings.weight")
+    out["type_emb.weight"] = t("embeddings.token_type_embeddings.weight")
+    put("emb_ln", "embeddings.LayerNorm")
+    for i in range(config.num_layers):
+        src, dst = f"encoder.layer.{i}", f"layers.{i}"
+        for name in ("query", "key", "value"):
+            put(f"{dst}.attention.{name}", f"{src}.attention.self.{name}")
+        put(f"{dst}.attention.output", f"{src}.attention.output.dense")
+        put(f"{dst}.attention_ln", f"{src}.attention.output.LayerNorm")
+        put(f"{dst}.intermediate", f"{src}.intermediate.dense")
+        put(f"{dst}.mlp_output", f"{src}.output.dense")
+        put(f"{dst}.output_ln", f"{src}.output.LayerNorm")
+    return out
+
+
+def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`params_from_jax`: a :class:`TextEncoder` state dict
+    as the JAX encoder's ``{"params": ...}`` tree of f32 numpy arrays."""
+    tree: dict = {}
+    for name, tensor in state_dict.items():
+        *path, leaf = name.split(".")
+        if path[0] == "layers":
+            path = [f"layer_{path[1]}", *path[2:]]
+        arr = tensor.detach().float().cpu().numpy()
+        if leaf == "weight":
+            if path[-1].endswith("_emb"):
+                leaf = "embedding"
+            elif path[-1].endswith("_ln"):
+                leaf = "scale"
+            else:
+                leaf, arr = "kernel", arr.T
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+def save_encoder_checkpoint(path, model: "TextEncoder", *, store_dtype: str = "float32") -> None:
+    """Persist an encoder (config + parameters) as one npz in the JAX
+    package's checkpoint format, so both packages' ``load_encoder_checkpoint``
+    open it. ``store_dtype="float16"`` halves the file; loading restores f32."""
+    from .msgpack import packb
+
+    dt = np.dtype(store_dtype)
+
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.astype(dt) if node.dtype == np.float32 else node
+
+    meta = dataclasses.asdict(model.config)
+    meta["ring_axis"] = None  # the JAX config's sequence-parallel field; not ported
+    np.savez_compressed(
+        Path(path),
+        meta=np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8),
+        params=np.frombuffer(packb(cast(params_to_jax(model.state_dict()))), np.uint8),
+    )
 
 
 def load_encoder_checkpoint(path) -> tuple[EncoderConfig, dict]:

@@ -1,10 +1,12 @@
-"""A small msgpack decoder for flax checkpoints (``flax.serialization``
-bytes), so the port reads the JAX package's encoder checkpoints without
-flax or the msgpack package.
+"""A small msgpack decoder and encoder for flax checkpoints
+(``flax.serialization`` bytes), so the port reads and writes the JAX
+package's encoder checkpoints without flax or the msgpack package.
 
-Handles maps, arrays, str, bin, ints, floats, nil and bool, and ext type 1,
-flax's ndarray: a packed ``(shape, dtype name, buffer)`` decoded to a
-numpy array.
+:func:`unpackb` handles maps, arrays, str, bin, ints, floats, nil and bool,
+and ext type 1, flax's ndarray: a packed ``(shape, dtype name, buffer)``
+decoded to a numpy array. :func:`packb` writes what a parameter tree holds:
+maps with str keys, numpy arrays, and the ints, strs and bytes inside an
+array's record.
 """
 
 from __future__ import annotations
@@ -101,3 +103,65 @@ def unpackb(data: bytes):
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+# flax splits a leaf above this size into chunks; writing those is not ported
+_MAX_LEAF_BYTES = 2**30
+
+
+def _pack_len(n: int, fix: tuple[int, int] | None, codes: tuple[int, ...]) -> bytes:
+    """Header of a sized object: a fix byte where ``n`` fits ``fix = (base,
+    limit)``, else the first of ``codes`` (8-, 16-, 32-bit length; 0 where
+    the type has no such width) that holds ``n``."""
+    if fix is not None and n < fix[1]:
+        return bytes([fix[0] | n])
+    for code, width in zip(codes, (1, 2, 4)):
+        if code and n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, "big")
+    raise ValueError(f"object of length {n} is too long for msgpack")
+
+
+def _pack_into(obj, out: list[bytes]) -> None:
+    if isinstance(obj, dict):
+        out.append(_pack_len(len(obj), (0x80, 16), (0, 0xDE, 0xDF)))
+        for key, val in obj.items():
+            if not isinstance(key, str):
+                raise TypeError(f"map keys must be str, got {type(key).__name__}")
+            _pack_into(key, out)
+            _pack_into(val, out)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject or obj.nbytes > _MAX_LEAF_BYTES:
+            raise ValueError(f"cannot pack an array of dtype {obj.dtype} and {obj.nbytes} bytes")
+        payload = packb([list(obj.shape), obj.dtype.name, obj.tobytes("C")])
+        out.append(_pack_len(len(payload), None, (0xC7, 0xC8, 0xC9)) + bytes([_NDARRAY_EXT]))
+        out.append(payload)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_len(len(obj), (0x90, 16), (0, 0xDC, 0xDD)))
+        for item in obj:
+            _pack_into(item, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_pack_len(len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + raw)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        out.append(_pack_len(len(obj), None, (0xC4, 0xC5, 0xC6)))
+        out.append(bytes(obj))
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool):
+        n = int(obj)
+        if 0 <= n <= 0x7F:
+            out.append(bytes([n]))
+        elif 0 <= n < 1 << 64:
+            out.append(b"\xcf" + n.to_bytes(8, "big"))
+        elif -(1 << 63) <= n < 0:
+            out.append(b"\xd3" + n.to_bytes(8, "big", signed=True))
+        else:
+            raise ValueError(f"integer {n} does not fit 64 bits")
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode a parameter tree (nested str-keyed dicts of numpy arrays) as
+    bytes that ``flax.serialization.from_bytes`` restores."""
+    out: list[bytes] = []
+    _pack_into(obj, out)
+    return b"".join(out)

@@ -12,6 +12,15 @@ is the plain version (it does build the logits);
 :func:`flash_attention_segments` takes it only for tensors on the CPU, and
 launches the kernel or raises on CUDA tensors.
 
+The call is differentiable: when a gradient is wanted it goes through
+:class:`FlashAttentionSegments`, whose forward also keeps each row's f32
+sum ``l`` and max ``m`` (apart, as the library keeps them: ``m + log l``
+would lose ``log l`` beside the mask value of a row no key matches) and
+whose backward is :func:`flash_attention_backward`: the two kernels of
+``kernels/flash_attention_bwd.cu`` (dk and dv in one, dq in the other) on
+the card, :func:`flash_attention_backward_plain` for CPU tensors. Neither
+direction ever falls back on a CUDA tensor.
+
 The tensors may be strided views (the encoder passes its ``[B, S, H·64]``
 projections viewed as ``[B, H, S, 64]``); only the last dim must be
 contiguous. The result comes back as a ``[B, H, S, 64]`` view of a
@@ -33,6 +42,7 @@ MAX_SEQ = 8192
 # masked key block rescales away instead of producing inf - inf
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _SOURCE = "flash_attention.cu"
+_SOURCE_BWD = "flash_attention_bwd.cu"
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -54,19 +64,67 @@ def _check(q, k, v, seg_q, seg_kv) -> None:
             raise ValueError(f"{name} must be int32 [{b}, {s}], got {seg.dtype} {tuple(seg.shape)}")
 
 
-def flash_attention_plain(q, k, v, seg_q, seg_kv, sm_scale: float) -> torch.Tensor:
+def _pair_mask(seg_q, seg_kv) -> torch.Tensor:
+    return seg_q[:, None, :, None] == seg_kv[:, None, None, :]
+
+
+def flash_attention_plain(q, k, v, seg_q, seg_kv, sm_scale: float, save_residuals: bool = False):
     """Plain version: f32 logits ``[B, H, S, S]``, the library's mask
     value where the segment ids differ, softmax, ``p`` rounded to v's type,
-    ``p·v``. Returns ``[B, H, S, 64]`` in v's type."""
+    ``p·v``. Returns ``[B, H, S, 64]`` in v's type; with ``save_residuals``
+    ``(out, l, m)``, the rows' f32 sums and maxima ``[B, H, S]``."""
     _check(q, k, v, seg_q, seg_kv)
     flash_attention_plain.calls.add(str(q.dtype))
     logits = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
-    pair = seg_q[:, None, :, None] == seg_kv[:, None, None, :]
-    logits = logits.masked_fill(~pair, MASK_VALUE)
-    return torch.softmax(logits, dim=-1).to(v.dtype) @ v
+    logits = logits.masked_fill(~_pair_mask(seg_q, seg_kv), MASK_VALUE)
+    out = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+    if not save_residuals:
+        return out
+    m = logits.max(dim=-1).values
+    return out, torch.exp(logits - m[..., None]).sum(dim=-1), m
 
 
 flash_attention_plain.calls = LaunchCount()
+
+
+def _check_backward(q, l, m, **like_q) -> None:
+    """``l, m`` f32 ``[B, H, S]``; every tensor of ``like_q`` (o, do) of q's shape and type."""
+    b, h, s, _ = q.shape
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q ({q.dtype} {tuple(q.shape)}), got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("l", l), ("m", m)):
+        if tuple(t.shape) != (b, h, s) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{b}, {h}, {s}], got {t.dtype} {tuple(t.shape)}")
+
+
+def flash_attention_backward_plain(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: float):
+    """Plain version of the backward kernels: ``(dq, dk, dv)`` from the
+    forward's ``o``, ``l``, ``m`` and the output gradient ``do``, on f32
+    ``[B, H, S, S]`` tensors. ``p = exp(s − m)/l`` is rebuilt from the
+    residuals (a masked pair gives 0, or ``1/l`` on a row no key matches);
+    ``p`` and ``ds = (do·vᵀ − Σ o·do)·p·sm_scale`` are rounded to the input
+    type before ``dv = pᵀ·do``, ``dk = dsᵀ·q`` and ``dq = ds·k``, as in the
+    library's kernels, and every sum is f32."""
+    _check(q, k, v, seg_q, seg_kv)
+    _check_backward(q, l, m, o=o, do=do)
+    flash_attention_backward_plain.calls.add(str(q.dtype))
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = (qf @ kf.transpose(-1, -2)) * sm_scale
+    logits = logits.masked_fill(~_pair_mask(seg_q, seg_kv), MASK_VALUE)
+    p = torch.exp(logits - m[..., None]) * (1.0 / l)[..., None]
+    del logits
+    di = (o.float() * dof).sum(dim=-1)
+    ds = (dof @ vf.transpose(-1, -2) - di[..., None]) * p
+    ds = (ds * sm_scale).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dv = (p.transpose(-1, -2) @ dof).to(v.dtype)
+    dk = (ds.transpose(-1, -2) @ qf).to(k.dtype)
+    dq = (ds @ kf).to(q.dtype)
+    return dq, dk, dv
+
+
+flash_attention_backward_plain.calls = LaunchCount()
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,48 +133,187 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_segments.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
         lib.flash_attention_segments.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
 
-def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
-    """(batch, head, row) strides in elements of a tensor the kernel can
-    read: last dim contiguous, every 64-value row 16-byte aligned."""
+def _lib_bwd() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.load(_SOURCE_BWD)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_dkv.argtypes = [p] * 11 + [i] * 4 + [ll] * 18 + [ctypes.c_float, p]
+        lib.flash_attention_dq.argtypes = [p] * 10 + [i] * 4 + [ll] * 15 + [ctypes.c_float, p]
+        lib.flash_attention_dkv.restype = lib.flash_attention_dq.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def _readable(t: torch.Tensor) -> bool:
+    """Can the kernels read ``t`` through its strides: last dim contiguous,
+    every 64-value row 16-byte aligned."""
     per16 = 16 // t.element_size()
     sb, sh, ss, sd = t.stride()
-    if sd != 1 or sb % per16 or sh % per16 or ss % per16 or t.data_ptr() % 16:
+    return sd == 1 and not (sb % per16 or sh % per16 or ss % per16 or t.data_ptr() % 16)
+
+
+def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
+    """(batch, head, row) strides in elements of a tensor the kernel can read."""
+    if not _readable(t):
         raise ValueError(
             f"{name}: the {HEAD_DIM} values of a head must be contiguous and 16-byte aligned, "
             f"got strides {t.stride()}"
         )
-    return sb, sh, ss
+    return t.stride()[:3]
+
+
+def _same_device(dev, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+
+
+def _empty_bhsd(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialized ``[B, H, S, 64]`` view of a ``[B, S, H, 64]`` tensor."""
+    b, h, s, dh = q.shape
+    return torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _variant(name: str, q: torch.Tensor) -> str:
+    return f"{name} {'bf16' if q.dtype == torch.bfloat16 else 'f32'}"
+
+
+def _forward_cuda(q, k, v, seg_q, seg_kv, sm_scale: float, save_residuals: bool):
+    """Launch the forward kernel: ``(out, l, m)``, ``l`` and ``m`` None
+    unless ``save_residuals``."""
+    dev = q.device
+    _same_device(dev, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv)
+    b, h, s, _ = q.shape
+    seg_q, seg_kv = seg_q.contiguous(), seg_kv.contiguous()
+    out = _empty_bhsd(q)
+    l = m = None
+    if save_residuals:
+        l = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+        m = torch.empty_like(l)
+    strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out")) for x in _strides(t, n)]
+    rc = _lib().flash_attention_segments(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
+        out.data_ptr(), l.data_ptr() if save_residuals else None,
+        m.data_ptr() if save_residuals else None, b, h, s, int(q.dtype == torch.bfloat16),
+        *strides, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    flash_attention_segments.launches.add(_variant("K5", q))
+    _check_rc(rc, "flash_attention_segments")
+    return out, l, m
+
+
+def _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di):
+    """Checks shared by the two backward wrappers; returns the operands the
+    kernels read (ids and row statistics contiguous) and their strides."""
+    _check(q, k, v, seg_q, seg_kv)
+    _check_backward(q, l, m, do=do)
+    if not q.is_cuda:
+        raise ValueError("the backward kernels take CUDA tensors; CPU tensors go through "
+                         "flash_attention_backward, which uses the plain version")
+    _same_device(q.device, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv, l=l, m=m, do=do, di=di)
+    if di.shape != l.shape or di.dtype != torch.float32:
+        raise ValueError(f"di must be float32 {tuple(l.shape)}, got {di.dtype} {tuple(di.shape)}")
+    stats = [t.contiguous() for t in (seg_q, seg_kv, l, m, di)]
+    strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")) for x in _strides(t, n)]
+    return stats, strides
+
+
+def flash_attention_dkv(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale: float):
+    """``(dk, dv)`` by the dkv kernel (CUDA tensors only). ``l, m`` are the
+    forward's residuals and ``di = Σ_d o·do``, all ``[B, H, S]`` f32."""
+    stats, strides = _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di)
+    dk, dv = _empty_bhsd(k), _empty_bhsd(v)
+    b, h, s, _ = q.shape
+    rc = _lib_bwd().flash_attention_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in stats),
+        dk.data_ptr(), dv.data_ptr(), b, h, s, int(q.dtype == torch.bfloat16), *strides,
+        *_strides(dk, "dk"), *_strides(dv, "dv"), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention_dkv.launches.add(_variant("K5 dkv", q))
+    _check_rc(rc, "flash_attention_dkv")
+    return dk, dv
+
+
+flash_attention_dkv.launches = LaunchCount()
+
+
+def flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale: float) -> torch.Tensor:
+    """``dq`` by the dq kernel (CUDA tensors only); arguments as
+    :func:`flash_attention_dkv`."""
+    stats, strides = _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di)
+    dq = _empty_bhsd(q)
+    b, h, s, _ = q.shape
+    rc = _lib_bwd().flash_attention_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in stats),
+        dq.data_ptr(), b, h, s, int(q.dtype == torch.bfloat16), *strides, *_strides(dq, "dq"),
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention_dq.launches.add(_variant("K5 dq", q))
+    _check_rc(rc, "flash_attention_dq")
+    return dq
+
+
+flash_attention_dq.launches = LaunchCount()
+
+
+def flash_attention_backward(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: float):
+    """``(dq, dk, dv)``, each a ``[B, H, S, 64]`` view of a ``[B, S, H, 64]``
+    tensor in its input's type. CUDA tensors go through the dkv and dq
+    kernels (``di`` is a small torch expression, as in the library) or raise;
+    CPU tensors take :func:`flash_attention_backward_plain`."""
+    _check(q, k, v, seg_q, seg_kv)
+    _check_backward(q, l, m, o=o, do=do)
+    if not q.is_cuda:
+        return flash_attention_backward_plain(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale)
+    if not _readable(do):
+        do = do.contiguous()  # whatever layout the next op's backward produced
+    di = (o.float() * do.float()).sum(dim=-1).contiguous()
+    dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)
+    dq = flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttentionSegments(torch.autograd.Function):
+    """The differentiable call: the forward saves ``o``, ``l`` and ``m``;
+    the backward is :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, sm_scale):
+        if q.is_cuda:
+            out, l, m = _forward_cuda(q, k, v, seg_q, seg_kv, sm_scale, True)
+        else:
+            out, l, m = flash_attention_plain(q, k, v, seg_q, seg_kv, sm_scale, save_residuals=True)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, l, m)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable  # as in the library: no higher-order gradient
+    def backward(ctx, do):
+        dq, dk, dv = flash_attention_backward(*ctx.saved_tensors, do, ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_segments(q, k, v, seg_q, seg_kv, sm_scale: float) -> torch.Tensor:
     """Attention confined to equal segment ids, ``[B, H, S, 64]`` in q's
     type. ``q, k, v [B, H, S, 64]`` bf16 or f32 (strided views allowed),
-    ``seg_q, seg_kv [B, S]`` int32, S a multiple of 128 up to 8192."""
+    ``seg_q, seg_kv [B, S]`` int32, S a multiple of 128 up to 8192.
+    Differentiable in q, k and v."""
     _check(q, k, v, seg_q, seg_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionSegments.apply(q, k, v, seg_q, seg_kv, sm_scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, seg_q, seg_kv, sm_scale)
-    dev = q.device
-    for name, t in (("k", k), ("v", v), ("seg_q", seg_q), ("seg_kv", seg_kv)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    b, h, s, dh = q.shape
-    seg_q, seg_kv = seg_q.contiguous(), seg_kv.contiguous()
-    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=dev).transpose(1, 2)
-    strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out")) for x in _strides(t, n)]
-    rc = _lib().flash_attention_segments(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-        out.data_ptr(), b, h, s, int(q.dtype == torch.bfloat16), *strides, float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    flash_attention_segments.launches.add("K5 bf16" if q.dtype == torch.bfloat16 else "K5 f32")
-    _check_rc(rc, "flash_attention_segments")
-    return out
+    return _forward_cuda(q, k, v, seg_q, seg_kv, sm_scale, False)[0]
 
 
 flash_attention_segments.launches = LaunchCount()

@@ -1,7 +1,9 @@
-"""Page-level retrieval (port of ``intool_rag_tpu/query/retriever.py``;
-the reranker wiring waits for a later slice).
+"""Page-level retrieval (port of ``intool_rag_tpu/query/retriever.py``).
 
-Flow: embed query → corpus-wide hybrid top-K chunks → group by
+Flow: embed query → corpus-wide hybrid top-K chunks (with
+``RERANKER_ENABLED`` and a reranker: ``max(limit, RERANKER_CANDIDATES)``
+of them, reordered by the cross-encoder and cut to the limit, score =
+sigmoid of the relevance logit) → group by
 (doc, page) → page score = avg(chunk scores) + min(0.05·n_chunks, 0.15),
 times ``TABLE_BOOST_MULTIPLIER`` for pages with tables → top-N pages with
 citation metadata.
@@ -10,6 +12,7 @@ citation metadata.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 import torch
@@ -56,9 +59,25 @@ def _chunks(hits: list[dict]) -> list[RetrievedChunk]:
 
 
 class PageLevelRetriever:
-    def __init__(self, registry: CorpusRegistry, provider) -> None:
+    def __init__(self, registry: CorpusRegistry, provider, reranker=None) -> None:
         self.registry = registry
         self.provider = provider
+        self._reranker = reranker
+
+    def _rerank_fetch(self, limit: int) -> tuple[bool, int]:
+        """(rerank?, hits to fetch): a wider pool when the cross-encoder
+        reorders it."""
+        cfg = get_config()
+        rerank = cfg.RERANKER_ENABLED and self._reranker is not None
+        return rerank, max(limit, cfg.RERANKER_CANDIDATES) if rerank else limit
+
+    def _rerank(self, query: str, hits: list[dict], limit: int) -> list[dict]:
+        """Cross-encoder order of ``hits`` cut to ``limit``; the sigmoid maps
+        the logits into the [0, 1] space the page scoring expects."""
+        reranked = self._reranker.rerank(query, hits, top_k=limit)
+        for h in reranked:
+            h["score"] = 1.0 / (1.0 + math.exp(-h["rerank_score"]))
+        return reranked
 
     def _embed(self, queries: list[str]) -> torch.Tensor:
         """Query embeddings on the corpus device; a provider with
@@ -76,7 +95,10 @@ class PageLevelRetriever:
         (4× over-fetched) candidate pool."""
         cfg = get_config()
         limit = limit or cfg.RETRIEVAL_CANDIDATES
-        hits = self.registry.search([query], self._embed([query]), limit, project=project)[0]
+        rerank, fetch = self._rerank_fetch(limit)
+        hits = self.registry.search([query], self._embed([query]), fetch, project=project)[0]
+        if rerank and hits:
+            hits = self._rerank(query, hits, limit)
         chunks = _chunks(hits)
         return [c for c in chunks if c.score >= cfg.RETRIEVAL_MIN_SCORE] or chunks[:5]
 
@@ -87,12 +109,16 @@ class PageLevelRetriever:
         per-query project filters apply on the host."""
         cfg = get_config()
         limit = limit or cfg.RETRIEVAL_CANDIDATES
-        fetch = limit * 4 if any(p is not None for p in projects) else limit
+        rerank, fetch = self._rerank_fetch(limit)
+        if any(p is not None for p in projects):
+            fetch *= 4
         hit_lists = self.registry.search(list(queries), self._embed(queries), fetch)
         out: list[list[RetrievedChunk]] = []
-        for hits, project in zip(hit_lists, projects):
+        for query, hits, project in zip(queries, hit_lists, projects):
             if project is not None:
                 hits = [h for h in hits if self.registry.doc_projects.get(h["doc_id"]) == project]
+            if rerank and hits:
+                hits = self._rerank(query, hits, limit)
             chunks = _chunks(hits[:limit])
             kept = [c for c in chunks if c.score >= cfg.RETRIEVAL_MIN_SCORE]
             out.append(kept or chunks[:5])

@@ -23,6 +23,7 @@ from ..config import get_config
 from ..exceptions import IndexNotFoundError, RAGError
 from ..index.registry import CorpusRegistry
 from ..ingest.pipeline import IngestionPipeline
+from ..llm.reranker_factory import get_reranker
 from ..query.retriever import PageLevelRetriever
 from ..tasks import TaskQueue
 from .batcher import QueryBatcher
@@ -43,14 +44,18 @@ class HTTPError(Exception):
 class RAGService:
     """Routes requests to the ingest and retrieval paths. ``provider``
     embeds chunks and queries (a
-    :class:`..providers.cuda_embed.CudaEmbeddingProvider`)."""
+    :class:`..providers.cuda_embed.CudaEmbeddingProvider`). ``reranker``
+    reorders ``/search`` hits when ``RERANKER_ENABLED``; left out, it comes
+    from ``llm/reranker_factory.py`` (None without local weights)."""
 
     def __init__(self, provider, registry: CorpusRegistry | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None, reranker=None) -> None:
         self.registry = registry or CorpusRegistry(device=device)
         self.registry.load_all()
         self.pipeline = IngestionPipeline(provider, storage=self.registry.storage)
-        self.retriever = PageLevelRetriever(self.registry, provider)
+        if reranker is None:
+            reranker = get_reranker(self.registry.device)
+        self.retriever = PageLevelRetriever(self.registry, provider, reranker=reranker)
         self.tasks = TaskQueue(workers=1)
         self.last_ingest_timings: dict[str, float] = {}
         cfg = get_config()

@@ -1,0 +1,257 @@
+"""K5's backward (dkv and dq): the port's plain backward, reached through
+``torch.autograd`` and the ``FlashAttentionSegments`` Function, against
+``jax.grad`` of the JAX library's TPU flash-attention kernels (run in
+interpret mode), against autodiff of that library's
+``mha_reference_no_custom_vjp``, and against ``torch.autograd`` through the
+port's plain forward, on the same seeded inputs.
+
+On the CPU the Function's backward takes the plain version; the two CUDA
+kernels are held against this same plain version on the card
+(``chip_smoke.py`` phase 2 and the card-only test below).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jflash
+
+from intool_rag_tpu_torch.ops import flash_attention as tflash
+from test_torch_flash_attention import LAYOUTS, _inputs, _segments
+
+torch.set_num_threads(2)
+
+SCALE = 0.125
+# f32: both sides rebuild p from l and m and sum f32 products in another order.
+ATOL_F32 = 5e-6
+# bf16: p, ds and each gradient are rounded to 8 bits of mantissa on both sides,
+# from f32 values that differ in their last bits (the library renormalises its
+# forward block by block), so a gradient may land two bf16 steps away. A step is
+# at most 2^-7 of the value: two steps of the largest gradient.
+REL_BF16 = 2.0 ** -6
+
+
+def _do(rng: np.random.Generator, shape, dtype: str) -> np.ndarray:
+    do = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        do = np.array(jnp.asarray(do, jnp.bfloat16).astype(jnp.float32))
+    return do
+
+
+def _port_grads(q, k, v, seg_q, seg_kv, do, dtype: str):
+    """(dq, dk, dv) as f32 numpy through torch.autograd and the Function."""
+    td = getattr(torch, dtype)
+    leaves = [torch.from_numpy(x).to(td).requires_grad_() for x in (q, k, v)]
+    out = tflash.flash_attention_segments(*leaves, torch.from_numpy(seg_q), torch.from_numpy(seg_kv), SCALE)
+    assert out.grad_fn is not None and out.grad_fn.name().startswith("FlashAttentionSegments")
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do).to(td))
+    assert all(g.dtype == td and g.shape == x.shape for g, x in zip(grads, leaves))
+    return [g.float().numpy() for g in grads]
+
+
+def _library_grads(fn, q, k, v, seg_q, seg_kv, do, dtype: str):
+    jd = jnp.dtype(dtype)
+    ids = jflash.SegmentIds(q=jnp.asarray(seg_q), kv=jnp.asarray(seg_kv))
+    do_j = jnp.asarray(do, jd)
+
+    def scalar(q, k, v):
+        return jnp.sum(fn(q, k, v, ids).astype(jnp.float32) * do_j.astype(jnp.float32))
+
+    grads = jax.grad(scalar, argnums=(0, 1, 2))(*(jnp.asarray(x, jd) for x in (q, k, v)))
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _kernels(q, k, v, ids):
+    return jflash.flash_attention(q, k, v, segment_ids=ids, sm_scale=SCALE)
+
+
+def _reference(q, k, v, ids):
+    return jflash.mha_reference_no_custom_vjp(q, k, v, None, ids, sm_scale=SCALE)
+
+
+def _assert_close(got, want, dtype: str):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        atol = ATOL_F32 if dtype == "float32" else REL_BF16 * np.abs(w).max()
+        np.testing.assert_allclose(g, w, atol=atol, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_backward_matches_library_kernels_in_interpret_mode(layout, dtype):
+    b, h, s = 1, 2, 256
+    rng, q, k, v = _inputs(21, b, h, s, dtype)
+    seg = _segments(rng, layout, b, s)
+    do = _do(rng, q.shape, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = _library_grads(_kernels, q, k, v, seg, seg, do, dtype)
+    _assert_close(_port_grads(q, k, v, seg, seg, do, dtype), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_no_key_matches_against_library_kernels(dtype):
+    """Query ids rolled against the key ids: some rows match no key. There
+    every p is 1/l and, as in the library (which adds the mask value to the
+    logit), the gradient still flows through the masked logits."""
+    b, h, s = 1, 2, 256
+    rng, q, k, v = _inputs(22, b, h, s, dtype)
+    seg_kv = _segments(rng, "packed", b, s)
+    seg_q = np.roll(seg_kv, 37, axis=1).copy()
+    seg_q[:, :9] = 77
+    do = _do(rng, q.shape, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = _library_grads(_kernels, q, k, v, seg_q, seg_kv, do, dtype)
+    _assert_close(_port_grads(q, k, v, seg_q, seg_kv, do, dtype), want, dtype)
+
+
+@pytest.mark.parametrize("s", [128, 512])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_backward_matches_autodiff_of_mha_reference(layout, s):
+    b, h = 2, 2
+    rng, q, k, v = _inputs(s + 1, b, h, s, "float32")
+    seg = _segments(rng, layout, b, s)
+    seg_q = np.roll(seg, 5, axis=1) if layout == "straddle" else seg  # rows no key matches too
+    do = _do(rng, q.shape, "float32")
+    want = _library_grads(_reference, q, k, v, seg_q, seg, do, "float32")
+    _assert_close(_port_grads(q, k, v, seg_q, seg, do, "float32"), want, "float32")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_backward_matches_torch_autograd_through_the_plain_forward(layout):
+    """Every query finds a key here: ``masked_fill`` in the plain forward
+    cuts the gradient of a masked logit, which only matters on rows no key
+    matches (the test above covers those against the library)."""
+    b, h, s = 2, 3, 256
+    rng, q, k, v = _inputs(23, b, h, s, "float32")
+    seg = torch.from_numpy(_segments(rng, layout, b, s))
+    do = torch.from_numpy(_do(rng, q.shape, "float32"))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(tflash.flash_attention_plain(*leaves, seg, seg, SCALE), leaves, do)
+    got = _port_grads(q, k, v, seg.numpy(), seg.numpy(), do.numpy(), "float32")
+    _assert_close(got, [w.numpy() for w in want], "float32")
+
+
+@pytest.mark.parametrize("layout", ["mask", "all-pad row", "no key"])
+def test_saved_residuals_match_the_librarys(layout):
+    b, h, s = 2, 2, 256
+    rng, q, k, v = _inputs(24, b, h, s, "float32")
+    seg_kv = _segments(rng, "packed" if layout == "no key" else layout, b, s)
+    seg_q = np.full_like(seg_kv, 99) if layout == "no key" else seg_kv
+    ids = jflash.SegmentIds(q=jnp.asarray(seg_q), kv=jnp.asarray(seg_kv))
+    blocks = jflash.BlockSizes.get_default(b, h, s, s, 64)
+    with pltpu.force_tpu_interpret_mode():  # what the library's own differentiated forward saves
+        _, l_want, m_want = jflash._flash_attention(
+            *(jnp.asarray(x) for x in (q, k, v)), None, ids, True, False, SCALE, blocks, False
+        )
+    _, l, m = tflash.flash_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(seg_q), torch.from_numpy(seg_kv), SCALE,
+        save_residuals=True,
+    )
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_want), rtol=2e-6)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_want), rtol=1e-6, atol=1e-6)
+    if layout == "no key":  # the mask value itself, and the sum counts every key
+        assert (m.numpy() == np.float32(tflash.MASK_VALUE)).all() and (l.numpy() == s).all()
+
+
+def test_plain_backward_returns_what_the_function_returns():
+    b, h, s = 1, 2, 128
+    rng, q, k, v = _inputs(25, b, h, s, "float32")
+    seg = torch.from_numpy(_segments(rng, "packed", b, s))
+    do = torch.from_numpy(_do(rng, q.shape, "float32"))
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    out, l, m = tflash.flash_attention_plain(q, k, v, seg, seg, SCALE, save_residuals=True)
+    direct = tflash.flash_attention_backward(q, k, v, seg, seg, out, l, m, do, SCALE)
+    through = _port_grads(q.numpy(), k.numpy(), v.numpy(), seg.numpy(), seg.numpy(), do.numpy(), "float32")
+    for a, b_ in zip(direct, through):
+        np.testing.assert_array_equal(a.numpy(), b_)
+
+
+def test_inference_call_skips_the_function():
+    """No gradient wanted: the forward saves nothing and builds no graph."""
+    _, q, k, v = _inputs(26, 1, 1, 128, "float32")
+    seg = torch.ones((1, 128), dtype=torch.int32)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        assert tflash.flash_attention_segments(*leaves, seg, seg, SCALE).grad_fn is None
+    plain = [x.detach() for x in leaves]
+    assert tflash.flash_attention_segments(*plain, seg, seg, SCALE).grad_fn is None
+
+
+def _backward_args(**replace):
+    x = torch.empty((1, 2, 128, 64), device="meta")
+    stat = torch.empty((1, 2, 128), device="meta")
+    seg = torch.empty((1, 128), dtype=torch.int32, device="meta")
+    args = dict(q=x, k=x, v=x, seg_q=seg, seg_kv=seg, o=x, l=stat, m=stat, do=x)
+    args.update(replace)
+    return args
+
+
+@pytest.mark.parametrize("replace", [
+    dict(do=torch.empty((1, 2, 128, 64), dtype=torch.bfloat16, device="meta")),
+    dict(do=torch.empty((1, 1, 128, 64), device="meta")),
+    dict(o=torch.empty((1, 2, 64, 64), device="meta")),
+    dict(l=torch.empty((1, 2, 64), device="meta")),
+    dict(m=torch.empty((1, 2, 128), dtype=torch.float64, device="meta")),
+    dict(seg_q=torch.empty((1, 128), dtype=torch.int64, device="meta")),
+], ids=["do-dtype", "do-shape", "o-shape", "l-shape", "m-dtype", "seg-dtype"])
+def test_backward_refuses_what_the_kernels_cannot_take(replace):
+    with pytest.raises(ValueError):
+        tflash.flash_attention_backward(**_backward_args(**replace), sm_scale=SCALE)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_dkv", "flash_attention_dq"])
+def test_kernel_wrappers_refuse_cpu_tensors(kernel):
+    """The dkv and dq wrappers launch or raise; only
+    ``flash_attention_backward`` routes CPU tensors to the plain version."""
+    x = torch.zeros((1, 1, 128, 64))
+    stat = torch.ones((1, 1, 128))
+    seg = torch.zeros((1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        getattr(tflash, kernel)(x, x, x, seg, seg, stat, stat, x, stat, SCALE)
+    assert getattr(tflash, kernel).launches.count == 0
+
+
+def test_cpu_route_counts_plain_calls_not_launches():
+    rng, q, k, v = _inputs(27, 1, 1, 128, "float32")
+    for counter in (tflash.flash_attention_plain.calls, tflash.flash_attention_backward_plain.calls,
+                    tflash.flash_attention_segments.launches, tflash.flash_attention_dkv.launches,
+                    tflash.flash_attention_dq.launches):
+        counter.reset()
+    seg = np.ones((1, 128), np.int32)
+    _port_grads(q, k, v, seg, seg, _do(rng, q.shape, "float32"), "float32")
+    assert tflash.flash_attention_plain.calls.count == 1
+    assert tflash.flash_attention_backward_plain.calls.count == 1
+    assert tflash.flash_attention_segments.launches.count == 0
+    assert tflash.flash_attention_dkv.launches.count == tflash.flash_attention_dq.launches.count == 0
+
+
+def test_backward_kernels_on_card():
+    """The CUDA kernels against the plain backward, strided views included,
+    and two runs bit-equal (needs the card; ``python3 chip_smoke.py
+    --phases 1,2`` runs the full set)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    for dtype in (torch.float32, torch.bfloat16):
+        rng, q, k, v = _inputs(1, 2, 6, 1024, "float32")
+        seg = torch.from_numpy(_segments(rng, "packed", 2, 1024)).cuda()
+        do = _do(rng, q.shape, "float32")
+        # the encoder's layout: [B, S, H*64] viewed as [B, H, S, 64]
+        q, k, v, do = (torch.from_numpy(x).cuda().to(dtype).transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in (q, k, v, do))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        for counter in (tflash.flash_attention_dkv.launches, tflash.flash_attention_dq.launches):
+            counter.reset()
+        out = tflash.flash_attention_segments(*leaves, seg, seg, SCALE)
+        got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert tflash.flash_attention_dkv.launches.count == tflash.flash_attention_dq.launches.count == 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _, l, m = tflash.flash_attention_plain(q, k, v, seg, seg, SCALE, save_residuals=True)
+        want = tflash.flash_attention_backward_plain(q, k, v, seg, seg, out.detach(), l, m, do, SCALE)
+        for g, w in zip(got, want):
+            atol = 5e-5 if dtype == torch.float32 else max(2.0 ** -7 * w.float().abs().max().item(), 2e-3)
+            assert (g.float() - w.float()).abs().max().item() <= atol

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "pydantic", "msgpack", "intool_rag_tpu", "flash_attn", "xformers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack", "intool_rag_tpu", "flash_attn", "xformers")
 # what would stand in for a hand-written kernel; chip_smoke.py may time a
 # library call beside a kernel, the package never calls one
 LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn", "xformers", "torch.compile")
@@ -52,11 +52,35 @@ def test_new_modules_are_covered():
     names = {str(p.relative_to(ROOT / "intool_rag_tpu_torch")) for p in _port_files()[:-1]}
     assert {"ops/flash_attention.py", "models/packing.py", "ingest/pdf.py", "ingest/pipeline.py",
             "llm/semantic/factory.py", "providers/heuristic_semantic.py", "tasks.py",
-            "service/multipart.py"} <= names
+            "service/multipart.py", "train/contrastive.py", "train/rerank.py", "models/reranker.py",
+            "eval/metrics.py", "eval/harness.py", "eval/synthetic.py", "llm/reranker_factory.py"} <= names
+    kernel_dir = ROOT / "intool_rag_tpu_torch" / "kernels"
+    kernels = {p.name for p in kernel_dir.glob("*.cu")}
+    assert {"flash_attention.cu", "flash_attention_bwd.cu"} <= kernels
+    for source in [*kernels, *(p.name for p in kernel_dir.glob("*.cuh"))]:
+        # no PyTorch header in a kernel source: it would take minutes to build
+        assert "torch/" not in (kernel_dir / source).read_text()
+
+
+def test_every_kernel_source_is_built():
+    from intool_rag_tpu_torch.kernels import build
+
     kernels = {p.name for p in (ROOT / "intool_rag_tpu_torch" / "kernels").glob("*.cu")}
-    assert "flash_attention.cu" in kernels
-    for cu in kernels:  # no PyTorch header in a kernel source: it would take minutes to build
-        assert "torch/" not in (ROOT / "intool_rag_tpu_torch" / "kernels" / cu).read_text()
+    assert set(build.SOURCES) == kernels
+
+
+def test_only_the_factory_imports_transformers_and_only_lazily():
+    """``transformers`` is optional: the reranker factory imports it inside
+    ``_build``, under the ``try`` that turns a missing package or missing
+    weights into "no reranker"; nothing imports it at module level."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.module and n.level == 0}
+        assert "transformers" not in names, path
+        if "transformers" in set(_imported_roots(path)):
+            assert path.name == "reranker_factory.py", path
 
 
 def test_resolve_device_raises_without_cuda():
