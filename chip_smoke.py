@@ -6,12 +6,17 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
-   and each kernel's registers and shared memory.
-2. kernels vs plain: every K1 (``partial_topk``) and K2
-   (``partial_topk_int8``) variant against its plain PyTorch version on
-   the card, at the shapes of ``CHECK_SHAPES`` (the service store's among
-   them). K2 must match bit for bit; K1 values to atol 1e-4 on unit-norm
-   data, ids wherever the within-group gap is above 2e-4. K3
+   and each kernel's registers and shared memory: for K1/K2's tensor-core
+   kernels per variant and query-tile width, with their spill bytes, and
+   fails if any of them spills or the compiler warns.
+2. kernels vs plain: every K1 (``partial_topk``: bf16, bf16 precise, f16,
+   f32) and K2 (``partial_topk_int8``: int8, +q2, +c2, int8r) variant
+   against its plain PyTorch version on the card, at the shapes of
+   ``CHECK_SHAPES`` (Q 300 over several query tiles, the service store at
+   batch 1-16 with split blocks, valid_n inside a 128-row tile, D 384 and
+   1024). K2 must match bit for bit, and a repeated run the first; K1
+   values to atol 1e-4 on unit-norm data, ids wherever the within-group
+   gap is above 2e-4. K3
    (``bits_scan``) at the shapes of ``K3_CHECKS`` (the service store's and
    the capacity run's among them, with empty slots and an all-empty
    list): values to rtol 2e-5 / atol 1e-5, ids wherever the within-group
@@ -31,7 +36,7 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
-   (bf16 and f32 for K1, the int8 and int8r mirrors for K2, and the
+   (bf16, f32 and f16 for K1, the int8 and int8r mirrors for K2, and the
    ``INDEX_KIND=bits`` capacity tier for K3). Launch counts per kernel
    variant are set to 0 before each run and read after it (the main
    path); a run that launches any other variant than its store's fails.
@@ -39,8 +44,15 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    ``bge_m3``-width encoder (random weights from a seed), 100 candidates
    per side, k = 10, through ``_fused_hybrid_search`` with K2 and K1;
    recall@10 against the exact hybrid oracle must be >= 0.99, and each
-   path must launch its kernel. The kernel table then checks and times
-   every variant against its plain version on the phase-4 inputs.
+   path must launch its kernel and no other; ``torch.profiler`` over the
+   same rotations gives the device's busy share of a batch, against an
+   unprofiled pass just before it (measured after the last phase, since a
+   traced process runs its host side slower and phases 5-7 time host
+   work). The kernel table
+   then checks and times every variant against its plain version on the
+   phase-4 inputs, and the tensor-core variants at the phase-3 service
+   shape (``SERVICE_SHAPE``), each with its bound, share of the bound and
+   library time.
 5. capacity run: the 1-bit tier at full width. 3,000,000 x d1024 rows
    with micro-cluster structure stream into an ``IVFBitsIndex`` (nlist
    256, 13 blocks of 1,024 slots per list, host int8 refine tier) in
@@ -102,6 +114,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -123,17 +136,38 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms over ``iters`` launches."""
+    """Mean device time of ``fn()`` in ms over ``iters`` launches. The card
+    first sleeps while the host queues every launch, so a call whose host
+    side outlasts its kernels is timed by its kernels, not by the host."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # about 25 ms of clock cycles
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_wall_ms(fn, iters: int = 100, warmup: int = 5) -> tuple[float, float]:
+    """``(host, wall)``: mean ms per call of ``fn()`` over ``iters`` calls in
+    a row, the card synchronised before. ``host`` stops the clock when the
+    last call returns (the host side alone, while the launch queue has
+    room), ``wall`` once the card has finished (host side or device time,
+    whichever paces a stream of such calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return 1000 * (t1 - t0) / iters, 1000 * (t2 - t0) / iters
 
 
 def card_line() -> str:
@@ -147,6 +181,40 @@ def card_line() -> str:
 # ------------------------------------------------------------------ phase 1
 
 
+def _ptxas_entries(text: str) -> list[dict]:
+    """Registers, spill bytes and static shared memory of every entry
+    function in ``-Xptxas=-v`` output."""
+    out, name, spill = [], None, 0
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            name, spill = m.group(1), 0
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append({"entry": name, "registers": int(m.group(1)), "spill_bytes": spill,
+                        "static_smem": int(smem.group(1)) if smem else 0})
+            name = None
+    return out
+
+
+def _tensor_core_kernels(text: str) -> dict:
+    """K1/K2's tensor-core instantiations by variant and query-tile width:
+    registers, spill bytes and the TMA ring's dynamic shared memory."""
+    from intool_rag_tpu_torch.ops import flat_fused as ff
+
+    names = {kind: name for name, (kind, _) in ff._KINDS.items()}
+    lib = ff._lib()
+    out: dict = {}
+    for e in _ptxas_entries(text):
+        if m := re.search(r"partial_topk_kernelILi(\d+)ELi(\d+)E", e["entry"]):
+            kind, width = int(m.group(1)), int(m.group(2))
+            out.setdefault(names[kind], {})[width] = {
+                "registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                "smem_bytes": e["static_smem"] + lib.flat_partial_topk_smem(kind, width)}
+    return out
+
+
 def phase_build(state: dict) -> None:
     from intool_rag_tpu_torch.kernels import build
 
@@ -157,6 +225,20 @@ def phase_build(state: dict) -> None:
         build.load(source)
     state["build_s"] = time.perf_counter() - t0
     for name, text in build.BUILD_LOG.items():
+        if name == "flat_partial_topk.cu":
+            tc = _tensor_core_kernels(text)
+            log(f"built {name}: K1/K2 on the tensor cores (registers, spill bytes, shared memory "
+                f"per query-tile width): {json.dumps(tc)}")
+            rest = [e for e in _ptxas_entries(text) if "partial_topk_kernelI" not in e["entry"]]
+            log(f"built {name}: other entries {json.dumps(rest)}")
+            warnings = sorted({ln.strip() for ln in text.splitlines() if "warning" in ln.lower()})
+            if warnings:  # e.g. a setmaxnreg that ptxas ignored
+                raise AssertionError(f"{name}: compiler warnings {warnings}")
+            spilled = {v: w for v, widths in tc.items() for w, e in widths.items() if e["spill_bytes"]}
+            if spilled or len(tc) != 7:
+                raise AssertionError(f"K1/K2 tensor-core kernels: spills {spilled}, variants {sorted(tc)}")
+            state["tensor_core_kernels"] = tc
+            continue
         kept = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines()
                 if "registers" in ln or "smem" in ln or "spill" in ln]
         log(f"built {name}: " + " | ".join(kept))
@@ -171,12 +253,15 @@ K2_VARIANTS = {  # name -> (q2, residual)
     "int8+c2": (False, True),
     "int8r": (True, True),
 }
-# (n, valid_n, d, query counts, group widths): valid_n inside the last
-# block; the last shape is the phase-3 service store (50k rows, d 384)
+# (n, valid_n, d, query counts, group widths): valid_n inside a 128-row tile
+# of the last block; Q 300 takes more than one query tile (two or five) and
+# Q 3 / 64 at group_l 32 split each block across CTAs. The last shape is the
+# phase-3 service store (50k rows, d 384) at batch 1, 8 and 16: every launch
+# there splits the blocks, and valid_n falls inside a split.
 CHECK_SHAPES = [
-    (65_536, 64_536, 384, (3, 64, 256), (8, 32)),
-    (65_536, 64_536, 1024, (3, 64, 256), (8, 32)),
-    (53_248, 50_000, 384, (1, 16), (32,)),
+    (65_536, 64_536, 384, (3, 64, 256, 300), (8, 32)),
+    (65_536, 64_536, 1024, (3, 64, 256, 300), (8, 32)),
+    (53_248, 50_000, 384, (1, 8, 16), (8, 32)),
 ]
 
 
@@ -185,7 +270,7 @@ def _unit(gen, shape, dev):
     return x / x.norm(dim=1, keepdim=True)
 
 
-def _operands(queries, cb, c32, c1, c2, cs) -> dict[str, tuple]:
+def _operands(queries, cb, ch, c32, c1, c2, cs) -> dict[str, tuple]:
     """Kernel operands of every K1/K2 variant for these queries: K1 takes
     ``(q_hi, q_lo, corpus)``, K2 ``(q1, q2, c1, c2, cscale)``."""
     from intool_rag_tpu_torch.ops import flat_fused as ff
@@ -195,6 +280,7 @@ def _operands(queries, cb, c32, c1, c2, cs) -> dict[str, tuple]:
     ops = {
         "K1 bf16 precise": (q_hi, q_lo, cb),
         "K1 bf16": (q_hi, None, cb),
+        "K1 f16": (queries.half().contiguous(), None, ch),
         "K1 f32": (queries.float().contiguous(), None, c32),
     }
     for name, (use_q2, use_c2) in K2_VARIANTS.items():
@@ -257,10 +343,10 @@ def phase_kernels(state: dict) -> None:
     checks = 0
     for n, valid_n, d, query_counts, widths in CHECK_SHAPES:
         corpus = _unit(gen, (n, d), dev)
-        cb = corpus.bfloat16().contiguous()
+        cb, ch = corpus.bfloat16().contiguous(), corpus.half().contiguous()
         c1, c2, cs = quantize_int8_residual(corpus)
         for q in query_counts:
-            ops = _operands(_unit(gen, (q, d), dev), cb, corpus, c1, c2, cs)
+            ops = _operands(_unit(gen, (q, d), dev), cb, ch, corpus, c1, c2, cs)
             for g in widths:
                 for name, args in ops.items():
                     kout = _kernel(name, args, g, valid_n)
@@ -268,7 +354,11 @@ def phase_kernels(state: dict) -> None:
                     err = _compare(name, args, kout, _plain(name, args, g, valid_n))
                     errs[name] = max(errs.get(name, 0.0), err)
                     checks += 1
-        del corpus, cb, c1, c2, cs
+                    if name.startswith("K2"):  # a repeated run is bit-equal to the first
+                        again = _kernel(name, args, g, valid_n)
+                        if not (torch.equal(again[0], kout[0]) and torch.equal(again[1], kout[1])):
+                            raise AssertionError(f"{name} at Q {q}, N {n}, D {d}, group_l {g}: repeat differs")
+        del corpus, cb, ch, c1, c2, cs
     torch.cuda.empty_cache()
     for shape in K3_CHECKS:
         args, kw = _k3_inputs(gen, *shape, dev)
@@ -649,6 +739,7 @@ N_SERVICE_DOCS, CHUNKS_PER_DOC, N_REQUESTS = 200, 250, 16
 SERVICE_STORES = [  # (label, env, the only kernel variant that store may launch)
     ("K1 bf16 store", {"DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0"}, "K1 bf16 precise"),
     ("K1 f32 store", {"INDEX_DTYPE": "float32", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0"}, "K1 f32"),
+    ("K1 f16 store", {"INDEX_DTYPE": "float16", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0"}, "K1 f16"),
     ("K2 int8 mirror", {"DENSE_INT8": "1", "DENSE_INT8_RESIDUAL": "0"}, "K2 int8+q2"),
     ("K2 int8r mirror", {"DENSE_INT8": "1", "DENSE_INT8_RESIDUAL": "1"}, "K2 int8r"),
     # the 1-bit capacity tier with the default IVF_NLIST 1024 / IVF_NPROBE 64:
@@ -862,7 +953,9 @@ def make_sparse(rng, n, vocab, p_max):
 
 def _bound(q, n, d, passes, elem, n_q_ops, n_c_ops, peak, cand_cols, scales=False):
     """Least time (ms) for one kernel call: max(bytes / HBM rate,
-    operations / peak), inputs read once, outputs written once."""
+    operations / peak), inputs read once, outputs written once. ``n`` is
+    the corpus rows the function needs, those below valid_n: a padded row
+    scores -inf whatever it holds."""
     nbytes = n_q_ops * q * d * elem + n_c_ops * n * d * elem + (4 * n if scales else 0) + q * cand_cols * 8
     ops = passes * 2.0 * q * n * d
     t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, ops / peak
@@ -871,7 +964,7 @@ def _bound(q, n, d, passes, elem, n_q_ops, n_c_ops, peak, cand_cols, scales=Fals
 
 def phase_scale(state: dict) -> None:
     from intool_rag_tpu_torch.index.bm25_index import bm25_dispatch
-    from intool_rag_tpu_torch.index.hybrid import _fuse, _fused_hybrid_search
+    from intool_rag_tpu_torch.index.hybrid import _fuse
     from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
     from intool_rag_tpu_torch.ops import flat_fused as ff
     from intool_rag_tpu_torch.ops.bm25 import bm25_topk_sorted, build_row_layout
@@ -909,14 +1002,12 @@ def phase_scale(state: dict) -> None:
 
     statics = dict(k=TOP_K, kc=CANDIDATES, fusion_mode="weighted", rrf_k=60, metric="cosine",
                    valid_n=n, group_l=32, packed=True, hot_cap=None, n_docs=n)
-    paths = {
-        "K2 int8r": ((c1, cs, c2), dict(kind="fused_int8")),
-        "K1 bf16 precise": ((corpus,), dict(kind="fused", precise=True)),
-    }
-
-    def hybrid(name, qt, q=q_emb):
-        arrays, kind = paths[name]
-        return _fused_hybrid_search(q, arrays, qt, qtf, bm25_arrays, 0.7, 0.3, **statics, **kind)
+    batch = {"q": q_emb, "qtf": qtf, "bm25": bm25_arrays, "statics": statics,
+             "rotations": [(qterms + 31 * i) % VOCAB for i in range(4)], "paths": {
+                 "K2 int8r": ((c1, cs, c2), dict(kind="fused_int8")),
+                 "K1 bf16 precise": ((corpus,), dict(kind="fused", precise=True)),
+             }}
+    paths = list(batch["paths"])
 
     # exact hybrid oracle on ORACLE_Q queries: exact f32-accumulated dense
     # top-k + exact f32 rescore, exact BM25, the same fusion
@@ -929,24 +1020,16 @@ def phase_scale(state: dict) -> None:
                       w_dense=0.7, w_sparse=0.3)
     oracle = oracle.cpu().numpy()
 
-    rotations = [(qterms + 31 * i) % VOCAB for i in range(4)]
     results = {}
     state["launches_scale"] = {}
     for name in paths:
         _reset_launches()
-        _, fast = hybrid(name, qterms)
+        _, fast = _hybrid(batch, name, qterms)
         fast = fast[:ORACLE_Q].cpu().numpy()
         recall = sum(len(set(a) & set(b)) for a, b in zip(fast, oracle)) / oracle.size
         if recall < 0.99:
             raise AssertionError(f"{name}: recall@10 {recall} < 0.99 vs the exact hybrid oracle")
-        qps = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for qt in rotations:
-                hybrid(name, qt)
-            torch.cuda.synchronize()
-            qps.append(Q_SCALE * len(rotations) / (time.perf_counter() - t0))
+        qps = [1000 * Q_SCALE / _batch_ms(batch, name) for _ in range(3)]
         launches = _launches()
         if set(launches) != {name}:
             raise AssertionError(f"phase 4 {name}: launched {launches}, expected only {name}")
@@ -982,56 +1065,177 @@ def phase_scale(state: dict) -> None:
     state["scale"] = results
     log(f"phase 4 (1M x d1024, Q 256, k 10 of 100 per side): {json.dumps(results)}")
     state["kernels"] = _kernel_table(state, q_emb, corpus, c1, c2, cs, n)
+    # main() measures the batch's busy share after the last phase; where
+    # phases follow this one, the batch waits for it in host memory
+    state["scale_batch"] = batch if state["phases"][-1] == 4 else _moved(batch, "cpu")
+
+
+def _hybrid(batch: dict, name: str, qterms: torch.Tensor):
+    """Phase 4's hybrid search of the batch's queries on the path ``name``."""
+    from intool_rag_tpu_torch.index.hybrid import _fused_hybrid_search
+
+    arrays, kind = batch["paths"][name]
+    return _fused_hybrid_search(batch["q"], arrays, qterms, batch["qtf"], batch["bm25"], 0.7, 0.3,
+                                **batch["statics"], **kind)
+
+
+def _batch_ms(batch: dict, name: str) -> float:
+    """Host wall time (ms) of one hybrid batch, the mean over the rotations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for qt in batch["rotations"]:
+        _hybrid(batch, name, qt)
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / len(batch["rotations"])
+
+
+def scale_busy_share(state: dict) -> None:
+    """The device's busy share of phase 4's hybrid batch: kernel time under
+    torch.profiler over the rotations, against the batch time of unprofiled
+    passes over the same rotations just before. main() runs it after the
+    last phase, since a process that has traced runs its host side slower
+    (``qps_after_profiler`` shows by how much) and phases 5-7 time host work."""
+    batch = _moved(state.pop("scale_batch"), DEVICE)
+    results = state["scale"]
+    n_rot = len(batch["rotations"])
+    for name in batch["paths"]:
+        warm_until = time.perf_counter() + 1.0  # untimed: the first batches after phases 5-7 ran slower
+        while time.perf_counter() < warm_until:
+            _batch_ms(batch, name)
+        runs = [_batch_ms(batch, name) for _ in range(3)]
+        batch_ms = float(np.mean(runs))
+        kernels = _profiled_kernels(lambda: [_hybrid(batch, name, qt) for qt in batch["rotations"]])
+        busy_ms = sum(ms for _, ms, _ in kernels) / n_rot
+        entry = results[name]
+        entry.update(batch_ms=batch_ms, batch_ms_runs=runs)
+        if busy_ms > 0:
+            if busy_ms > batch_ms:
+                log(f"WARNING phase 4 {name}: device busy {busy_ms} ms exceeds the batch's {batch_ms} ms; "
+                    f"the profiler's kernel times and the host clock disagree")
+            top = sorted(kernels, key=lambda k: -k[1])[:6]
+            entry.update({
+                "device_busy_ms_per_batch": busy_ms, "device_busy_share": busy_ms / batch_ms,
+                "kernel_launches_per_batch": sum(c for _, _, c in kernels) / n_rot,
+                "top_kernels_ms_per_batch": {k[:40]: ms / n_rot for k, ms, _ in top}})
+        else:
+            entry["device_busy_share"] = "not measured: torch.profiler reported no device time"
+        entry["qps_after_profiler"] = 1000 * Q_SCALE / _batch_ms(batch, name)
+    keep = ("batch_ms", "batch_ms_runs", "device_busy_ms_per_batch", "device_busy_share",
+            "kernel_launches_per_batch", "top_kernels_ms_per_batch", "qps_after_profiler")
+    log(f"phase 4 device busy share of a hybrid batch: "
+        f"{json.dumps({k: {f: v.get(f) for f in keep} for k, v in results.items()})}")
+
+
+def _moved(obj, device):
+    """``obj`` with every tensor in it (through dicts and tuples) on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_moved(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _moved(v, device) for k, v in obj.items()}
+    return obj
+
+
+SERVICE_SHAPE = (16, 53_248, 50_000, 384, 32)  # (Q, N, valid_n, D, group_l): the phase-3 store at batch 16
+
+
+def _k12_timing(name, args, g, valid_n, wall=False) -> dict:
+    """One K1/K2 variant on these operands: kernel, bound and the library's
+    product-only time (``torch.mm`` / ``torch._int_mm`` per product over the
+    rows below valid_n), all device times; with ``wall``, also the host side
+    and wall time per call of both, and the host side of the C entry alone."""
+    if name.startswith("K1"):
+        a_hi, a_lo, c = args
+        products = [(a, c[:valid_n].T) for a in (a_hi, a_lo) if a is not None]
+        dtype = "f32" if c.dtype == torch.float32 else "bf16"  # bf16 and f16 share one peak
+        bound = _bound(a_hi.shape[0], valid_n, c.shape[1], len(products), c.element_size(), len(products), 1,
+                       H100_PEAK[dtype], c.shape[0] // g)
+        library = lambda: [torch.mm(a, b) for a, b in products]
+    else:
+        a1, a2, b1, b2, _ = args
+        v1 = b1[:valid_n].T
+        products = [(a1, v1)] + ([(a2, v1)] if a2 is not None else []) + (
+            [(a1, b2[:valid_n].T)] if b2 is not None else [])
+        bound = _bound(a1.shape[0], valid_n, b1.shape[1], len(products), 1, 1 + (a2 is not None),
+                       1 + (b2 is not None), H100_PEAK["int8"], b1.shape[0] // g, scales=True)
+        # torch._int_mm takes more than 16 rows on the left: a small batch goes on the right
+        library = lambda: [torch._int_mm(a, b) if a.shape[0] > 16 else torch._int_mm(b.T, a.T)
+                           for a, b in products]
+    kernel = lambda: _kernel(name, args, g, valid_n)
+    ms = cuda_ms(kernel)
+    out = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1], "bound_share": bound[0] / ms,
+           "library_ms": cuda_ms(library, iters=5, warmup=1)}
+    if wall:
+        (host, wall_), (lib_host, lib_wall) = host_wall_ms(kernel), host_wall_ms(library)
+        out.update(wall_ms=wall_, host_ms=host, c_entry_host_ms=host_wall_ms(_c_entry(name, args, g, valid_n))[0],
+                   library_wall_ms=lib_wall, library_host_ms=lib_host)
+    return out
+
+
+def _c_entry(name, args, g, valid_n):
+    """K1/K2's C entry alone (tensor maps, launch, the ctypes call) on these
+    operands, its outputs and merge scratch allocated once: the part of a
+    call's host side that caching the tensor maps could shorten."""
+    from intool_rag_tpu_torch.ops import flat_fused as ff
+
+    q1, q2, c1, c2, scale = (*args[:2], args[2], None, None) if name.startswith("K1") else args
+    (q, d), n, dev = q1.shape, c1.shape[0], c1.device
+    n_sm = ff._sm_count(dev)
+    width, splits = ff.plan_launch(q, n, d, g, n_sm, name)
+    vals = torch.empty((q, n // g), device=dev)
+    idx = torch.empty((q, n // g), dtype=torch.int32, device=dev)
+    part_vals = torch.empty((splits, q, n // g), device=dev)
+    part_j = torch.empty((splits, q, n // g), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    arrivals = ff._arrivals(dev, stream, -(-q // width) * (n // (ff.LANES * g)))
+    ptrs = [ff._ptr(t) for t in (c1, c2, q1, q2, scale)]
+    out = [ff._ptr(t) for t in (vals, idx, part_vals, part_j, arrivals)]
+    lib = ff._lib()
+    return lambda: lib.flat_partial_topk(ff._KINDS[name][0], *ptrs, q, n, d, g, valid_n, width, splits, n_sm,
+                                         *out, stream)
 
 
 def _kernel_table(state, q_emb, corpus, c1, c2, cs, n) -> list[dict]:
     """Every kernel variant at the phase-4 shape: the kernel checked against
     its plain version on the same inputs, both timed, the product-only
-    library time, the bound, and the launches of the main-path runs."""
-    n_pad, d = corpus.shape
-    q = q_emb.shape[0]
+    library time, the bound, and the launches of the main-path runs. The
+    tensor-core variants also at the phase-3 service shape."""
+    from intool_rag_tpu_torch.ops.quant import quantize_int8_residual
+
     g = 32
-    cols = n_pad // g
-    c32 = corpus.float()
+    c32, ch = corpus.float(), corpus.half()
     errs = state.get("max_abs_err", {})
     src = "intool_rag_tpu_torch/kernels/flat_partial_topk.cu"
     replaces = {"K1": "intool_rag_tpu/ops/flat_pallas.py:96", "K2": "intool_rag_tpu/ops/flat_pallas.py:136"}
+    gen = torch.Generator(device=corpus.device).manual_seed(5)
+    sq, sn, s_valid, sd, sg = SERVICE_SHAPE
+    s_corpus = _unit(gen, (sn, sd), corpus.device)
+    s_c1, s_c2, s_cs = quantize_int8_residual(s_corpus)
+    service = _operands(_unit(gen, (sq, sd), corpus.device), s_corpus.bfloat16(), s_corpus.half(), s_corpus,
+                        s_c1, s_c2, s_cs)
     rows = []
-    for name, args in _operands(q_emb, corpus, c32, c1, c2, cs).items():
-        family = name[:2]
-        if family == "K1":
-            a_hi, a_lo, c = args
-            products = [(a, c.T) for a in (a_hi, a_lo) if a is not None]
-            dtype = "f32" if c.dtype == torch.float32 else "bf16"
-            bound = _bound(q, n_pad, d, len(products), c.element_size(), len(products), 1,
-                           H100_PEAK[dtype], cols)
-            library = lambda products=products: [torch.mm(a, b) for a, b in products]
-        else:
-            a1, a2, b1, b2, _ = args
-            products = [(a1, b1.T)] + ([(a2, b1.T)] if a2 is not None else []) + (
-                [(a1, b2.T)] if b2 is not None else [])
-            bound = _bound(q, n_pad, d, len(products), 1, 1 + (a2 is not None), 1 + (b2 is not None),
-                           H100_PEAK["int8"], cols, scales=True)
-            library = lambda products=products: [torch._int_mm(a, b) for a, b in products]
+    for name, args in _operands(q_emb, corpus, ch, c32, c1, c2, cs).items():
         kernel = lambda name=name, args=args: _kernel(name, args, g, n)
         plain = lambda name=name, args=args: _plain(name, args, g, n)
         err = _compare(name, args, kernel(), plain())
         torch.cuda.empty_cache()
         entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[family],
+            "name": name, "route": "cuda", "source": src, "replaces": replaces[name[:2]],
             # main path: the phase-3 service runs; null for a variant no store runs
             "launches": state.get("launches", {}).get(name),
             "launches_scale": state.get("launches_scale", {}).get(name),
             "max_abs_err": max(err, errs.get(name, 0.0)),
-            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": cuda_ms(library, iters=5, warmup=1),
+            **_k12_timing(name, args, g, n), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
         }
+        if name != "K1 f32":
+            at = _k12_timing(name, service[name], sg, s_valid, wall=True)
+            entry["service_shape"] = f"Q {sq}, N {sn:,}, valid_n {s_valid:,}, D {sd}, group_l {sg}"
+            entry.update({f"service_{key}": value for key, value in at.items()})
         torch.cuda.empty_cache()
         rows.append(entry)
         log(f"kernel {json.dumps(entry)}")
     return rows
-
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1791,13 +1995,25 @@ def _train_full_width(state: dict, dev, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def _profiled_kernels(fn) -> list[tuple[str, float, int]]:
+    """``(name, device ms, launches)`` of every kernel ``fn()`` runs, from
+    ``torch.profiler``; empty when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels only: an operator's entry repeats the time of the kernels it launched
+    return [(e.key, e.self_device_time_total / 1000, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+
+
 def _step_breakdown(state: dict, model, train_state, batch: dict) -> None:
     """Where a training step's time goes at the first run's shape (not the
     main path): forward, backward and optimizer by CUDA events, then one
     step under ``torch.profiler`` for the device's busy share and the
     kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from intool_rag_tpu_torch.train.contrastive import info_nce_loss
 
     def forward():
@@ -1821,15 +2037,12 @@ def _step_breakdown(state: dict, model, train_state, batch: dict) -> None:
     fwd_ms, bwd_ms, opt_ms = (float(np.median(x)) for x in zip(*rounds))
     out = {"forward_ms": fwd_ms, "backward_ms": bwd_ms, "optimizer_ms": opt_ms}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def step():
         forward().backward()
         train_state.optimizer.step()
         train_state.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-    # kernels only: an operator's entry repeats the time of the kernels it launched
-    kernels = [(e.key, e.self_device_time_total / 1000, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+
+    kernels = _profiled_kernels(step)
     busy_ms = sum(ms for _, ms, _ in kernels)
     if busy_ms > 0:  # the profiler traced the card
         # the profiler slows the host, not the kernels: the idle share is taken against the
@@ -2161,11 +2374,13 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     phases = [int(p) for p in args.phases.split(",")]
-    state: dict = {}
+    state: dict = {"phases": phases}
     for p in phases:
         t0 = time.perf_counter()
         PHASES[p](state)
         log(f"phase {p} done in {time.perf_counter() - t0:.1f} s")
+    if "scale_batch" in state:  # a torch.profiler window: last, see scale_busy_share
+        scale_busy_share(state)
     if "kernels" in state:
         print(json.dumps({"kernels": state["kernels"]}))
     print(state.get("card") or card_line())

@@ -200,14 +200,11 @@ class DenseFlatIndex:
                     kind="fused_int8", k=k, metric=self.metric, valid_n=store.valid_n,
                     group_l=group_l,
                 )
-            if store.embeddings.dtype not in (torch.bfloat16, torch.float32):
-                raise NotImplementedError(
-                    f"the fused kernel K1 takes a bfloat16 or float32 store, not "
-                    f"{store.embeddings.dtype} (ROADMAP Queue C)"
-                )
             return (store.embeddings,), dict(
                 kind="fused", k=k, metric=self.metric, valid_n=store.valid_n, group_l=group_l,
                 precise=store.embeddings.dtype == torch.bfloat16,
+                # a float16 store has no split-query pass: its candidates are rescored exactly
+                rescore=store.embeddings.dtype not in (torch.bfloat16, torch.float32),
             )
         return (store.embeddings,), dict(
             kind="scan", k=k, metric=self.metric, valid_n=store.valid_n,

@@ -1,333 +1,489 @@
 // Fused flat-search score + grouped partial max (the dense stage of /search).
 //
 // Replaces the two Pallas TPU kernels of intool_rag_tpu/ops/flat_pallas.py:
-//   _partial_topk_kernel       (bf16/f32 corpus, optional split-query q_lo pass)
-//   _partial_topk_kernel_int8  (int8 corpus, optional q2 and residual-plane c2 passes)
-// and their shared epilogue _reduce_block.
+//   _partial_topk_kernel       (K1: bf16/f32 corpus, optional split-query q_lo pass)
+//   _partial_topk_kernel_int8  (K2: int8 corpus, optional q2 and residual-plane c2 passes)
+// and their shared epilogue _reduce_block. K1 also takes a float16 corpus.
 //
 // Contract (identical to the TPU kernels): corpus block b covers rows
 // [b*block_n, (b+1)*block_n) with block_n = 128*group_l. For lane in [0, 128):
 //   cand_vals[q, b*128 + lane] = max_j score[q, b*block_n + j*128 + lane]
 //   cand_idx [q, b*128 + lane] = b*block_n + j* * 128 + lane
 // where j* is the smallest maximizing j (a group that is all -inf gives j* = 0)
-// and rows >= valid_n score -inf. The [Q, N] score matrix never reaches HBM:
-// each CTA keeps a running max over its block's group_l 128-row tiles in
-// registers and writes only the [Q, N/group_l] candidates.
+// and rows >= valid_n score -inf. The [Q, N] score matrix never reaches HBM.
 //
-// Bound on an H100: at the service's batch sizes the kernel streams the
-// corpus once (bytes); at Q = 256 the 2-3 tensor-core products per block make
-// it operations-bound. This first version uses warp-level WMMA tiles
-// (bf16 -> f32, s8 -> s32) with synchronous shared-memory staging; the f32
-// variant runs on CUDA-core FMA so its products stay full precision, as the
-// TPU kernel's HIGHEST-precision dot does.
+// What bounds it on an H100: at the service's batches (Q 8-16) the corpus
+// bytes (one pass over the store); at Q 256 the tensor-core operations of the
+// 1-3 products per corpus row (bf16 precise, int8+q2, int8r) or both about
+// equally (bf16, int8). The TPU kernel reads every query in one grid step and
+// so streams the corpus once. What keeps this design under its bound: at Q 256
+// each query tile is read again from L2 for every 128-row corpus tile (a
+// 128 x 128 output tile is what the registers hold beside the running max);
+// at the service shape, the ring's fill and the split merge.
+//
+// The design for Hopper:
+//  * wgmma with the corpus on M and the queries on N. A CTA takes a 128-row
+//    corpus tile (two consumer warpgroups of 64 rows each, the A operand)
+//    against a query tile of NQ rows (the B operand; NQ in 8..128, chosen
+//    from Q by ops/flat_fused.py::plan_launch), both K-major as stored.
+//    bf16 and f16 run m64nNQk16 into f32; int8 runs m64nNk32 into s32, with
+//    q1 and q2 stacked along N (one wgmma for both products with c1) and
+//    q1.c2 as a second one. bf16 precise adds q_lo . c as a second B tile on
+//    the same A tile, into the same accumulator.
+//  * A producer warpgroup keeps a ring of 4-8 stages of TMA copies (128-byte
+//    swizzle) of 128-byte k-chunks of (corpus tile, query tile) in flight;
+//    the consumers wait on a stage's full barrier and release its empty
+//    barrier once their wgmma has read it, so loads run under the math. The
+//    producer hands its registers to the consumers (setmaxnreg): 232 each
+//    hold a 128-query tile's accumulators beside its running max.
+//  * The grouped max is folded straight from the accumulator registers: each
+//    thread owns fixed (row, query) pairs, so the running (best, j) stays in
+//    registers (j one byte, four to a register) with the row scale and the
+//    valid_n mask applied there. No score tile in shared memory and no block
+//    barrier per 128-row tile. A tile that lies wholly past valid_n is
+//    neither loaded nor multiplied: its rows would all score -inf.
+//  * The corpus is streamed from device memory once per call: the items of
+//    one corpus range's query tiles are neighbours in the walk and run on
+//    neighbouring CTAs at the same time, so every read of a corpus tile
+//    after the first is an L2 hit.
+//  * Persistent CTAs, one per SM, walk the work items (query tile, split,
+//    block) in that order; the ring runs on from one item to the next, so
+//    an item's fold and writes overlap the next one's loads and no partial
+//    last wave idles part of the card.
+//  * Enough work items at small N: where query tiles x blocks is below the
+//    SM count, the group_l tiles of a block are split across items; each
+//    writes its partial (best, j) to scratch and the last one to arrive
+//    merges them in split order, so a tie keeps the smaller j.
+//  * f32 (INDEX_DTYPE=float32) keeps a CUDA-core FMA kernel, so its products
+//    stay full precision as the TPU kernel's HIGHEST-precision dot does.
+//
+// K2's float order is the TPU kernel's, f32(q1.c1) [+ f32(q2.c1)/128]
+// [+ f32(q1.c2)/128], times the row scale, on exact int32 products: it is
+// bit-equal to the plain version.
 //
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
-// plain C interface (loaded through ctypes). Each entry point returns the
+// plain C interface (loaded through ctypes); it links against the CUDA
+// runtime only and takes cuTensorMapEncodeTiled from the driver through
+// cudaGetDriverEntryPoint(ByVersion). Each entry point returns the
 // cudaError_t of its launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int LW = 128;          // candidate lanes per corpus block
-constexpr int BQ = 64;           // query rows per CTA
-constexpr int THREADS = 256;     // 8 warps: 2 (queries) x 4 (corpus rows), 32x32 each
-constexpr int ROW_BYTES = 128;   // bytes of one row staged per k-chunk
-constexpr int S_LD = LW + 4;     // score tile leading dimension (floats)
-constexpr int OWN = BQ * LW / THREADS;  // score elements each thread reduces: 32
+constexpr int LW = 128;                  // candidate lanes per corpus block = rows per corpus tile
+constexpr int CHUNK = 128;               // bytes of a row per k-chunk: one swizzle-atom row
+constexpr int A_TILE = LW * CHUNK;       // bytes of one corpus plane's k-chunk (16 KB)
+constexpr int CONSUMERS = 256;            // two warpgroups, 64 tile rows each
+constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup, of which one thread issues the copies
+// Registers a thread keeps after setmaxnreg: the producer gives up what the
+// consumers' accumulators, running max and j need (65,536 per SM in all).
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int RING_BYTES = 200 * 1024;
+constexpr int MAX_STAGES = 8;
 
-// Running grouped max of the scores a thread owns across a block's group_l
-// 128-row tiles. Strict '>' keeps the FIRST maximizing tile index j, which is
-// the TPU kernel's first-occurrence argmax; an all -inf group keeps j = 0.
-struct RunningMax {
-  float best[OWN];
-  int bestj[OWN];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < OWN; ++i) {
-      best[i] = -CUDART_INF_F;
-      bestj[i] = 0;
-    }
-  }
+enum Kind { BF16 = 0, BF16_PRECISE, F16, I8, I8_Q2, I8_C2, I8R };
+
+template <int KIND>
+struct Variant {
+  static constexpr bool INT8 = KIND >= I8;
+  static constexpr bool LO = KIND == BF16_PRECISE;          // q_lo: a second B tile
+  static constexpr bool Q2 = KIND == I8_Q2 || KIND == I8R;  // q2 stacked below q1 along N
+  static constexpr bool C2 = KIND == I8_C2 || KIND == I8R;  // residual plane: a second A tile
+  static constexpr int A_PLANES = C2 ? 2 : 1;
+  static constexpr int B_PLANES = (LO || Q2) ? 2 : 1;
+  // widest query tile whose accumulators, running max and j fit in registers
+  static constexpr int MAX_NQ = (Q2 || C2) ? 64 : 128;
+  using T = std::conditional_t<INT8, int8_t, std::conditional_t<KIND == F16, __half, __nv_bfloat16>>;
+  using Acc = std::conditional_t<INT8, int32_t, float>;
+  static constexpr int K_ELEMS = CHUNK / (int)sizeof(T);
 };
 
-// Copies a [rows, 128 bytes] tile (row stride ld elements of T in global
-// memory) into shared memory in k-block-major order: 16-element k-blocks,
-// each a dense [rows, 16] matrix, so every WMMA fragment pointer is 32-byte
-// aligned with ldm = 16. Rows at or past row_limit are zero-filled.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restrict__ src,
-                                          long long ld, int row0, int row_limit, int k0) {
-  constexpr int CHUNKS = ROW_BYTES / 16;            // 16-byte chunks per row: 8
-  constexpr int KB_BYTES = 16 * sizeof(T);          // bytes of one k-block row
-  constexpr int TOTAL = ROWS * CHUNKS;
-  char* dst_b = reinterpret_cast<char*>(dst);
-#pragma unroll
-  for (int it = 0; it < TOTAL / THREADS; ++it) {
-    int id = threadIdx.x + it * THREADS;
-    // 8 consecutive threads take 8 rows of one chunk (conflict-free stores);
-    // a warp covers 8 rows x 4 chunks (64 contiguous bytes per row).
-    int r = (id & 7) + 8 * (id >> 6);
-    int c = (id >> 3) & 7;
-    int row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < row_limit) {
-      const char* g = reinterpret_cast<const char*>(src + (long long)row * ld + k0) + c * 16;
-      v = *reinterpret_cast<const uint4*>(g);
-    }
-    int byte0 = c * 16;                         // byte offset within the 128-byte row
-    int kb = byte0 / KB_BYTES;
-    int within = byte0 % KB_BYTES;
-    *reinterpret_cast<uint4*>(dst_b + kb * ROWS * KB_BYTES + r * KB_BYTES + within) = v;
-  }
+constexpr int ring_stages(int stage_bytes) {
+  return RING_BYTES / stage_bytes < MAX_STAGES ? RING_BYTES / stage_bytes : MAX_STAGES;
 }
 
-// Folds this tile's scores (in shared memory) into the running max and
-// applies the per-row corpus scale and the valid_n mask.
-__device__ __forceinline__ void fold_tile(RunningMax& rm, const float* __restrict__ s_tile,
-                                          const float* __restrict__ cscale, long long row_base,
-                                          int j, int valid_n) {
-  const int lane = threadIdx.x % LW;
-  const long long n = row_base + lane;
-  const float cs = cscale != nullptr ? cscale[n] : 1.0f;
-  const bool valid = n < valid_n;
-#pragma unroll
-  for (int i = 0; i < OWN; ++i) {
-    int r = threadIdx.x / LW + 2 * i;
-    float s = s_tile[r * S_LD + lane];
-    if (cscale != nullptr) s = s * cs;
-    if (!valid) s = -CUDART_INF_F;
-    if (s > rm.best[i]) {
-      rm.best[i] = s;
-      rm.bestj[i] = j;
-    }
-  }
+template <int KIND, int NQ>
+struct Ring {
+  static constexpr int B_TILE = NQ * CHUNK;
+  static constexpr int STAGE = Variant<KIND>::A_PLANES * A_TILE + Variant<KIND>::B_PLANES * B_TILE;
+  static constexpr int STAGES = ring_stages(STAGE);
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + slack to align the ring to 1,024 bytes
+};
+
+struct Params {
+  const float* cscale;  // K2: per-row corpus scale
+  int Q, D, group_l, valid_n, tiles, splits;
+  int items;            // tiles * splits * blocks
+  long long ncand;      // N / group_l
+  float* vals;
+  int* idx;
+  float* part_vals;     // [splits, Q, ncand] when splits > 1
+  uint8_t* part_j;
+  int* arrivals;        // [blocks * tiles], zero before the launch and after it
+};
+
+__device__ __forceinline__ uint32_t set_byte(uint32_t word, int k, uint32_t value) {
+  return (word & ~(0xFFu << (8 * k))) | (value << (8 * k));
 }
 
-__device__ __forceinline__ void write_candidates(const RunningMax& rm, float* __restrict__ vals,
-                                                 int* __restrict__ idx, int q0, int Q,
-                                                 long long ncand, int b, int block_n) {
-  const int lane = threadIdx.x % LW;
-#pragma unroll
-  for (int i = 0; i < OWN; ++i) {
-    int q = q0 + threadIdx.x / LW + 2 * i;
-    if (q < Q) {
-      long long o = (long long)q * ncand + (long long)b * LW + lane;
-      vals[o] = rm.best[i];
-      idx[o] = b * block_n + rm.bestj[i] * LW + lane;
-    }
-  }
+// Tiles of block b that hold a row below valid_n. The later ones would fold
+// only -inf, which strict '>' never takes, so the tensor-core kernel reads
+// none of them.
+__device__ __forceinline__ int live_tiles(long long b, long long block_n, int valid_n, int group_l) {
+  const long long rows = valid_n - b * block_n;
+  return rows <= 0 ? 0 : rows >= block_n ? group_l : (int)((rows + LW - 1) / LW);
 }
 
-// ---------------------------------------------------------------- bf16 (K1)
+// A work item is one (query tile, split, block); item -> (qt, split, b) puts
+// the query tiles of one corpus range next to each other.
+struct Item {
+  int qt, split, b;
+  __device__ Item(int item, const Params& p)
+      : qt(item % p.tiles), split(item / p.tiles % p.splits), b(item / p.tiles / p.splits) {}
+};
 
-// q_lo (nullable) is the split-query compensation operand: q ~= q_hi + q_lo
-// in bf16, both multiplied into the same f32 accumulator.
-__global__ void __launch_bounds__(THREADS)
-partial_topk_bf16_kernel(const __nv_bfloat16* __restrict__ q_hi, const __nv_bfloat16* __restrict__ q_lo,
-                         const __nv_bfloat16* __restrict__ corpus, int Q, int D, int group_l,
-                         int valid_n, float* __restrict__ vals, int* __restrict__ idx) {
-  using T = __nv_bfloat16;
-  constexpr int KT = ROW_BYTES / sizeof(T);  // 64 elements per k-chunk
-  constexpr int NKB = KT / 16;
-  extern __shared__ __align__(128) char smem[];
-  T* a_s = reinterpret_cast<T*>(smem);
-  T* alo_s = a_s + BQ * KT;
-  T* b_s = alo_s + BQ * KT;
-  float* s_tile = reinterpret_cast<float*>(b_s + LW * KT);
+template <int KIND, int NQ>
+__global__ void __launch_bounds__(THREADS, 1)
+partial_topk_kernel(const __grid_constant__ CUtensorMap map_c1, const __grid_constant__ CUtensorMap map_c2,
+                    const __grid_constant__ CUtensorMap map_q1, const __grid_constant__ CUtensorMap map_q2,
+                    const Params p) {
+  using V = Variant<KIND>;
+  using R = Ring<KIND, NQ>;
+  using Acc = typename V::Acc;
+  constexpr int NV = NQ / 2;              // scores a thread folds per tile
+  constexpr int NA = V::Q2 ? NQ : NV;     // the product with c1 (q1 and q2 stacked for +q2)
+  constexpr int NB = V::C2 ? NV : 1;      // q1 . c2
 
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y;
-  const int block_n = LW * group_l;
-  const long long ncand = (long long)gridDim.y * LW;
-  const int warp = threadIdx.x / 32;
-  const int wq = warp / 4, wn = warp % 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[R::STAGES], empty[R::STAGES];
+  __shared__ int last_arrival;
 
-  RunningMax rm;
-  rm.init();
-  for (int j = 0; j < group_l; ++j) {
-    const long long row0 = (long long)b * block_n + (long long)j * LW;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  const int per_split = p.group_l / p.splits;
+  const int nk = p.D / V::K_ELEMS;
+  const long long block_n = (long long)LW * p.group_l;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Persistent CTAs: each walks items blockIdx.x, + gridDim.x, ...; the ring
+  // runs on across items, so one item's fold and writes overlap the next
+  // item's loads.
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const Item it(item, p);
+        const int j_end = min((it.split + 1) * per_split, live_tiles(it.b, block_n, p.valid_n, p.group_l));
+        for (int j = it.split * per_split; j < j_end; ++j) {
+          const int row0 = (int)(it.b * block_n + (long long)j * LW);
+          for (int kc = 0; kc < nk; ++kc) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            uint8_t* st = ring + stage * R::STAGE;
+            uint8_t* bt = st + V::A_PLANES * A_TILE;
+            const int x = kc * V::K_ELEMS;
+            mbar_expect_tx(&full[stage], R::STAGE);
+            tma_load_2d(st, &map_c1, &full[stage], x, row0);
+            if constexpr (V::C2) tma_load_2d(st + A_TILE, &map_c2, &full[stage], x, row0);
+            tma_load_2d(bt, &map_q1, &full[stage], x, it.qt * NQ);
+            if constexpr (V::B_PLANES == 2) tma_load_2d(bt + R::B_TILE, &map_q2, &full[stage], x, it.qt * NQ);
+            if (++stage == R::STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int r0 = wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;  // tile rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);                                     // query columns 8c + c0 + {0, 1}
+
+  float best[NV];
+  uint32_t bestj[(NV + 3) / 4];
+  Acc acc[NA];
+  Acc acc2[NB];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const Item it(item, p);
+    const int j0 = it.split * per_split;
+    const int q0 = it.qt * NQ;
+    const int j_end = min(j0 + per_split, live_tiles(it.b, block_n, p.valid_n, p.group_l));
 #pragma unroll
-    for (int x = 0; x < 2; ++x)
+    for (int v = 0; v < NV; ++v) best[v] = -CUDART_INF_F;
 #pragma unroll
-      for (int y = 0; y < 2; ++y) wmma::fill_fragment(acc[x][y], 0.0f);
-    for (int k0 = 0; k0 < D; k0 += KT) {
-      __syncthreads();
-      load_tile<T, BQ>(a_s, q_hi, D, q0, Q, k0);
-      if (q_lo != nullptr) load_tile<T, BQ>(alo_s, q_lo, D, q0, Q, k0);
-      load_tile<T, LW>(b_s, corpus + row0 * D, D, 0, LW, k0);
-      __syncthreads();
+    for (int w = 0; w < (NV + 3) / 4; ++w) bestj[w] = (uint32_t)j0 * 0x01010101u;
+
+    for (int j = j0; j < j_end; ++j) {
+      const long long row0 = it.b * block_n + (long long)j * LW;
+      float cs[2] = {1.0f, 1.0f};
+      if constexpr (V::INT8) {
+        cs[0] = __ldg(p.cscale + row0 + r0);
+        cs[1] = __ldg(p.cscale + row0 + r0 + 8);
+      }
+      int prev = -1;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* st = ring + stage * R::STAGE;
+        const uint64_t da1 = desc_sw128(st + wg * (A_TILE / 2));
+        const uint64_t da2 = desc_sw128(st + A_TILE + wg * (A_TILE / 2));
+        const uint64_t db1 = desc_sw128(st + V::A_PLANES * A_TILE);
+        const uint64_t db2 = desc_sw128(st + V::A_PLANES * A_TILE + R::B_TILE);
+        fence_regs(acc);
+        fence_regs(acc2);
+        wgmma_fence();
 #pragma unroll
-      for (int kb = 0; kb < NKB; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
+        for (int kk = 0; kk < CHUNK / 32; ++kk) {  // 32 bytes of K per wgmma: k16 bf16/f16, k32 int8
+          const int add = kc > 0 || kk > 0;
+          if constexpr (V::INT8) {
+            mma<int8_t, V::Q2 ? 2 * NQ : NQ>(acc, da1 + 2 * kk, db1 + 2 * kk, add);
+            if constexpr (V::C2) mma<int8_t, NQ>(acc2, da2 + 2 * kk, db1 + 2 * kk, add);
+          } else {
+            mma<typename V::T, NQ>(acc, da1 + 2 * kk, db1 + 2 * kk, add);
+            if constexpr (V::LO) mma<typename V::T, NQ>(acc, da1 + 2 * kk, db2 + 2 * kk, 1);
+          }
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        fence_regs(acc2);
+        if (prev >= 0) {  // the previous chunk's products are done: release its stage
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == R::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(acc2);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // fold this tile into the running max: strict '>' keeps the first j
+      const long long n0 = row0 + r0;
+      const bool valid[2] = {n0 < p.valid_n, n0 + 8 < p.valid_n};
 #pragma unroll
-        for (int y = 0; y < 2; ++y)
-          wmma::load_matrix_sync(fb[y], b_s + kb * LW * 16 + (wn * 32 + y * 16) * 16, 16);
+      for (int v = 0; v < NV; ++v) {
+        const int h = (v >> 1) & 1;
+        float s;
+        if constexpr (V::INT8) {
+          s = static_cast<float>(acc[v]);
+          if constexpr (V::Q2) s = s + static_cast<float>(acc[v + NV]) * (1.0f / 128.0f);
+          if constexpr (V::C2) s = s + static_cast<float>(acc2[v]) * (1.0f / 128.0f);
+          s = s * cs[h];
+        } else {
+          s = acc[v];
+        }
+        if (!valid[h]) s = -CUDART_INF_F;
+        if (s > best[v]) {
+          best[v] = s;
+          bestj[v / 4] = set_byte(bestj[v / 4], v % 4, (uint32_t)j);
+        }
+      }
+    }
+
+    const long long lane0 = (long long)it.b * LW;
+    const long long base_row = it.b * block_n;
+    if (p.splits == 1) {
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
-          wmma::load_matrix_sync(fa[x], a_s + kb * BQ * 16 + (wq * 32 + x * 16) * 16, 16);
+      for (int v = 0; v < NV; ++v) {
+        const int q = q0 + 8 * (v / 4) + c0 + (v & 1);
+        const int r = r0 + 8 * ((v >> 1) & 1);
+        if (q < p.Q) {
+          const long long o = (long long)q * p.ncand + lane0 + r;
+          p.vals[o] = best[v];
+          p.idx[o] = (int)(base_row + (long long)((bestj[v / 4] >> (8 * (v % 4))) & 0xFF) * LW + r);
+        }
+      }
+      continue;
+    }
+
+    // split: every item leaves its partial in scratch; the last of this
+    // (block, query tile) to arrive merges them in split order
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
+    for (int v = 0; v < NV; ++v) {
+      const int q = q0 + 8 * (v / 4) + c0 + (v & 1);
+      const int r = r0 + 8 * ((v >> 1) & 1);
+      if (q < p.Q) {
+        const long long o = ((long long)it.split * p.Q + q) * p.ncand + lane0 + r;
+        p.part_vals[o] = best[v];
+        p.part_j[o] = (uint8_t)(bestj[v / 4] >> (8 * (v % 4)));
+      }
+    }
+    int* arrivals = p.arrivals + (long long)it.b * p.tiles + it.qt;
+    __threadfence();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+    if (threadIdx.x == 0) last_arrival = atomicAdd(arrivals, 1) == p.splits - 1;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+    if (!last_arrival) continue;
+    if (threadIdx.x == 0) *arrivals = 0;  // ready for the next launch
+    __threadfence();
+    // Merge in a coalesced layout: consumer thread t takes lane t % 128 of
+    // query rows q0 + t / 128 + 2i. best[i] becomes the merged value and
+    // byte i of bestj the split it came from; every split's values load
+    // together, then one j per value.
+    const int mlane = threadIdx.x % LW;
+    const int qt0 = q0 + threadIdx.x / LW;
+    const long long e0 = (long long)qt0 * p.ncand + lane0 + mlane;  // entry of row qt0 in one plane
+    const long long step = 2 * p.ncand;                             // two query rows on
+    const long long plane = (long long)p.Q * p.ncand;
+    for (int s = 0; s < p.splits; ++s) {
+      const float* src = p.part_vals + s * plane + e0;
 #pragma unroll
-          for (int y = 0; y < 2; ++y) wmma::mma_sync(acc[x][y], fa[x], fb[y], acc[x][y]);
-        if (q_lo != nullptr) {
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-            wmma::load_matrix_sync(fa[x], alo_s + kb * BQ * 16 + (wq * 32 + x * 16) * 16, 16);
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-#pragma unroll
-            for (int y = 0; y < 2; ++y) wmma::mma_sync(acc[x][y], fa[x], fb[y], acc[x][y]);
+      for (int i = 0; i < NV; ++i) {
+        if (qt0 + 2 * i < p.Q) {
+          const float x = __ldcg(src + i * step);
+          if (s == 0 || x > best[i]) {
+            best[i] = x;
+            bestj[i / 4] = set_byte(bestj[i / 4], i % 4, (uint32_t)s);
+          }
         }
       }
     }
 #pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int y = 0; y < 2; ++y)
-        wmma::store_matrix_sync(s_tile + (wq * 32 + x * 16) * S_LD + wn * 32 + y * 16, acc[x][y],
-                                S_LD, wmma::mem_row_major);
-    __syncthreads();
-    fold_tile(rm, s_tile, nullptr, row0, j, valid_n);
-  }
-  write_candidates(rm, vals, idx, q0, Q, ncand, b, block_n);
-}
-
-// ---------------------------------------------------------------- int8 (K2)
-
-// score = f32(q1.c1) [+ f32(q2.c1)/128] [+ f32(q1.c2)/128], times the corpus
-// row scale. Each product accumulates exactly in int32; the float sums follow
-// the TPU kernel's order, so the result is bit-identical to the plain
-// version (the 1/128 products are exact, so FMA contraction changes nothing).
-__global__ void __launch_bounds__(THREADS)
-partial_topk_int8_kernel(const int8_t* __restrict__ q1, const int8_t* __restrict__ q2,
-                         const int8_t* __restrict__ c1, const int8_t* __restrict__ c2,
-                         const float* __restrict__ cscale, int Q, int D, int group_l, int valid_n,
-                         float* __restrict__ vals, int* __restrict__ idx) {
-  using T = signed char;
-  constexpr int KT = ROW_BYTES;  // 128 int8 elements per k-chunk
-  constexpr int NKB = KT / 16;
-  extern __shared__ __align__(128) char smem[];
-  T* a1_s = reinterpret_cast<T*>(smem);
-  T* a2_s = a1_s + BQ * KT;
-  T* b1_s = a2_s + BQ * KT;
-  T* b2_s = b1_s + LW * KT;
-  float* s_tile = reinterpret_cast<float*>(b2_s + LW * KT);
-  const T* q1t = reinterpret_cast<const T*>(q1);
-  const T* q2t = reinterpret_cast<const T*>(q2);
-  const T* c1t = reinterpret_cast<const T*>(c1);
-  const T* c2t = reinterpret_cast<const T*>(c2);
-
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y;
-  const int block_n = LW * group_l;
-  const long long ncand = (long long)gridDim.y * LW;
-  const int warp = threadIdx.x / 32;
-  const int wq = warp / 4, wn = warp % 4;
-
-  RunningMax rm;
-  rm.init();
-  for (int j = 0; j < group_l; ++j) {
-    const long long row0 = (long long)b * block_n + (long long)j * LW;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc1[2][2], acc2[2][2], acc3[2][2];
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int y = 0; y < 2; ++y) {
-        wmma::fill_fragment(acc1[x][y], 0);
-        wmma::fill_fragment(acc2[x][y], 0);
-        wmma::fill_fragment(acc3[x][y], 0);
-      }
-    for (int k0 = 0; k0 < D; k0 += KT) {
-      __syncthreads();
-      load_tile<T, BQ>(a1_s, q1t, D, q0, Q, k0);
-      if (q2t != nullptr) load_tile<T, BQ>(a2_s, q2t, D, q0, Q, k0);
-      load_tile<T, LW>(b1_s, c1t + row0 * D, D, 0, LW, k0);
-      if (c2t != nullptr) load_tile<T, LW>(b2_s, c2t + row0 * D, D, 0, LW, k0);
-      __syncthreads();
-#pragma unroll
-      for (int kb = 0; kb < NKB; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
-#pragma unroll
-        for (int y = 0; y < 2; ++y)
-          wmma::load_matrix_sync(fb[y], b1_s + kb * LW * 16 + (wn * 32 + y * 16) * 16, 16);
-#pragma unroll
-        for (int x = 0; x < 2; ++x)
-          wmma::load_matrix_sync(fa[x], a1_s + kb * BQ * 16 + (wq * 32 + x * 16) * 16, 16);
-#pragma unroll
-        for (int x = 0; x < 2; ++x)
-#pragma unroll
-          for (int y = 0; y < 2; ++y) wmma::mma_sync(acc1[x][y], fa[x], fb[y], acc1[x][y]);
-        if (c2t != nullptr) {
-          // q1 . c2 reuses the q1 fragments already in registers
-#pragma unroll
-          for (int y = 0; y < 2; ++y)
-            wmma::load_matrix_sync(fb[y], b2_s + kb * LW * 16 + (wn * 32 + y * 16) * 16, 16);
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-#pragma unroll
-            for (int y = 0; y < 2; ++y) wmma::mma_sync(acc3[x][y], fa[x], fb[y], acc3[x][y]);
-        }
-        if (q2t != nullptr) {
-#pragma unroll
-          for (int y = 0; y < 2; ++y)
-            wmma::load_matrix_sync(fb[y], b1_s + kb * LW * 16 + (wn * 32 + y * 16) * 16, 16);
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-            wmma::load_matrix_sync(fa[x], a2_s + kb * BQ * 16 + (wq * 32 + x * 16) * 16, 16);
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-#pragma unroll
-            for (int y = 0; y < 2; ++y) wmma::mma_sync(acc2[x][y], fa[x], fb[y], acc2[x][y]);
-        }
+    for (int i = 0; i < NV; ++i) {
+      if (qt0 + 2 * i < p.Q) {
+        const long long o = e0 + i * step;
+        const long long s = (bestj[i / 4] >> (8 * (i % 4))) & 0xFF;
+        p.vals[o] = best[i];
+        p.idx[o] = (int)(base_row + (long long)__ldcg(p.part_j + s * plane + o) * LW + mlane);
       }
     }
-    // Accumulator fragments of one type share one element layout, so the
-    // three products combine elementwise; the f32 result is stored through
-    // the int fragment as raw bits.
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int y = 0; y < 2; ++y) {
-#pragma unroll
-        for (int t = 0; t < acc1[x][y].num_elements; ++t) {
-          float s = static_cast<float>(acc1[x][y].x[t]);
-          if (q2t != nullptr) s = s + static_cast<float>(acc2[x][y].x[t]) * (1.0f / 128.0f);
-          if (c2t != nullptr) s = s + static_cast<float>(acc3[x][y].x[t]) * (1.0f / 128.0f);
-          acc1[x][y].x[t] = __float_as_int(s);
-        }
-        wmma::store_matrix_sync(reinterpret_cast<int*>(s_tile) + (wq * 32 + x * 16) * S_LD +
-                                    wn * 32 + y * 16,
-                                acc1[x][y], S_LD, wmma::mem_row_major);
-      }
-    __syncthreads();
-    fold_tile(rm, s_tile, cscale, row0, j, valid_n);
   }
-  write_candidates(rm, vals, idx, q0, Q, ncand, b, block_n);
+}
+
+// ---------------------------------------------------------------- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// A [rows, cols] row-major operand read in boxes of (box_rows, 128 bytes)
+// under 128-byte swizzle; rows past the end read as zeros.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, long long rows, int cols,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(CHUNK / elem), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Operands {
+  const void *c1, *c2, *q1, *q2;
+  long long n;
+  int max_ctas;  // persistent CTAs: one per SM
+};
+
+template <int KIND, int NQ>
+int launch(const Operands& op, const Params& p, cudaStream_t stream) {
+  using V = Variant<KIND>;
+  using R = Ring<KIND, NQ>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      partial_topk_kernel<KIND, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const CUtensorMapDataType type = V::INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : KIND == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int elem = (int)sizeof(typename V::T);
+  CUtensorMap c1, c2, q1, q2;
+  if (!tensor_map(&c1, type, elem, op.c1, op.n, p.D, LW) || !tensor_map(&q1, type, elem, op.q1, p.Q, p.D, NQ))
+    return (int)cudaErrorInvalidValue;
+  c2 = c1;
+  q2 = q1;
+  if (V::C2 && !tensor_map(&c2, type, elem, op.c2, op.n, p.D, LW)) return (int)cudaErrorInvalidValue;
+  if (V::B_PLANES == 2 && !tensor_map(&q2, type, elem, op.q2, p.Q, p.D, NQ)) return (int)cudaErrorInvalidValue;
+  const int ctas = p.items < op.max_ctas ? p.items : op.max_ctas;
+  partial_topk_kernel<KIND, NQ><<<ctas, THREADS, R::SMEM, stream>>>(c1, c2, q1, q2, p);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_width(int width, const Operands& op, const Params& p, cudaStream_t stream) {
+  switch (width) {
+    case 8: return launch<KIND, 8>(op, p, stream);
+    case 16: return launch<KIND, 16>(op, p, stream);
+    case 32: return launch<KIND, 32>(op, p, stream);
+    case 64: return launch<KIND, 64>(op, p, stream);
+    case 128:
+      if constexpr (Variant<KIND>::MAX_NQ >= 128) return launch<KIND, 128>(op, p, stream);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int KIND>
+int smem_width(int width) {
+  switch (width) {
+    case 8: return Ring<KIND, 8>::SMEM;
+    case 16: return Ring<KIND, 16>::SMEM;
+    case 32: return Ring<KIND, 32>::SMEM;
+    case 64: return Ring<KIND, 64>::SMEM;
+    case 128: return Variant<KIND>::MAX_NQ >= 128 ? Ring<KIND, 128>::SMEM : -1;
+  }
+  return -1;
 }
 
 // ---------------------------------------------------------------- f32 (K1, INDEX_DTYPE=float32)
 
 // CUDA-core FMA: each thread owns a fixed 8 x 4 set of (query, lane) scores
 // for every tile j, so the running max needs no shared memory.
+constexpr int F_BQ = 64;        // query rows per CTA
+constexpr int F_THREADS = 256;  // lanes tx + 32c, query rows ty + 8r
 constexpr int F_KT = 32;
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F_THREADS)
 partial_topk_f32_kernel(const float* __restrict__ qf, const float* __restrict__ corpus, int Q, int D,
                         int group_l, int valid_n, float* __restrict__ vals, int* __restrict__ idx) {
-  __shared__ float a_s[F_KT][BQ + 4];
+  __shared__ float a_s[F_KT][F_BQ + 4];
   __shared__ float b_s[F_KT][LW + 4];
-  const int tx = threadIdx.x % 32;  // lanes tx + 32*c
-  const int ty = threadIdx.x / 32;  // rows ty + 8*r
-  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 32;
+  const int ty = threadIdx.x / 32;
+  const int q0 = blockIdx.x * F_BQ;
   const int b = blockIdx.y;
   const int block_n = LW * group_l;
   const long long ncand = (long long)gridDim.y * LW;
@@ -350,11 +506,11 @@ partial_topk_f32_kernel(const float* __restrict__ qf, const float* __restrict__ 
       for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
     for (int k0 = 0; k0 < D; k0 += F_KT) {
       __syncthreads();
-      for (int id = threadIdx.x; id < BQ * F_KT; id += THREADS) {
+      for (int id = threadIdx.x; id < F_BQ * F_KT; id += F_THREADS) {
         int r = id / F_KT, k = id % F_KT;
         a_s[k][r] = (q0 + r < Q) ? qf[(long long)(q0 + r) * D + k0 + k] : 0.0f;
       }
-      for (int id = threadIdx.x; id < LW * F_KT; id += THREADS) {
+      for (int id = threadIdx.x; id < LW * F_KT; id += F_THREADS) {
         int r = id / F_KT, k = id % F_KT;
         b_s[k][r] = corpus[(row0 + r) * D + k0 + k];
       }
@@ -399,11 +555,8 @@ partial_topk_f32_kernel(const float* __restrict__ qf, const float* __restrict__ 
   }
 }
 
-constexpr size_t kBf16Smem = (2 * BQ * 64 + LW * 64) * 2 + BQ * S_LD * 4;
-constexpr size_t kInt8Smem = 2 * BQ * 128 + 2 * LW * 128 + BQ * S_LD * 4;
-
-bool shapes_ok(int Q, int N, int D, int group_l, int kt, int valid_n) {
-  return Q > 0 && group_l > 0 && N > 0 && N % (LW * group_l) == 0 && D > 0 && D % kt == 0 &&
+bool shapes_ok(int Q, int N, int D, int group_l, int d_multiple, int valid_n) {
+  return Q > 0 && group_l > 0 && N > 0 && N % (LW * group_l) == 0 && D > 0 && D % d_multiple == 0 &&
          valid_n >= 0 && valid_n <= N;
 }
 
@@ -411,39 +564,60 @@ bool shapes_ok(int Q, int N, int D, int group_l, int kt, int valid_n) {
 
 extern "C" {
 
-int flat_partial_topk_bf16(const void* q_hi, const void* q_lo, const void* corpus, int Q, int N, int D,
-                           int group_l, int valid_n, void* vals, void* idx, void* stream) {
-  if (!shapes_ok(Q, N, D, group_l, 64, valid_n)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(partial_topk_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBf16Smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + BQ - 1) / BQ, N / (LW * group_l));
-  partial_topk_bf16_kernel<<<grid, THREADS, kBf16Smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q_hi, (const __nv_bfloat16*)q_lo, (const __nv_bfloat16*)corpus, Q, D,
-      group_l, valid_n, (float*)vals, (int*)idx);
-  return (int)cudaGetLastError();
+// K1 (kind 0 bf16, 1 bf16 precise, 2 f16) and K2 (kind 3 int8, 4 int8+q2,
+// 5 int8+c2, 6 int8r) on the tensor cores. c1/c2 are the corpus planes
+// [N, D], q1/q2 the query planes [Q, D] (q_hi/q_lo for K1), cscale the K2 row
+// scales. width and splits come from ops/flat_fused.py::plan_launch, n_sm
+// bounds the persistent grid; with splits > 1, part_vals/part_j are
+// [splits, Q, N/group_l] scratch and arrivals [tiles * blocks] zeros, which
+// the launch leaves zero.
+int flat_partial_topk(int kind, const void* c1, const void* c2, const void* q1, const void* q2, const void* cscale,
+                      int Q, int N, int D, int group_l, int valid_n, int width, int splits, int n_sm, void* vals,
+                      void* idx, void* part_vals, void* part_j, void* arrivals, void* stream) {
+  if (!shapes_ok(Q, N, D, group_l, kind >= I8 ? 128 : 64, valid_n) || group_l > 128 || splits <= 0 ||
+      group_l % splits != 0 || width <= 0 || n_sm <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (part_vals == nullptr || part_j == nullptr || arrivals == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (Q + width - 1) / width;
+  const long long items = (long long)tiles * splits * (N / (LW * group_l));
+  if (items > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  Params p{(const float*)cscale, Q, D, group_l, valid_n, tiles, splits, (int)items, (long long)N / group_l,
+           (float*)vals, (int*)idx, (float*)part_vals, (uint8_t*)part_j, (int*)arrivals};
+  const Operands op{c1, c2, q1, q2, N, n_sm};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case BF16: return launch_width<BF16>(width, op, p, s);
+    case BF16_PRECISE: return launch_width<BF16_PRECISE>(width, op, p, s);
+    case F16: return launch_width<F16>(width, op, p, s);
+    case I8: return launch_width<I8>(width, op, p, s);
+    case I8_Q2: return launch_width<I8_Q2>(width, op, p, s);
+    case I8_C2: return launch_width<I8_C2>(width, op, p, s);
+    case I8R: return launch_width<I8R>(width, op, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int flat_partial_topk_f32(const void* q, const void* corpus, int Q, int N, int D, int group_l,
-                          int valid_n, void* vals, void* idx, void* stream) {
+// Dynamic shared memory of one (kind, width) instantiation, or -1.
+int flat_partial_topk_smem(int kind, int width) {
+  switch (kind) {
+    case BF16: return smem_width<BF16>(width);
+    case BF16_PRECISE: return smem_width<BF16_PRECISE>(width);
+    case F16: return smem_width<F16>(width);
+    case I8: return smem_width<I8>(width);
+    case I8_Q2: return smem_width<I8_Q2>(width);
+    case I8_C2: return smem_width<I8_C2>(width);
+    case I8R: return smem_width<I8R>(width);
+  }
+  return -1;
+}
+
+int flat_partial_topk_f32(const void* q, const void* corpus, int Q, int N, int D, int group_l, int valid_n,
+                          void* vals, void* idx, void* stream) {
   if (!shapes_ok(Q, N, D, group_l, F_KT, valid_n)) return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + BQ - 1) / BQ, N / (LW * group_l));
-  partial_topk_f32_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  dim3 grid((Q + F_BQ - 1) / F_BQ, N / (LW * group_l));
+  partial_topk_f32_kernel<<<grid, F_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)corpus, Q, D, group_l, valid_n, (float*)vals, (int*)idx);
-  return (int)cudaGetLastError();
-}
-
-int flat_partial_topk_int8(const void* q1, const void* q2, const void* c1, const void* c2,
-                           const void* cscale, int Q, int N, int D, int group_l, int valid_n,
-                           void* vals, void* idx, void* stream) {
-  if (!shapes_ok(Q, N, D, group_l, 128, valid_n)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(partial_topk_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kInt8Smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + BQ - 1) / BQ, N / (LW * group_l));
-  partial_topk_int8_kernel<<<grid, THREADS, kInt8Smem, (cudaStream_t)stream>>>(
-      (const int8_t*)q1, (const int8_t*)q2, (const int8_t*)c1, (const int8_t*)c2,
-      (const float*)cscale, Q, D, group_l, valid_n, (float*)vals, (int*)idx);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,11 @@
 ``intool_rag_tpu/ops/flat_pallas.py``).
 
 The scoring pass runs in the hand-written CUDA kernels of
-``kernels/flat_partial_topk.cu`` (K1: bf16/f32 corpus, K2: int8 corpus);
-they write only the ``[Q, N/group_l]`` grouped-max candidates, and the
-small top-k tail over those runs as torch ops. The same candidate arrays
+``kernels/flat_partial_topk.cu`` (K1: bf16/f16/f32 corpus, K2: int8
+corpus); they write only the ``[Q, N/group_l]`` grouped-max candidates, and
+the small top-k tail over those runs as torch ops. :func:`plan_launch`
+picks the tensor-core kernels' query-tile width and how a corpus block's
+tiles split into work items. The same candidate arrays
 come from the plain versions :func:`partial_topk_reference` and
 :func:`partial_topk_int8_reference`; a wrapper takes them only for tensors
 that lie on the CPU. On a CUDA tensor it launches its kernel or raises.
@@ -27,6 +29,15 @@ from .topk import NEG_INF, blocked_topk, top_k
 
 LANES = 128
 _SOURCE = "flat_partial_topk.cu"
+# query-tile widths (the wgmma N) the tensor-core kernels are built for
+TILE_WIDTHS = (8, 16, 32, 64, 128)
+# kernel variant -> the C entry point's kind, and the widest tile whose
+# accumulators, running max and j fit in a thread's registers
+_KINDS = {
+    "K1 bf16": (0, 128), "K1 bf16 precise": (1, 128), "K1 f16": (2, 128),
+    "K2 int8": (3, 128), "K2 int8+q2": (4, 64), "K2 int8+c2": (5, 64), "K2 int8r": (6, 64),
+}
+MAX_GROUP_L = 128  # the kernels keep j in one byte
 
 
 class LaunchCount:
@@ -67,6 +78,34 @@ def _check_layout(corpus: torch.Tensor, group_l: int, valid_n: int, d_multiple: 
         )
     if not 0 <= valid_n <= n:
         raise ValueError(f"valid_n={valid_n} outside [0, {n}]")
+
+
+def plan_launch(q: int, n: int, d: int, group_l: int, n_sm: int, variant: str) -> tuple[int, int]:
+    """``(width, splits)`` of a tensor-core K1/K2 launch: the query-tile
+    width (the smallest of :data:`TILE_WIDTHS` that holds all ``q`` queries,
+    else the variant's widest), and into how many work items each corpus
+    block's ``group_l`` tiles split: none where the blocks already give the
+    ``n_sm`` persistent CTAs an item each, else the divisor of ``group_l``
+    that gives each CTA the fewest 128-row tiles (rounds of items times
+    tiles per item), the smallest such. Raises on shapes the kernel
+    refuses."""
+    if variant not in _KINDS:
+        raise ValueError(f"no tensor-core kernel for {variant!r}")
+    d_multiple = 128 if variant.startswith("K2") else 64
+    if q < 1 or n < 1 or d < 1 or n_sm < 1:
+        raise ValueError(f"empty launch: Q {q}, N {n}, D {d}, {n_sm} SMs")
+    if not 1 <= group_l <= MAX_GROUP_L:
+        raise ValueError(f"group_l {group_l} outside [1, {MAX_GROUP_L}]")
+    if n % (LANES * group_l) != 0 or d % d_multiple != 0:
+        raise ValueError(f"corpus [{n}, {d}] not padded to ({LANES * group_l}, {d_multiple})")
+    widest = _KINDS[variant][1]
+    width = next((w for w in TILE_WIDTHS if q <= w <= widest), widest)
+    items = -(-q // width) * (n // (LANES * group_l))
+    if items >= n_sm:
+        return width, 1
+    splits = min((s for s in range(1, group_l + 1) if group_l % s == 0),
+                 key=lambda s: (-(-items * s // n_sm) * (group_l // s), s))
+    return width, splits
 
 
 def _grouped_max(scores: torch.Tensor, group_l: int, valid_n: int):
@@ -120,13 +159,58 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flat_partial_topk_bf16.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+        lib.flat_partial_topk.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
+        lib.flat_partial_topk_smem.argtypes = [i, i]
         lib.flat_partial_topk_f32.argtypes = [p, p, i, i, i, i, i, p, p, p]
-        lib.flat_partial_topk_int8.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p]
-        for fn in (lib.flat_partial_topk_bf16, lib.flat_partial_topk_f32, lib.flat_partial_topk_int8):
+        for fn in (lib.flat_partial_topk, lib.flat_partial_topk_smem, lib.flat_partial_topk_f32):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
+
+
+_SM_COUNT: dict[int, int] = {}
+_ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SM_COUNT:
+        _SM_COUNT[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev.index]
+
+
+def _arrivals(dev: torch.device, stream: int, size: int) -> torch.Tensor:
+    """Zeroed arrival counters of the split merge, one buffer per (device,
+    stream): the last CTA of each (block, query tile) resets its counter, so
+    the buffer is zero again once a launch on that stream has run."""
+    key = (dev.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < size:
+        buf = _ARRIVALS[key] = torch.zeros(max(size, 4096), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _launch_tensor_cores(variant, c1, c2, q1, q2, cscale, group_l: int, valid_n: int, dev):
+    """One K1/K2 launch on the tensor cores; allocates the candidates and,
+    when :func:`plan_launch` splits the blocks, the merge scratch."""
+    n, d = c1.shape
+    q = q1.shape[0]
+    n_sm = _sm_count(dev)
+    width, splits = plan_launch(q, n, d, group_l, n_sm, variant)
+    m = n // group_l
+    vals = torch.empty((q, m), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, m), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part_vals = part_j = arrivals = None
+    if splits > 1:
+        part_vals = torch.empty((splits, q, m), dtype=torch.float32, device=dev)
+        part_j = torch.empty((splits, q, m), dtype=torch.uint8, device=dev)
+        arrivals = _arrivals(dev, stream, -(-q // width) * (n // (LANES * group_l)))
+    rc = _lib().flat_partial_topk(
+        _KINDS[variant][0], _ptr(c1), _ptr(c2), _ptr(q1), _ptr(q2), _ptr(cscale), q, n, d, group_l,
+        valid_n, width, splits, n_sm, _ptr(vals), _ptr(idx), _ptr(part_vals), _ptr(part_j),
+        _ptr(arrivals), stream,
+    )
+    return rc, vals, idx
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -158,34 +242,31 @@ def _check_rc(rc: int, name: str) -> None:
 
 def partial_topk(q_hi, q_lo, corpus, group_l: int, valid_n: int):
     """K1 candidates ``(vals [Q, N/group_l] f32, idx i32)``. ``corpus`` is
-    bf16 (``q_hi``/``q_lo`` bf16) or f32 (``q_hi`` f32, no ``q_lo``)."""
-    _check_layout(corpus, group_l, valid_n, 64 if corpus.dtype == torch.bfloat16 else 32)
+    bf16 (``q_hi``/``q_lo`` bf16), f16 (``q_hi`` f16, no ``q_lo``) or f32
+    (``q_hi`` f32, no ``q_lo``)."""
+    _check_layout(corpus, group_l, valid_n, 32 if corpus.dtype == torch.float32 else 64)
     if not corpus.is_cuda:
         return partial_topk_reference(q_hi, q_lo, corpus, group_l, valid_n)
     n, d = corpus.shape
-    q = q_hi.shape[0]
-    if corpus.dtype == torch.bfloat16:
-        dev = _cuda_operands((q_hi, q_lo, corpus), torch.bfloat16, d)
-    elif corpus.dtype == torch.float32 and q_lo is None:
-        dev = _cuda_operands((q_hi, corpus), torch.float32, d)
-    else:
-        raise ValueError(f"K1 takes a bfloat16 or float32 corpus, got {corpus.dtype}")
-    m = n // group_l
-    vals = torch.empty((q, m), dtype=torch.float32, device=dev)
-    idx = torch.empty((q, m), dtype=torch.int32, device=dev)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if corpus.dtype == torch.bfloat16:
-        rc = lib.flat_partial_topk_bf16(
-            _ptr(q_hi), _ptr(q_lo), _ptr(corpus), q, n, d, group_l, valid_n,
-            _ptr(vals), _ptr(idx), stream,
+    if corpus.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"K1 takes a bfloat16, float16 or float32 corpus, got {corpus.dtype}")
+    if q_lo is not None and corpus.dtype != torch.bfloat16:
+        raise ValueError("the split-query pass (q_lo) takes a bfloat16 corpus only")
+    dev = _cuda_operands((q_hi, q_lo, corpus), corpus.dtype, d)
+    if corpus.dtype == torch.float32:
+        q = q_hi.shape[0]
+        m = n // group_l
+        vals = torch.empty((q, m), dtype=torch.float32, device=dev)
+        idx = torch.empty((q, m), dtype=torch.int32, device=dev)
+        rc = _lib().flat_partial_topk_f32(
+            _ptr(q_hi), _ptr(corpus), q, n, d, group_l, valid_n, _ptr(vals), _ptr(idx),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
+        variant = "K1 f32"
     else:
-        rc = lib.flat_partial_topk_f32(
-            _ptr(q_hi), _ptr(corpus), q, n, d, group_l, valid_n, _ptr(vals), _ptr(idx), stream,
-        )
-    variant = "K1 f32" if corpus.dtype == torch.float32 else (
-        "K1 bf16" if q_lo is None else "K1 bf16 precise")
+        variant = "K1 f16" if corpus.dtype == torch.float16 else (
+            "K1 bf16" if q_lo is None else "K1 bf16 precise")
+        rc, vals, idx = _launch_tensor_cores(variant, corpus, None, q_hi, q_lo, None, group_l, valid_n, dev)
     partial_topk.launches.add(variant)
     _check_rc(rc, "partial_topk")
     return vals, idx
@@ -203,20 +284,13 @@ def partial_topk_int8(q1, q2, c1, c2, cscale, group_l: int, valid_n: int):
     if not c1.is_cuda:
         return partial_topk_int8_reference(q1, q2, c1, c2, cscale, group_l, valid_n)
     n, d = c1.shape
-    q = q1.shape[0]
     dev = _cuda_operands((q1, q2, c1, c2), torch.int8, d)
     if not (cscale.is_cuda and cscale.dtype == torch.float32 and cscale.is_contiguous()
             and cscale.shape == (n,) and cscale.device == dev):
         raise ValueError("corpus scales must be a contiguous CUDA float32 [N] tensor")
-    m = n // group_l
-    vals = torch.empty((q, m), dtype=torch.float32, device=dev)
-    idx = torch.empty((q, m), dtype=torch.int32, device=dev)
-    rc = _lib().flat_partial_topk_int8(
-        _ptr(q1), _ptr(q2), _ptr(c1), _ptr(c2), _ptr(cscale), q, n, d, group_l, valid_n,
-        _ptr(vals), _ptr(idx), torch.cuda.current_stream(dev).cuda_stream,
-    )
     variant = {(False, False): "K2 int8", (True, False): "K2 int8+q2",
                (False, True): "K2 int8+c2", (True, True): "K2 int8r"}[(q2 is not None, c2 is not None)]
+    rc, vals, idx = _launch_tensor_cores(variant, c1, c2, q1, q2, cscale, group_l, valid_n, dev)
     partial_topk_int8.launches.add(variant)
     _check_rc(rc, "partial_topk_int8")
     return vals, idx
@@ -275,15 +349,17 @@ def flat_topk_fused(
     tail: str = "fold",
     precise: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused flat MIPS top-k over a bf16 or f32 corpus (counterpart of
+    """Fused flat MIPS top-k over a bf16, f16 or f32 corpus (counterpart of
     ``flat_topk_pallas``). ``corpus [N, D]`` has N a multiple of
     ``128·group_l``. ``precise`` (bf16 corpus only) adds the split-query
     compensation pass so scores match an f32 query against the bf16
-    corpus. Returns ``(scores [Q, k] f32, rows [Q, k] i32)``."""
+    corpus; other corpora take the queries in their own dtype. Returns
+    ``(scores [Q, k] f32, rows [Q, k] i32)``."""
     n = corpus.shape[0]
     valid_n = n if valid_n is None else int(valid_n)
-    if corpus.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flat_topk_fused takes a bfloat16 or float32 corpus, got {corpus.dtype}")
+    if corpus.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(
+            f"flat_topk_fused takes a bfloat16, float16 or float32 corpus, got {corpus.dtype}")
     if precise and corpus.dtype == torch.bfloat16:
         q_hi, q_lo = split_query_bf16(queries)
     else:

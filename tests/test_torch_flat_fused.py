@@ -8,6 +8,8 @@ CUDA kernels with the plain versions and skips where there is no card.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from intool_rag_tpu.ops.flat_pallas import flat_topk_pallas, flat_topk_pallas_in
 from intool_rag_tpu.ops.quant import quantize_int8, quantize_int8_residual
 from intool_rag_tpu_torch.ops import flat_fused
 from intool_rag_tpu_torch.ops.flat_fused import (
+    TILE_WIDTHS,
     choose_group_width,
     flat_topk_fused,
     flat_topk_fused_int8,
@@ -24,6 +27,7 @@ from intool_rag_tpu_torch.ops.flat_fused import (
     partial_topk_int8,
     partial_topk_int8_reference,
     partial_topk_reference,
+    plan_launch,
 )
 
 torch.set_num_threads(2)
@@ -65,6 +69,27 @@ def test_k1_matches_pallas(data, precise, group_l, tail):
     for qi, pos in zip(*np.nonzero(got_r != want_r)):
         gap = abs(exact[qi, got_r[qi, pos]] - exact[qi, want_r[qi, pos]])
         assert gap <= 1e-5, (qi, pos, gap)
+    assert got_r.max() < VALID_N
+
+
+@pytest.mark.parametrize("group_l", [4, 32])
+def test_k1_float16_matches_pallas(data, group_l):
+    """A float16 corpus: both packages take the queries in float16 and
+    multiply into f32 (no split-query pass)."""
+    corpus, queries = data
+    ch = jnp.asarray(corpus).astype(jnp.float16)
+    want_v, want_r = flat_topk_pallas(
+        jnp.asarray(queries), ch, K, group_l=group_l, valid_n=VALID_N, interpret=True, precise=True,
+    )
+    got_v, got_r = flat_topk_fused(
+        torch.from_numpy(queries), torch.from_numpy(corpus).half(), K, group_l=group_l,
+        valid_n=VALID_N, precise=True,
+    )
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=2e-5, atol=0)
+    exact = queries.astype(np.float16).astype(np.float32) @ np.asarray(ch.astype(jnp.float32)).T
+    got_r, want_r = got_r.numpy(), np.asarray(want_r)
+    for qi, pos in zip(*np.nonzero(got_r != want_r)):
+        assert abs(exact[qi, got_r[qi, pos]] - exact[qi, want_r[qi, pos]]) <= 1e-5
     assert got_r.max() < VALID_N
 
 
@@ -136,6 +161,110 @@ def test_candidate_contract_ties_and_masked_groups(group_l):
     np.testing.assert_array_equal(i8.numpy(), want_i)
 
 
+def _split_merge_model(scores, group_l, valid_n, splits):
+    """The kernel's split path written out: split ``s`` folds tiles
+    ``[s·per, (s+1)·per)`` from best -inf and j its first tile, strict '>'
+    keeping the first j; the last CTA to arrive walks the splits in order
+    and takes a later one only where it is strictly larger."""
+    q, n = scores.shape
+    nb = n // (128 * group_l)
+    s4 = np.where(np.arange(n) < valid_n, scores, -np.inf).astype(np.float32).reshape(q, nb, group_l, 128)
+    per = group_l // splits
+    parts = []
+    for sp in range(splits):
+        best = np.full((q, nb, 128), -np.inf, np.float32)
+        bj = np.full((q, nb, 128), sp * per, np.int32)
+        for j in range(sp * per, (sp + 1) * per):
+            take = s4[:, :, j] > best
+            best, bj = np.where(take, s4[:, :, j], best), np.where(take, j, bj)
+        parts.append((best, bj))
+    m, mj = parts[0]
+    for best, bj in parts[1:]:
+        take = best > m
+        m, mj = np.where(take, best, m), np.where(take, bj, mj)
+    idx = np.arange(nb)[:, None] * 128 * group_l + mj * 128 + np.arange(128)
+    return m.reshape(q, nb * 128), idx.reshape(q, nb * 128).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["ties", "all_neg_inf_groups", "valid_n_inside_a_split"])
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_split_merge_matches_unsplit(case, splits):
+    """Splitting a block's group_l tiles across CTAs and merging the
+    partials in split order gives the unsplit candidates, ids included."""
+    rng = np.random.default_rng(17)
+    group_l, d = 8, 128
+    n = 4 * 128 * group_l
+    corpus = rng.integers(-2, 3, size=(n, d)).astype(np.float32)  # small integers: many exact ties
+    queries = rng.integers(-2, 3, size=(3, d)).astype(np.float32)
+    valid_n = n
+    if case == "ties":  # the same row in every tile of block 1: every j ties, across every split
+        block = corpus[128 * group_l : 2 * 128 * group_l].reshape(group_l, 128, d)
+        block[:] = block[0]
+    elif case == "all_neg_inf_groups":  # blocks 2 and 3 lie wholly past valid_n
+        valid_n = 2 * 128 * group_l
+    else:  # the boundary falls inside tile 5 of block 3, inside a split for every split count
+        valid_n = 3 * 128 * group_l + 5 * 128 + 77
+    want_v, want_i = partial_topk_reference(
+        torch.from_numpy(queries), None, torch.from_numpy(corpus), group_l, valid_n)
+    got_v, got_i = _split_merge_model(queries @ corpus.T, group_l, valid_n, splits)
+    np.testing.assert_array_equal(got_v, want_v.numpy())
+    np.testing.assert_array_equal(got_i, want_i.numpy())
+    if case == "ties":
+        assert (got_i[:, 128:256] == 128 * group_l + np.arange(128)).all()  # the smallest j, 0
+    if case == "all_neg_inf_groups":
+        assert np.isneginf(got_v[:, 256:]).all()
+        assert (got_i[:, 256:384] == 2 * 128 * group_l + np.arange(128)).all()
+
+
+PLAN_SHAPES = [  # (Q, N, D, group_l): the phase-4 shape, the service store, chip_smoke's CHECK_SHAPES
+    (256, 1_003_520, 1024, 32),
+    *[(q, 53_248, 384, g) for q in (1, 8, 16) for g in (8, 16, 32)],
+    *[(q, 65_536, d, g) for q in (3, 64, 256, 300) for d in (384, 1024) for g in (8, 32)],
+]
+VARIANTS = ["K1 bf16", "K1 bf16 precise", "K1 f16", "K2 int8", "K2 int8+q2", "K2 int8+c2", "K2 int8r"]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plan_launch_covers_the_main_shapes(shape):
+    q, n, d, group_l = shape
+    source = (Path(flat_fused.__file__).parent.parent / "kernels" / "flat_partial_topk.cu").read_text()
+    for variant in VARIANTS:
+        width, splits = plan_launch(q, n, d, group_l, 132, variant)
+        assert width in TILE_WIDTHS and f"launch<KIND, {width}>" in source
+        assert width <= (64 if variant in ("K2 int8+q2", "K2 int8+c2", "K2 int8r") else 128)
+        assert group_l % splits == 0
+        if q <= width:
+            assert width == min(w for w in TILE_WIDTHS if w >= q)  # no wider than the batch needs
+        if -(-q // width) * (n // (128 * group_l)) >= 132:  # every CTA has an item: no split, no merge
+            assert splits == 1
+    # the two served paths at the main shapes
+    assert plan_launch(256, 1_003_520, 1024, 32, 132, "K1 bf16 precise") == (128, 1)
+    assert plan_launch(256, 1_003_520, 1024, 32, 132, "K2 int8r") == (64, 1)
+    assert plan_launch(8, 53_248, 384, 32, 132, "K2 int8r") == (8, 8)
+    # 52 items of 8 tiles: 2 splits give each of 132 CTAs at most 4 tiles, as 4 and 8 would
+    assert plan_launch(16, 53_248, 384, 8, 132, "K1 bf16") == (16, 2)
+    # 16 items of 32 tiles: 8 splits are the fewest that leave 4 tiles a CTA
+    assert plan_launch(3, 65_536, 384, 32, 132, "K2 int8") == (8, 8)
+    # Q 300 in three (five) query tiles: 192 (320) items, no split
+    assert plan_launch(300, 65_536, 1024, 8, 132, "K1 bf16") == (128, 1)
+    assert plan_launch(300, 65_536, 1024, 8, 132, "K2 int8r") == (64, 1)
+
+
+@pytest.mark.parametrize("args", [
+    (8, 53_248, 384, 256, "K1 bf16"),        # group_l past one byte of j
+    (8, 53_248, 384, 0, "K1 bf16"),
+    (8, 53_248 - 128, 384, 32, "K1 bf16"),   # N not a multiple of the block
+    (8, 53_248, 96, 8, "K1 bf16"),           # D not a multiple of 64
+    (8, 53_248, 320, 8, "K2 int8"),          # D not a multiple of 128
+    (0, 53_248, 384, 8, "K1 bf16"),
+    (8, 53_248, 384, 8, "K1 f32"),           # the f32 kernel has no tensor-core plan
+])
+def test_plan_launch_refuses(args):
+    q, n, d, group_l, variant = args
+    with pytest.raises(ValueError):
+        plan_launch(q, n, d, group_l, 132, variant)
+
+
 def test_cpu_wrappers_take_plain_version_and_do_not_count(data):
     corpus, queries = data
     before = (partial_topk.launches.count, partial_topk_int8.launches.count)
@@ -160,21 +289,25 @@ def test_choose_group_width_matches_jax(n, k):
 
 def test_kernels_match_plain_on_card():
     """CUDA twin: each kernel against its plain version on the card (K2 bit
-    for bit, K1 to 1e-4 on unit-norm data)."""
+    for bit, K1 to 1e-4 on unit-norm data); then the split merge at the
+    service store's shape, on ties and valid_n boundaries, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA-only")
+    _split_merge_on_card()
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
     corpus = torch.from_numpy(_unit(rng, (8192, 256))).to(dev)
     queries = torch.from_numpy(_unit(rng, (5, 256))).to(dev)
     q_hi, q_lo = flat_fused.split_query_bf16(queries)
     cb = corpus.bfloat16().contiguous()
+    ch = corpus.half().contiguous()
     for g in (8, 32):
-        kv, ki = partial_topk(q_hi, q_lo, cb, g, 8000)
-        pv, pi = partial_topk_reference(q_hi, q_lo, cb, g, 8000)
-        finite = torch.isfinite(pv)
-        assert torch.equal(finite, torch.isfinite(kv))
-        assert (kv[finite] - pv[finite]).abs().max().item() <= 1e-4
+        for args in ((q_hi, q_lo, cb), (q_hi, None, cb), (queries.half().contiguous(), None, ch)):
+            kv, ki = partial_topk(*args, g, 8000)
+            pv, pi = partial_topk_reference(*args, g, 8000)
+            finite = torch.isfinite(pv)
+            assert torch.equal(finite, torch.isfinite(kv))
+            assert (kv[finite] - pv[finite]).abs().max().item() <= 1e-4
         from intool_rag_tpu_torch.ops.quant import quantize_int8_residual as tq
 
         c1, c2, cs = tq(corpus)
@@ -182,3 +315,35 @@ def test_kernels_match_plain_on_card():
         kv, ki = partial_topk_int8(q1, q2, c1, c2, cs, g, 8000)
         pv, pi = partial_topk_int8_reference(q1, q2, c1, c2, cs, g, 8000)
         assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        again = partial_topk_int8(q1, q2, c1, c2, cs, g, 8000)
+        assert torch.equal(again[0], kv) and torch.equal(again[1], ki)
+
+
+def _split_merge_on_card():
+    """Q 8 over the service store's 53,248 rows at group_l 32: every block's
+    32 tiles split across CTAs and merge in the kernel. Small integer
+    operands make every product exact in bf16 and int8, so K1 and K2 must
+    both match their plain versions bit for bit: ties across every split
+    (one row repeated in all tiles of block 1), a valid_n boundary inside a
+    split (tile 5 of block 12) and blocks wholly past valid_n (11 and 12)."""
+    rng = np.random.default_rng(23)
+    n, d, group_l = 53_248, 128, 32
+    dev = torch.device("cuda")
+    assert plan_launch(8, n, d, group_l, flat_fused._sm_count(dev), "K1 bf16")[1] > 1
+    corpus = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+    block = corpus[128 * group_l : 2 * 128 * group_l].reshape(group_l, 128, d)
+    block[:] = block[0]
+    queries = rng.integers(-2, 3, size=(8, d)).astype(np.float32)
+    c = torch.from_numpy(corpus).to(dev)
+    q = torch.from_numpy(queries).to(dev)
+    cb, qb = c.bfloat16().contiguous(), q.bfloat16().contiguous()
+    c8, q8 = c.to(torch.int8).contiguous(), q.to(torch.int8).contiguous()
+    ones = torch.ones(n, device=dev)
+    for valid_n in (n, 12 * 128 * group_l + 5 * 128 + 77, 11 * 128 * group_l):
+        got = partial_topk(qb, None, cb, group_l, valid_n)
+        want = partial_topk_reference(qb, None, cb, group_l, valid_n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), valid_n
+        got = partial_topk_int8(q8, None, c8, None, ones, group_l, valid_n)
+        want = partial_topk_int8_reference(q8, None, c8, None, ones, group_l, valid_n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), valid_n
+        assert (got[1][:, 128:256] == 128 * group_l + torch.arange(128, device=dev)).all()  # ties: j 0

@@ -95,8 +95,9 @@ def _fresh_configs():
     torch_config.reset_config()
 
 
-def _set_env(monkeypatch, storage_dir, int8r: bool):
+def _set_env(monkeypatch, storage_dir, int8r: bool, dtype: str = "bfloat16"):
     monkeypatch.setenv("STORAGE_DIR", str(storage_dir))
+    monkeypatch.setenv("INDEX_DTYPE", dtype)
     monkeypatch.setenv("CACHE_DIR", str(storage_dir / "cache"))
     monkeypatch.setenv("SHARDED_SEARCH", "off")
     monkeypatch.setenv("DENSE_INT8", "1" if int8r else "0")
@@ -138,22 +139,28 @@ def _jax_results(monkeypatch, storage_dir, queries, provider):
     return chunks, pages, calls
 
 
-@pytest.mark.parametrize("int8r", [False, True], ids=["bf16", "int8r"])
-def test_slice_matches_jax(monkeypatch, corpus, int8r):
+@pytest.mark.parametrize("store", ["bf16", "int8r", "f16"])
+def test_slice_matches_jax(monkeypatch, corpus, store):
+    """``f16``: an INDEX_DTYPE=float16 store, which both packages serve with
+    the fused kernel (no split-query pass) and an exact rescore."""
     from intool_rag_tpu_torch.index.registry import CorpusRegistry
     from intool_rag_tpu_torch.query.retriever import PageLevelRetriever
 
     storage_dir, queries, table = corpus
     provider = _FixedProvider(table)
-    _set_env(monkeypatch, storage_dir, int8r)
+    int8r = store == "int8r"
+    _set_env(monkeypatch, storage_dir, int8r, "float16" if store == "f16" else "bfloat16")
     want_chunks, want_pages, calls = _jax_results(monkeypatch, storage_dir, queries, provider)
     assert calls == ["flat_topk_pallas_int8" if int8r else "flat_topk_pallas"]
 
     registry = CorpusRegistry(storage_dir, device="cpu")
     assert registry.load_all() == N_DOCS
+    assert registry.store.embeddings.dtype == (torch.float16 if store == "f16" else torch.bfloat16)
     retriever = PageLevelRetriever(registry, provider)
     _, plan = registry.engine.dense.flat_plan(50)
     assert plan["kind"] == ("fused_int8" if int8r else "fused")
+    assert plan.get("rescore", False) == (store == "f16")
+    assert plan.get("precise", True) == (store == "bf16" or int8r)
     got_chunks = retriever.retrieve_chunks_batch(queries, [None] * len(queries))
     got_pages = [retriever.rank_pages(c) for c in got_chunks]
 
