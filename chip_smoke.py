@@ -14,9 +14,11 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    against its plain PyTorch version on the card, at the shapes of
    ``CHECK_SHAPES`` (Q 300 over several query tiles, the service store at
    batch 1-16 with split blocks, valid_n inside a 128-row tile, D 384 and
-   1024). K2 must match bit for bit, and a repeated run the first; K1
-   values to atol 1e-4 on unit-norm data, ids wherever the within-group
-   gap is above 2e-4. K3
+   1024) and on near-duplicate queries (``NEAR_QUERIES``: corpus rows plus
+   noise of 1e-3, scores about 1) at D 384 and 1024. K2 must match bit for
+   bit, K2 and K1 f32 (3xTF32) a repeated run bit for bit; K1 values to
+   atol 1e-4 on unit-norm data, ids wherever the within-group gap is
+   above 2e-4. K3
    (``bits_scan``) at the shapes of ``K3_CHECKS`` (the service store's and
    the capacity run's among them, with empty slots and an all-empty
    list): values to rtol 2e-5 / atol 1e-5, ids wherever the within-group
@@ -40,19 +42,25 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    ``INDEX_KIND=bits`` capacity tier for K3). Launch counts per kernel
    variant are set to 0 before each run and read after it (the main
    path); a run that launches any other variant than its store's fails.
+   Then the port's native analyzer must have built and serve ``tokenize``
+   (``€uro`` keeps its symbol), and a service on a fresh store with
+   ``LLM_PROVIDER`` unset, no Gemini key and no Ollama must answer
+   ``POST /ingest`` through the heuristic analyzer.
 4. search at scale: 1M x d1024 corpus, 256 queries embedded by the
    ``bge_m3``-width encoder (random weights from a seed), 100 candidates
-   per side, k = 10, through ``_fused_hybrid_search`` with K2 and K1;
-   recall@10 against the exact hybrid oracle must be >= 0.99, and each
+   per side, k = 10, through ``_fused_hybrid_search`` with K2 int8r, K1
+   bf16 precise and K1 f32 (a true f32 corpus drawn in f32, 4.1 GB);
+   recall@10 against the exact hybrid oracle of its corpus must be >= 0.99, and each
    path must launch its kernel and no other; ``torch.profiler`` over the
    same rotations gives the device's busy share of a batch, against an
    unprofiled pass just before it (measured after the last phase, since a
    traced process runs its host side slower and phases 5-7 time host
    work). The kernel table
    then checks and times every variant against its plain version on the
-   phase-4 inputs, and the tensor-core variants at the phase-3 service
-   shape (``SERVICE_SHAPE``), each with its bound, share of the bound and
-   library time.
+   phase-4 inputs (K1 f32 on the f32 corpus), and every variant at the
+   phase-3 service shape (``SERVICE_SHAPE``), each with its bound, share
+   of the bound and library time (K1 f32: the 3xTF32 bound, and the
+   f32-FMA bound beside it).
 5. capacity run: the 1-bit tier at full width. 3,000,000 x d1024 rows
    with micro-cluster structure stream into an ``IVFBitsIndex`` (nlist
    256, 13 blocks of 1,024 slots per list, host int8 refine tier) in
@@ -128,7 +136,7 @@ import torch
 
 DEVICE = "cuda"  # every phase runs on the card
 H100_HBM_BYTES_S = 3.35e12
-H100_PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+H100_PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 494.7e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -168,6 +176,39 @@ def host_wall_ms(fn, iters: int = 100, warmup: int = 5) -> tuple[float, float]:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return 1000 * (t1 - t0) / iters, 1000 * (t2 - t0) / iters
+
+
+def clocks_under_load(fn, ms_per_call: float, seconds: float = 1.0) -> dict:
+    """``fn()`` back to back for about ``seconds`` of device time: its mean
+    ms per call over that window, and the card's SM clock (and its maximum)
+    and power draw that ``nvidia-smi`` reads half-way through. A kernel that
+    draws the card to its power limit runs at a lower clock back to back
+    than between host work."""
+    import threading
+
+    n = max(2, int(1000 * seconds / ms_per_call))
+    sample: dict = {}
+
+    def read() -> None:
+        time.sleep(seconds / 2)
+        sample["smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reader = threading.Thread(target=read)
+    start.record()
+    reader.start()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    reader.join()
+    clock, max_clock, power = (float(x) for x in sample["smi"].split(","))
+    return {"calls": n, "ms": start.elapsed_time(end) / n, "sm_clock_mhz": clock, "max_sm_clock_mhz": max_clock,
+            "power_w": power}
 
 
 def card_line() -> str:
@@ -235,7 +276,7 @@ def phase_build(state: dict) -> None:
             if warnings:  # e.g. a setmaxnreg that ptxas ignored
                 raise AssertionError(f"{name}: compiler warnings {warnings}")
             spilled = {v: w for v, widths in tc.items() for w, e in widths.items() if e["spill_bytes"]}
-            if spilled or len(tc) != 7:
+            if spilled or len(tc) != 8:
                 raise AssertionError(f"K1/K2 tensor-core kernels: spills {spilled}, variants {sorted(tc)}")
             state["tensor_core_kernels"] = tc
             continue
@@ -263,10 +304,23 @@ CHECK_SHAPES = [
     (65_536, 64_536, 1024, (3, 64, 256, 300), (8, 32)),
     (53_248, 50_000, 384, (1, 8, 16), (8, 32)),
 ]
+# near-duplicate queries (corpus rows below valid_n plus noise of NEAR_NOISE,
+# renormalised: scores about 1, where a one-sided rounding error of K1 f32's
+# tf32 products would add up): query counts by (N, D), at D 384 and D 1024
+NEAR_QUERIES = {(65_536, 384): (16, 256), (65_536, 1024): (16, 256)}
+NEAR_NOISE = 1e-3
 
 
 def _unit(gen, shape, dev):
     x = torch.randn(shape, generator=gen, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _near_duplicates(gen, corpus, valid_n, q):
+    """``q`` queries, each a distinct corpus row below ``valid_n`` plus
+    Gaussian noise of ``NEAR_NOISE``, renormalised."""
+    rows = torch.randperm(valid_n, generator=gen, device=corpus.device)[:q]
+    x = corpus[rows] + NEAR_NOISE * torch.randn((q, corpus.shape[1]), generator=gen, device=corpus.device)
     return x / x.norm(dim=1, keepdim=True)
 
 
@@ -345,8 +399,11 @@ def phase_kernels(state: dict) -> None:
         corpus = _unit(gen, (n, d), dev)
         cb, ch = corpus.bfloat16().contiguous(), corpus.half().contiguous()
         c1, c2, cs = quantize_int8_residual(corpus)
-        for q in query_counts:
-            ops = _operands(_unit(gen, (q, d), dev), cb, ch, corpus, c1, c2, cs)
+        near = NEAR_QUERIES.get((n, d), ())
+        batches = [(f"Q {q}", _unit(gen, (q, d), dev)) for q in query_counts] + [
+            (f"Q {q} near-duplicate", _near_duplicates(gen, corpus, valid_n, q)) for q in near]
+        for what, queries in batches:
+            ops = _operands(queries, cb, ch, corpus, c1, c2, cs)
             for g in widths:
                 for name, args in ops.items():
                     kout = _kernel(name, args, g, valid_n)
@@ -354,10 +411,10 @@ def phase_kernels(state: dict) -> None:
                     err = _compare(name, args, kout, _plain(name, args, g, valid_n))
                     errs[name] = max(errs.get(name, 0.0), err)
                     checks += 1
-                    if name.startswith("K2"):  # a repeated run is bit-equal to the first
+                    if name.startswith("K2") or name == "K1 f32":  # a repeated run is bit-equal to the first
                         again = _kernel(name, args, g, valid_n)
                         if not (torch.equal(again[0], kout[0]) and torch.equal(again[1], kout[1])):
-                            raise AssertionError(f"{name} at Q {q}, N {n}, D {d}, group_l {g}: repeat differs")
+                            raise AssertionError(f"{name} at {what}, N {n}, D {d}, group_l {g}: repeat differs")
         del corpus, cb, ch, c1, c2, cs
     torch.cuda.empty_cache()
     for shape in K3_CHECKS:
@@ -906,12 +963,58 @@ def phase_service(state: dict) -> None:
             _serve_and_query(label, {**base, **env}, variant, provider, questions, expected)
             for label, env, variant in SERVICE_STORES
         ]
+    state["default_config_ingest"] = _ingest_default_config(provider, texts[:60])
     state["service"] = runs
     launches: dict[str, int] = {}
     for run in runs:
         for name, count in run["launches"].items():
             launches[name] = launches.get(name, 0) + count
     state["launches"] = launches
+
+
+def _ingest_default_config(provider, texts: list[str]) -> dict:
+    """The port's native analyzer is built and serves ``tokenize``; then a
+    service on a fresh store with ``LLM_PROVIDER`` unset and no Gemini key
+    (and no Ollama on this machine) answers ``POST /ingest`` through the
+    heuristic analyzer, and ``/search`` finds the document."""
+    from intool_rag_tpu_torch import config, native
+    from intool_rag_tpu_torch.index.analyzer import tokenize
+    from intool_rag_tpu_torch.llm.semantic import factory
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    if not native.native_available():
+        raise AssertionError("the port's native analyzer did not build (g++ missing or failed)")
+    terms = tokenize("€uro price 5€")
+    log(f"phase 3: native analyzer {native.library_path().name} serves tokenize: '€uro price 5€' -> {terms}")
+    if terms != ["€uro", "price", "5€"]:
+        raise AssertionError(f"tokenize went around the native analyzer: {terms}")
+    for name in ("LLM_PROVIDER", "GEMINI_API_KEY"):
+        os.environ.pop(name, None)
+    pages = ["\n\n".join(texts[i : i + 6]) for i in range(0, len(texts), 6)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_default_") as tmp:
+        os.environ.update({"STORAGE_DIR": tmp, "INDEX_KIND": "flat", "INDEX_DTYPE": "bfloat16", "DENSE_INT8": "0",
+                           "DENSE_INT8_RESIDUAL": "0", "IVF_REFINE_K": "0"})
+        config.reset_config()
+        factory.reset_semantic_analyzer()
+        server = ServiceServer(RAGService(provider, device=DEVICE), host="127.0.0.1", port=0)
+        server.start_background()
+        try:
+            t0 = time.perf_counter()
+            out = _upload(server.port, "default", "doc-default", "default.txt", "\f".join(pages).encode())
+            ingest_s = time.perf_counter() - t0
+            analyzer = type(factory.get_semantic_analyzer()).__name__
+            _, hits = _post(server.port, texts[7])
+        finally:
+            server.shutdown()
+    if analyzer != "HeuristicSemanticAnalyzer":
+        raise AssertionError(f"the default configuration chose {analyzer}, not the heuristic analyzer")
+    if out["total_chunks"] < 1 or not hits["hits"] or hits["hits"][0]["doc_id"] != "doc-default":
+        raise AssertionError(f"default-config ingest: {out}, /search {hits['hits'][:1]}")
+    result = {"analyzer": analyzer, "pages": out["total_pages"], "chunks": out["total_chunks"],
+              "ingest_s": ingest_s, "native_library": native.library_path().name}
+    log(f"phase 3 default configuration (LLM_PROVIDER unset, no key, no Ollama): {json.dumps(result)}")
+    return result
 
 
 # ------------------------------------------------------------------ phase 4
@@ -985,8 +1088,9 @@ def phase_scale(state: dict) -> None:
     bm25_arrays = (rows["term_row"], rows["term_hot"], rows["hot_docs"], rows["hot_w"],
                    rows["cold_docs"], rows["cold_w"], idf, rows["term_wmax"])
 
-    corpus = torch.randn((n_pad, DIM), generator=gen, device=dev)
-    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).bfloat16()
+    corpus32 = torch.randn((n_pad, DIM), generator=gen, device=dev)
+    corpus32 /= corpus32.norm(dim=1, keepdim=True)  # the f32 store: a true f32 corpus, 4.1 GB
+    corpus = corpus32.bfloat16()
     c1, c2, cs = quantize_int8_residual(corpus)
 
     encoder = TextEncoder(EncoderConfig.bge_m3(), device=dev).init_random(gen)
@@ -1006,23 +1110,28 @@ def phase_scale(state: dict) -> None:
              "rotations": [(qterms + 31 * i) % VOCAB for i in range(4)], "paths": {
                  "K2 int8r": ((c1, cs, c2), dict(kind="fused_int8")),
                  "K1 bf16 precise": ((corpus,), dict(kind="fused", precise=True)),
+                 "K1 f32": ((corpus32,), dict(kind="fused", precise=False)),  # INDEX_DTYPE=float32
              }}
     paths = list(batch["paths"])
 
-    # exact hybrid oracle on ORACLE_Q queries: exact f32-accumulated dense
+    # exact hybrid oracle on ORACLE_Q queries, per stored corpus (the bf16
+    # one and its int8 mirror, the f32 one): exact f32-accumulated dense
     # top-k + exact f32 rescore, exact BM25, the same fusion
     qo, qto = q_emb[:ORACLE_Q], qterms[:ORACLE_Q]
-    d_vals, d_rows = flat_topk(qo, corpus, CANDIDATES, metric="cosine", block_n=100_000, valid_n=n)
-    d_vals = rescore_candidates(qo, corpus, d_rows, metric="cosine")
     s_vals, s_rows = bm25_topk_sorted(qto, qtf[:ORACLE_Q], ts, tl, pd, pw, idf, CANDIDATES,
                                       n_docs=n, p_max=P_MAX)
-    _, oracle = _fuse(d_vals, d_rows, s_vals, s_rows, TOP_K, fusion_mode="weighted", rrf_k=60,
-                      w_dense=0.7, w_sparse=0.3)
-    oracle = oracle.cpu().numpy()
+    oracles = {}
+    for label, stored in (("bf16", corpus), ("f32", corpus32)):
+        d_vals, d_rows = flat_topk(qo, stored, CANDIDATES, metric="cosine", block_n=100_000, valid_n=n)
+        d_vals = rescore_candidates(qo, stored, d_rows, metric="cosine")
+        _, oracle = _fuse(d_vals, d_rows, s_vals, s_rows, TOP_K, fusion_mode="weighted", rrf_k=60,
+                          w_dense=0.7, w_sparse=0.3)
+        oracles[label] = oracle.cpu().numpy()
 
     results = {}
     state["launches_scale"] = {}
     for name in paths:
+        oracle = oracles["f32" if name == "K1 f32" else "bf16"]
         _reset_launches()
         _, fast = _hybrid(batch, name, qterms)
         fast = fast[:ORACLE_Q].cpu().numpy()
@@ -1044,6 +1153,7 @@ def phase_scale(state: dict) -> None:
     stage = {
         "K2 int8r": lambda: ff.partial_topk_int8(q1, q2, c1, c2, cs, 32, n),
         "K1 bf16 precise": lambda: ff.partial_topk(q_hi, q_lo, corpus, 32, n),
+        "K1 f32": lambda: ff.partial_topk(q_emb, None, corpus32, 32, n),
     }
     cand = stage["K2 int8r"]()
 
@@ -1064,7 +1174,7 @@ def phase_scale(state: dict) -> None:
     del cand
     state["scale"] = results
     log(f"phase 4 (1M x d1024, Q 256, k 10 of 100 per side): {json.dumps(results)}")
-    state["kernels"] = _kernel_table(state, q_emb, corpus, c1, c2, cs, n)
+    state["kernels"] = _kernel_table(state, q_emb, corpus, corpus32, c1, c2, cs, n)
     # main() measures the batch's busy share after the last phase; where
     # phases follow this one, the batch waits for it in host memory
     state["scale_batch"] = batch if state["phases"][-1] == 4 else _moved(batch, "cpu")
@@ -1145,12 +1255,17 @@ def _k12_timing(name, args, g, valid_n, wall=False) -> dict:
     product-only time (``torch.mm`` / ``torch._int_mm`` per product over the
     rows below valid_n), all device times; with ``wall``, also the host side
     and wall time per call of both, and the host side of the C entry alone."""
+    extra = {}
     if name.startswith("K1"):
         a_hi, a_lo, c = args
         products = [(a, c[:valid_n].T) for a in (a_hi, a_lo) if a is not None]
-        dtype = "f32" if c.dtype == torch.float32 else "bf16"  # bf16 and f16 share one peak
-        bound = _bound(a_hi.shape[0], valid_n, c.shape[1], len(products), c.element_size(), len(products), 1,
-                       H100_PEAK[dtype], c.shape[0] // g)
+        if c.dtype == torch.float32:  # three tf32 products on the tensor cores; the f32-FMA bound beside
+            bound = _bound(a_hi.shape[0], valid_n, c.shape[1], 3, 4, 1, 1, H100_PEAK["tf32"], c.shape[0] // g)
+            extra["fma_bound_ms"] = _bound(a_hi.shape[0], valid_n, c.shape[1], 1, 4, 1, 1, H100_PEAK["f32"],
+                                           c.shape[0] // g)[0]
+        else:  # bf16 and f16 share one peak
+            bound = _bound(a_hi.shape[0], valid_n, c.shape[1], len(products), c.element_size(), len(products), 1,
+                           H100_PEAK["bf16"], c.shape[0] // g)
         library = lambda: [torch.mm(a, b) for a, b in products]
     else:
         a1, a2, b1, b2, _ = args
@@ -1164,7 +1279,7 @@ def _k12_timing(name, args, g, valid_n, wall=False) -> dict:
                            for a, b in products]
     kernel = lambda: _kernel(name, args, g, valid_n)
     ms = cuda_ms(kernel)
-    out = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1], "bound_share": bound[0] / ms,
+    out = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1], "bound_share": bound[0] / ms, **extra,
            "library_ms": cuda_ms(library, iters=5, warmup=1)}
     if wall:
         (host, wall_), (lib_host, lib_wall) = host_wall_ms(kernel), host_wall_ms(library)
@@ -1180,6 +1295,8 @@ def _c_entry(name, args, g, valid_n):
     from intool_rag_tpu_torch.ops import flat_fused as ff
 
     q1, q2, c1, c2, scale = (*args[:2], args[2], None, None) if name.startswith("K1") else args
+    if name == "K1 f32":  # the wrapper splits the queries before the C entry
+        q1, q2 = ff.split_query_tf32(q1)
     (q, d), n, dev = q1.shape, c1.shape[0], c1.device
     n_sm = ff._sm_count(dev)
     width, splits = ff.plan_launch(q, n, d, g, n_sm, name)
@@ -1192,19 +1309,21 @@ def _c_entry(name, args, g, valid_n):
     ptrs = [ff._ptr(t) for t in (c1, c2, q1, q2, scale)]
     out = [ff._ptr(t) for t in (vals, idx, part_vals, part_j, arrivals)]
     lib = ff._lib()
-    return lambda: lib.flat_partial_topk(ff._KINDS[name][0], *ptrs, q, n, d, g, valid_n, width, splits, n_sm,
-                                         *out, stream)
+    args = (ff._KINDS[name][0], *ptrs, q, n, d, g, valid_n, width, splits, n_sm, *out, stream)
+    ff._check_rc(lib.flat_partial_topk(*args), f"{name} C entry")
+    return lambda: lib.flat_partial_topk(*args)
 
 
-def _kernel_table(state, q_emb, corpus, c1, c2, cs, n) -> list[dict]:
+def _kernel_table(state, q_emb, corpus, c32, c1, c2, cs, n) -> list[dict]:
     """Every kernel variant at the phase-4 shape: the kernel checked against
     its plain version on the same inputs, both timed, the product-only
-    library time, the bound, and the launches of the main-path runs. The
-    tensor-core variants also at the phase-3 service shape."""
+    library time, the bound, and the launches of the main-path runs; K1 f32
+    on the true f32 corpus ``c32``, the others on the bf16 one and its
+    mirrors. Every variant also at the phase-3 service shape."""
     from intool_rag_tpu_torch.ops.quant import quantize_int8_residual
 
     g = 32
-    c32, ch = corpus.float(), corpus.half()
+    ch = corpus.half()
     errs = state.get("max_abs_err", {})
     src = "intool_rag_tpu_torch/kernels/flat_partial_topk.cu"
     replaces = {"K1": "intool_rag_tpu/ops/flat_pallas.py:96", "K2": "intool_rag_tpu/ops/flat_pallas.py:136"}
@@ -1228,10 +1347,11 @@ def _kernel_table(state, q_emb, corpus, c1, c2, cs, n) -> list[dict]:
             "max_abs_err": max(err, errs.get(name, 0.0)),
             **_k12_timing(name, args, g, n), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
         }
-        if name != "K1 f32":
-            at = _k12_timing(name, service[name], sg, s_valid, wall=True)
-            entry["service_shape"] = f"Q {sq}, N {sn:,}, valid_n {s_valid:,}, D {sd}, group_l {sg}"
-            entry.update({f"service_{key}": value for key, value in at.items()})
+        if name in ("K1 f32", "K1 bf16 precise"):  # the operation-bound variants, held for a second
+            entry["sustained_1s"] = clocks_under_load(kernel, entry["ms"])
+        at = _k12_timing(name, service[name], sg, s_valid, wall=True)
+        entry["service_shape"] = f"Q {sq}, N {sn:,}, valid_n {s_valid:,}, D {sd}, group_l {sg}"
+        entry.update({f"service_{key}": value for key, value in at.items()})
         torch.cuda.empty_cache()
         rows.append(entry)
         log(f"kernel {json.dumps(entry)}")

@@ -39,8 +39,17 @@ def _field(fn):
 class Config:
     """Runtime configuration; every field has an env-var override."""
 
+    # --- Providers ---
+    GEMINI_API_KEY: str = _field(lambda: _env_str("GEMINI_API_KEY", ""))
+
     # --- Embedding ---
+    # "" / "cuda" (the JAX package's "tpu"; both names work) / "hf": the
+    # encoder; "hash", "ollama", "gemini"
+    EMBEDDING_PROVIDER: str = _field(lambda: _env_str("EMBEDDING_PROVIDER", ""))
     EMBEDDING_MODEL: str = _field(lambda: _env_str("EMBEDDING_MODEL", "BAAI/bge-m3"))
+    # encoder size when no weights are given: auto (bge_m3 on the card,
+    # tiny on the CPU), bge_m3, small or tiny
+    EMBEDDING_PRESET: str = _field(lambda: _env_str("EMBEDDING_PRESET", "auto"))
     EMBEDDING_BATCH_SIZE: int = _field(lambda: _env_int("EMBEDDING_BATCH_SIZE", 64))
     EMBEDDING_CHECKPOINT: str = _field(lambda: _env_str("EMBEDDING_CHECKPOINT", ""))
     EMBEDDING_QUERY_INSTRUCTION: str = _field(
@@ -53,8 +62,19 @@ class Config:
         lambda: _env_str("EMBEDDING_PASSAGE_INSTRUCTION", "")
     )
 
-    # --- Semantic analysis at ingest ---
+    # --- LLM (semantic analysis at ingest) ---
     LLM_PROVIDER: str = _field(lambda: _env_str("LLM_PROVIDER", ""))
+    LLM_MODEL: str = _field(lambda: _env_str("LLM_MODEL", "qwen2.5:7b-instruct-q4_K_M"))
+    LLM_TEMPERATURE: float = _field(lambda: _env_float("LLM_TEMPERATURE", 0.3))
+    LLM_MAX_TOKENS: int = _field(lambda: _env_int("LLM_MAX_TOKENS", 512))
+    LLM_BASE_URL: str = _field(lambda: _env_str("LLM_BASE_URL", "http://localhost:11434"))
+
+    # --- HTTP to providers (providers/http_utils.py) ---
+    HTTP_MAX_RETRIES: int = _field(lambda: _env_int("HTTP_MAX_RETRIES", 3))
+    HTTP_RETRY_DELAY: float = _field(lambda: _env_float("HTTP_RETRY_DELAY", 2.0))
+    HTTP_CONNECT_TIMEOUT: float = _field(lambda: _env_float("HTTP_CONNECT_TIMEOUT", 10.0))
+    HTTP_READ_TIMEOUT: float = _field(lambda: _env_float("HTTP_READ_TIMEOUT", 120.0))
+    HTTP_WRITE_TIMEOUT: float = _field(lambda: _env_float("HTTP_WRITE_TIMEOUT", 10.0))
 
     # --- Reranker ---
     RERANKER_MODEL: str = _field(lambda: _env_str("RERANKER_MODEL", "BAAI/bge-reranker-v2-m3"))

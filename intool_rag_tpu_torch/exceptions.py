@@ -5,6 +5,26 @@ class RAGError(Exception):
     """Root of the framework's exception tree."""
 
 
+class ProviderError(RAGError):
+    pass
+
+
+class EmbeddingProviderError(ProviderError):
+    pass
+
+
+class LLMProviderError(ProviderError):
+    pass
+
+
+class ProviderConnectionError(ProviderError):
+    pass
+
+
+class ProviderTimeoutError(ProviderError):
+    pass
+
+
 class VectorStoreError(RAGError):
     pass
 

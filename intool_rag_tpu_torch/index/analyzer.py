@@ -1,16 +1,21 @@
 """Text analyzer for sparse (BM25) indexing (port of
-``intool_rag_tpu/index/analyzer.py``, pure-Python path).
+``intool_rag_tpu/index/analyzer.py``).
 
 Lowercases and NFKC-normalizes, splits on non-word boundaries, turns CJK
 runs into overlapping bigrams, keeps numbers, drops a small English
-stopword set and 1-character latin tokens. The token stream is the one
-the JAX package's native and Python analyzers produce.
+stopword set and 1-character latin tokens. :func:`tokenize` goes through
+the native C++ analyzer (``native/``) when it builds, as the JAX package's
+does, and through :func:`tokenize_py` otherwise. The two differ on
+symbols: the native analyzer keeps ``€`` inside ``5€``.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 import unicodedata
+
+logger = logging.getLogger(__name__)
 
 _STOPWORDS = frozenset(
     """a an and are as at be but by for from has have if in into is it its of on
@@ -80,8 +85,28 @@ def fold(text: str) -> str:
     return text
 
 
+_native_tok = None
+_native_checked = False
+
+
 def tokenize(text: str) -> list[str]:
-    """Analyze text into BM25 terms."""
+    """Analyze text into BM25 terms: the native analyzer's token stream
+    where its library builds, else :func:`tokenize_py`'s. Which path serves
+    is logged once."""
+    global _native_tok, _native_checked
+    if not _native_checked:
+        from ..native import tokenize_native
+
+        _native_tok = tokenize_native if tokenize_native("probe 探针 text") is not None else None
+        _native_checked = True
+        logger.info("BM25 analyzer: %s", "native C++ library" if _native_tok else "Python (no native library)")
+    if _native_tok is not None:
+        return _native_tok(text)
+    return tokenize_py(text)
+
+
+def tokenize_py(text: str) -> list[str]:
+    """Pure-Python analyzer, the path where the native library is missing."""
     text = fold(text)
     terms: list[str] = []
     for token in _TOKEN_RE.findall(text):

@@ -134,7 +134,13 @@ class BM25Index:
     @staticmethod
     def _count_terms(texts: list[str]):
         """→ (vocab list sorted, df [V], doc_indptr [n+1], pair_terms [nnz],
-        pair_counts [nnz], doc_len [n])"""
+        pair_counts [nnz], doc_len [n]); natively where the analyzer library
+        builds, else in Python over :func:`tokenize`."""
+        from ..native import build_corpus_native
+
+        native = build_corpus_native(texts)
+        if native is not None:
+            return native
         vocab_map: dict[str, int] = {}
         terms_list: list[str] = []
         pair_terms: list[int] = []

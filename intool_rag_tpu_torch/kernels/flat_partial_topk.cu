@@ -1,7 +1,8 @@
 // Fused flat-search score + grouped partial max (the dense stage of /search).
 //
 // Replaces the two Pallas TPU kernels of intool_rag_tpu/ops/flat_pallas.py:
-//   _partial_topk_kernel       (K1: bf16/f32 corpus, optional split-query q_lo pass)
+//   _partial_topk_kernel       (K1: bf16/f32 corpus, optional split-query q_lo pass;
+//                               f32 at precision=HIGHEST)
 //   _partial_topk_kernel_int8  (K2: int8 corpus, optional q2 and residual-plane c2 passes)
 // and their shared epilogue _reduce_block. K1 also takes a float16 corpus.
 //
@@ -14,8 +15,8 @@
 //
 // What bounds it on an H100: at the service's batches (Q 8-16) the corpus
 // bytes (one pass over the store); at Q 256 the tensor-core operations of the
-// 1-3 products per corpus row (bf16 precise, int8+q2, int8r) or both about
-// equally (bf16, int8). The TPU kernel reads every query in one grid step and
+// 1-3 products per corpus row (bf16 precise, int8+q2, int8r, f32's three
+// tf32 products) or both about equally (bf16, int8). The TPU kernel reads every query in one grid step and
 // so streams the corpus once. What keeps this design under its bound: at Q 256
 // each query tile is read again from L2 for every 128-row corpus tile (a
 // 128 x 128 output tile is what the registers hold beside the running max);
@@ -54,8 +55,17 @@
 //    SM count, the group_l tiles of a block are split across items; each
 //    writes its partial (best, j) to scratch and the last one to arrive
 //    merges them in split order, so a tie keeps the smaller j.
-//  * f32 (INDEX_DTYPE=float32) keeps a CUDA-core FMA kernel, so its products
-//    stay full precision as the TPU kernel's HIGHEST-precision dot does.
+//  * f32 (INDEX_DTYPE=float32) runs 3xTF32 on the tensor cores, where the
+//    TPU kernel's HIGHEST-precision dot runs several bf16 passes. Each
+//    operand splits as x = hi + lo, hi = x with its low 13 mantissa bits
+//    cleared (a tf32 value) and lo = x - hi (exact). The queries come split
+//    (q_hi, q_lo: two B planes, ops/flat_fused.py::split_query_tf32); the
+//    corpus stays one f32 plane in device memory, and each consumer
+//    warpgroup splits its 64 rows of a landed stage in shared memory (hi in
+//    place, lo into the stage's second A plane) before its wgmma reads them.
+//    Three m64nNk8 tf32 products go into one f32 accumulator:
+//    c_hi.q_hi + c_hi.q_lo + c_lo.q_hi. The dropped c_lo.q_lo and the tf32
+//    reading of lo leave about 2^-20 |q||c| per score.
 //
 // K2's float order is the TPU kernel's, f32(q1.c1) [+ f32(q2.c1)/128]
 // [+ f32(q1.c2)/128], times the row scale, on exact int32 products: it is
@@ -92,19 +102,22 @@ constexpr int CONSUMER_REGS = 232;
 constexpr int RING_BYTES = 200 * 1024;
 constexpr int MAX_STAGES = 8;
 
-enum Kind { BF16 = 0, BF16_PRECISE, F16, I8, I8_Q2, I8_C2, I8R };
+enum Kind { BF16 = 0, BF16_PRECISE, F16, I8, I8_Q2, I8_C2, I8R, F32 };
 
 template <int KIND>
 struct Variant {
-  static constexpr bool INT8 = KIND >= I8;
-  static constexpr bool LO = KIND == BF16_PRECISE;          // q_lo: a second B tile
+  static constexpr bool INT8 = KIND >= I8 && KIND <= I8R;
+  static constexpr bool TF32 = KIND == F32;                  // 3xTF32: corpus lo formed in shared memory
+  static constexpr bool LO = KIND == BF16_PRECISE || TF32;  // q_lo: a second B tile
   static constexpr bool Q2 = KIND == I8_Q2 || KIND == I8R;  // q2 stacked below q1 along N
   static constexpr bool C2 = KIND == I8_C2 || KIND == I8R;  // residual plane: a second A tile
-  static constexpr int A_PLANES = C2 ? 2 : 1;
+  static constexpr int A_PLANES = (C2 || TF32) ? 2 : 1;
+  static constexpr int A_LOADED = C2 ? 2 : 1;                // A planes that TMA fills
   static constexpr int B_PLANES = (LO || Q2) ? 2 : 1;
   // widest query tile whose accumulators, running max and j fit in registers
   static constexpr int MAX_NQ = (Q2 || C2) ? 64 : 128;
-  using T = std::conditional_t<INT8, int8_t, std::conditional_t<KIND == F16, __half, __nv_bfloat16>>;
+  using T = std::conditional_t<INT8, int8_t,
+                               std::conditional_t<TF32, float, std::conditional_t<KIND == F16, __half, __nv_bfloat16>>>;
   using Acc = std::conditional_t<INT8, int32_t, float>;
   static constexpr int K_ELEMS = CHUNK / (int)sizeof(T);
 };
@@ -117,6 +130,7 @@ template <int KIND, int NQ>
 struct Ring {
   static constexpr int B_TILE = NQ * CHUNK;
   static constexpr int STAGE = Variant<KIND>::A_PLANES * A_TILE + Variant<KIND>::B_PLANES * B_TILE;
+  static constexpr int TX = Variant<KIND>::A_LOADED * A_TILE + Variant<KIND>::B_PLANES * B_TILE;  // bytes TMA lands
   static constexpr int STAGES = ring_stages(STAGE);
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + slack to align the ring to 1,024 bytes
 };
@@ -143,6 +157,33 @@ __device__ __forceinline__ uint32_t set_byte(uint32_t word, int k, uint32_t valu
 __device__ __forceinline__ int live_tiles(long long b, long long block_n, int valid_n, int group_l) {
   const long long rows = valid_n - b * block_n;
   return rows <= 0 ? 0 : rows >= block_n ? group_l : (int)((rows + LW - 1) / LW);
+}
+
+// 3xTF32: a consumer warpgroup splits its 64 rows of a landed f32 corpus
+// stage, hi (low 13 mantissa bits cleared) in place and lo = x - hi into
+// the stage's second A plane at the same offset, so both keep the TMA
+// swizzle. Then it makes the stores visible to wgmma (the async proxy) and
+// waits for its 128 threads.
+__device__ __forceinline__ void split_tf32_rows(uint8_t* hi, uint8_t* lo, int t, int wg) {
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int i = 0; i < A_TILE / 2 / 16 / 128; ++i) {
+    const float4 x = h4[t + 128 * i];
+    float4 h, l;
+    h.x = __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
+    h.y = __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
+    h.z = __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
+    h.w = __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
+    l.x = x.x - h.x;
+    l.y = x.y - h.y;
+    l.z = x.z - h.z;
+    l.w = x.w - h.w;
+    h4[t + 128 * i] = h;
+    l4[t + 128 * i] = l;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
 // A work item is one (query tile, split, block); item -> (qt, split, b) puts
@@ -201,7 +242,7 @@ partial_topk_kernel(const __grid_constant__ CUtensorMap map_c1, const __grid_con
             uint8_t* st = ring + stage * R::STAGE;
             uint8_t* bt = st + V::A_PLANES * A_TILE;
             const int x = kc * V::K_ELEMS;
-            mbar_expect_tx(&full[stage], R::STAGE);
+            mbar_expect_tx(&full[stage], R::TX);
             tma_load_2d(st, &map_c1, &full[stage], x, row0);
             if constexpr (V::C2) tma_load_2d(st + A_TILE, &map_c2, &full[stage], x, row0);
             tma_load_2d(bt, &map_q1, &full[stage], x, it.qt * NQ);
@@ -249,7 +290,9 @@ partial_topk_kernel(const __grid_constant__ CUtensorMap map_c1, const __grid_con
       int prev = -1;
       for (int kc = 0; kc < nk; ++kc) {
         mbar_wait(&full[stage], phase);
-        const uint8_t* st = ring + stage * R::STAGE;
+        uint8_t* st = ring + stage * R::STAGE;
+        if constexpr (V::TF32) split_tf32_rows(st + wg * (A_TILE / 2), st + A_TILE + wg * (A_TILE / 2),
+                                               threadIdx.x % 128, wg);
         const uint64_t da1 = desc_sw128(st + wg * (A_TILE / 2));
         const uint64_t da2 = desc_sw128(st + A_TILE + wg * (A_TILE / 2));
         const uint64_t db1 = desc_sw128(st + V::A_PLANES * A_TILE);
@@ -258,11 +301,15 @@ partial_topk_kernel(const __grid_constant__ CUtensorMap map_c1, const __grid_con
         fence_regs(acc2);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < CHUNK / 32; ++kk) {  // 32 bytes of K per wgmma: k16 bf16/f16, k32 int8
+        for (int kk = 0; kk < CHUNK / 32; ++kk) {  // 32 bytes of K per wgmma: k16 bf16/f16, k8 tf32, k32 int8
           const int add = kc > 0 || kk > 0;
           if constexpr (V::INT8) {
             mma<int8_t, V::Q2 ? 2 * NQ : NQ>(acc, da1 + 2 * kk, db1 + 2 * kk, add);
             if constexpr (V::C2) mma<int8_t, NQ>(acc2, da2 + 2 * kk, db1 + 2 * kk, add);
+          } else if constexpr (V::TF32) {  // c_hi.q_hi + c_hi.q_lo + c_lo.q_hi
+            mma<float, NQ>(acc, da1 + 2 * kk, db1 + 2 * kk, add);
+            mma<float, NQ>(acc, da1 + 2 * kk, db2 + 2 * kk, 1);
+            mma<float, NQ>(acc, da2 + 2 * kk, db1 + 2 * kk, 1);
           } else {
             mma<typename V::T, NQ>(acc, da1 + 2 * kk, db1 + 2 * kk, add);
             if constexpr (V::LO) mma<typename V::T, NQ>(acc, da1 + 2 * kk, db2 + 2 * kk, 1);
@@ -428,6 +475,7 @@ int launch(const Operands& op, const Params& p, cudaStream_t stream) {
       partial_topk_kernel<KIND, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const CUtensorMapDataType type = V::INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : V::TF32  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                    : KIND == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const int elem = (int)sizeof(typename V::T);
@@ -464,95 +512,11 @@ int smem_width(int width) {
     case 16: return Ring<KIND, 16>::SMEM;
     case 32: return Ring<KIND, 32>::SMEM;
     case 64: return Ring<KIND, 64>::SMEM;
-    case 128: return Variant<KIND>::MAX_NQ >= 128 ? Ring<KIND, 128>::SMEM : -1;
+    case 128:
+      if constexpr (Variant<KIND>::MAX_NQ >= 128) return Ring<KIND, 128>::SMEM;
+      break;
   }
   return -1;
-}
-
-// ---------------------------------------------------------------- f32 (K1, INDEX_DTYPE=float32)
-
-// CUDA-core FMA: each thread owns a fixed 8 x 4 set of (query, lane) scores
-// for every tile j, so the running max needs no shared memory.
-constexpr int F_BQ = 64;        // query rows per CTA
-constexpr int F_THREADS = 256;  // lanes tx + 32c, query rows ty + 8r
-constexpr int F_KT = 32;
-__global__ void __launch_bounds__(F_THREADS)
-partial_topk_f32_kernel(const float* __restrict__ qf, const float* __restrict__ corpus, int Q, int D,
-                        int group_l, int valid_n, float* __restrict__ vals, int* __restrict__ idx) {
-  __shared__ float a_s[F_KT][F_BQ + 4];
-  __shared__ float b_s[F_KT][LW + 4];
-  const int tx = threadIdx.x % 32;
-  const int ty = threadIdx.x / 32;
-  const int q0 = blockIdx.x * F_BQ;
-  const int b = blockIdx.y;
-  const int block_n = LW * group_l;
-  const long long ncand = (long long)gridDim.y * LW;
-
-  float best[8][4];
-  int bestj[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      best[r][c] = -CUDART_INF_F;
-      bestj[r][c] = 0;
-    }
-  for (int j = 0; j < group_l; ++j) {
-    const long long row0 = (long long)b * block_n + (long long)j * LW;
-    float acc[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    for (int k0 = 0; k0 < D; k0 += F_KT) {
-      __syncthreads();
-      for (int id = threadIdx.x; id < F_BQ * F_KT; id += F_THREADS) {
-        int r = id / F_KT, k = id % F_KT;
-        a_s[k][r] = (q0 + r < Q) ? qf[(long long)(q0 + r) * D + k0 + k] : 0.0f;
-      }
-      for (int id = threadIdx.x; id < LW * F_KT; id += F_THREADS) {
-        int r = id / F_KT, k = id % F_KT;
-        b_s[k][r] = corpus[(row0 + r) * D + k0 + k];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < F_KT; ++k) {
-        float av[8], bv[4];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) av[r] = a_s[k][ty + 8 * r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = b_s[k][tx + 32 * c];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool valid = row0 + tx + 32 * c < valid_n;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        float s = valid ? acc[r][c] : -CUDART_INF_F;
-        if (s > best[r][c]) {
-          best[r][c] = s;
-          bestj[r][c] = j;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    int q = q0 + ty + 8 * r;
-    if (q >= Q) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int lane = tx + 32 * c;
-      long long o = (long long)q * ncand + (long long)b * LW + lane;
-      vals[o] = best[r][c];
-      idx[o] = b * block_n + bestj[r][c] * LW + lane;
-    }
-  }
 }
 
 bool shapes_ok(int Q, int N, int D, int group_l, int d_multiple, int valid_n) {
@@ -564,9 +528,10 @@ bool shapes_ok(int Q, int N, int D, int group_l, int d_multiple, int valid_n) {
 
 extern "C" {
 
-// K1 (kind 0 bf16, 1 bf16 precise, 2 f16) and K2 (kind 3 int8, 4 int8+q2,
-// 5 int8+c2, 6 int8r) on the tensor cores. c1/c2 are the corpus planes
-// [N, D], q1/q2 the query planes [Q, D] (q_hi/q_lo for K1), cscale the K2 row
+// K1 (kind 0 bf16, 1 bf16 precise, 2 f16, 7 f32) and K2 (kind 3 int8,
+// 4 int8+q2, 5 int8+c2, 6 int8r) on the tensor cores. c1/c2 are the corpus
+// planes [N, D], q1/q2 the query planes [Q, D] (q_hi/q_lo for K1 bf16 precise
+// and f32), cscale the K2 row
 // scales. width and splits come from ops/flat_fused.py::plan_launch, n_sm
 // bounds the persistent grid; with splits > 1, part_vals/part_j are
 // [splits, Q, N/group_l] scratch and arrivals [tiles * blocks] zeros, which
@@ -574,7 +539,8 @@ extern "C" {
 int flat_partial_topk(int kind, const void* c1, const void* c2, const void* q1, const void* q2, const void* cscale,
                       int Q, int N, int D, int group_l, int valid_n, int width, int splits, int n_sm, void* vals,
                       void* idx, void* part_vals, void* part_j, void* arrivals, void* stream) {
-  if (!shapes_ok(Q, N, D, group_l, kind >= I8 ? 128 : 64, valid_n) || group_l > 128 || splits <= 0 ||
+  const int d_multiple = kind == F32 ? 32 : kind >= I8 ? 128 : 64;  // one 128-byte k-chunk
+  if (!shapes_ok(Q, N, D, group_l, d_multiple, valid_n) || group_l > 128 || splits <= 0 ||
       group_l % splits != 0 || width <= 0 || n_sm <= 0)
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (part_vals == nullptr || part_j == nullptr || arrivals == nullptr))
@@ -594,6 +560,7 @@ int flat_partial_topk(int kind, const void* c1, const void* c2, const void* q1, 
     case I8_Q2: return launch_width<I8_Q2>(width, op, p, s);
     case I8_C2: return launch_width<I8_C2>(width, op, p, s);
     case I8R: return launch_width<I8R>(width, op, p, s);
+    case F32: return launch_width<F32>(width, op, p, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -608,17 +575,9 @@ int flat_partial_topk_smem(int kind, int width) {
     case I8_Q2: return smem_width<I8_Q2>(width);
     case I8_C2: return smem_width<I8_C2>(width);
     case I8R: return smem_width<I8R>(width);
+    case F32: return smem_width<F32>(width);
   }
   return -1;
-}
-
-int flat_partial_topk_f32(const void* q, const void* corpus, int Q, int N, int D, int group_l, int valid_n,
-                          void* vals, void* idx, void* stream) {
-  if (!shapes_ok(Q, N, D, group_l, F_KT, valid_n)) return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + F_BQ - 1) / F_BQ, N / (LW * group_l));
-  partial_topk_f32_kernel<<<grid, F_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)corpus, Q, D, group_l, valid_n, (float*)vals, (int*)idx);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,2 +1,3 @@
 """Capability interfaces and env-driven factories (the part of
-``intool_rag_tpu/llm/`` the port serves: the semantic analyzer)."""
+``intool_rag_tpu/llm/`` the port serves: ``BaseLLM``, the embedding
+provider factory and the semantic analyzer)."""

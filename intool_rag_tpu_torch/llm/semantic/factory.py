@@ -1,19 +1,21 @@
 """Semantic analyzer factory (port of
-``intool_rag_tpu/llm/semantic/factory.py``), chosen by ``LLM_PROVIDER``.
-
-The port serves the heuristic analyzer, which is what the JAX package
-serves offline. The Gemini and Ollama analyzers are not ported yet (ROADMAP
-Queue A item 8): asking for one raises rather than quietly falling to the
-heuristic analyzer, so a store's trees never come from another analyzer
-than the one configured.
+``intool_rag_tpu/llm/semantic/factory.py``), chosen by ``LLM_PROVIDER``:
+``fake`` or ``heuristic`` select the heuristic analyzer; otherwise Gemini
+when ``GEMINI_API_KEY`` is set, else Ollama when its server answers, else
+the heuristic analyzer with a warning. The default configuration (no
+provider, no key, no Ollama) thus ingests through the heuristic analyzer,
+as the JAX package's does. It runs on the host and touches no device.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 
 from ...config import get_config
 from .base import SemanticAnalyzer
+
+logger = logging.getLogger(__name__)
 
 _analyzer: SemanticAnalyzer | None = None
 _lock = threading.Lock()
@@ -26,10 +28,19 @@ def _build() -> SemanticAnalyzer:
         from ...providers.heuristic_semantic import HeuristicSemanticAnalyzer
 
         return HeuristicSemanticAnalyzer()
-    raise NotImplementedError(
-        f"LLM_PROVIDER={cfg.LLM_PROVIDER!r} selects the Gemini or the Ollama semantic analyzer, "
-        "which the port does not have yet (ROADMAP Queue A item 8); set LLM_PROVIDER=heuristic"
-    )
+    if cfg.GEMINI_API_KEY:
+        from ...providers.gemini import GeminiSemanticAnalyzer
+
+        return GeminiSemanticAnalyzer()
+    from ...providers.ollama import OllamaLLM, OllamaSemanticAnalyzer
+
+    llm = OllamaLLM()
+    if llm.is_ready():
+        return OllamaSemanticAnalyzer(llm)
+    from ...providers.heuristic_semantic import HeuristicSemanticAnalyzer
+
+    logger.warning("no LLM reachable: using the heuristic structure analyzer")
+    return HeuristicSemanticAnalyzer()
 
 
 def get_semantic_analyzer() -> SemanticAnalyzer:

@@ -36,6 +36,7 @@ TILE_WIDTHS = (8, 16, 32, 64, 128)
 _KINDS = {
     "K1 bf16": (0, 128), "K1 bf16 precise": (1, 128), "K1 f16": (2, 128),
     "K2 int8": (3, 128), "K2 int8+q2": (4, 64), "K2 int8+c2": (5, 64), "K2 int8r": (6, 64),
+    "K1 f32": (7, 128),
 }
 MAX_GROUP_L = 128  # the kernels keep j in one byte
 
@@ -80,6 +81,12 @@ def _check_layout(corpus: torch.Tensor, group_l: int, valid_n: int, d_multiple: 
         raise ValueError(f"valid_n={valid_n} outside [0, {n}]")
 
 
+def _d_multiple(variant: str) -> int:
+    """Elements in one 128-byte k-chunk of the variant's operands: D must
+    be a multiple of it."""
+    return 128 if variant.startswith("K2") else 32 if variant == "K1 f32" else 64
+
+
 def plan_launch(q: int, n: int, d: int, group_l: int, n_sm: int, variant: str) -> tuple[int, int]:
     """``(width, splits)`` of a tensor-core K1/K2 launch: the query-tile
     width (the smallest of :data:`TILE_WIDTHS` that holds all ``q`` queries,
@@ -91,7 +98,7 @@ def plan_launch(q: int, n: int, d: int, group_l: int, n_sm: int, variant: str) -
     refuses."""
     if variant not in _KINDS:
         raise ValueError(f"no tensor-core kernel for {variant!r}")
-    d_multiple = 128 if variant.startswith("K2") else 64
+    d_multiple = _d_multiple(variant)
     if q < 1 or n < 1 or d < 1 or n_sm < 1:
         raise ValueError(f"empty launch: Q {q}, N {n}, D {d}, {n_sm} SMs")
     if not 1 <= group_l <= MAX_GROUP_L:
@@ -161,8 +168,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flat_partial_topk.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
         lib.flat_partial_topk_smem.argtypes = [i, i]
-        lib.flat_partial_topk_f32.argtypes = [p, p, i, i, i, i, i, p, p, p]
-        for fn in (lib.flat_partial_topk, lib.flat_partial_topk_smem, lib.flat_partial_topk_f32):
+        for fn in (lib.flat_partial_topk, lib.flat_partial_topk_smem):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -254,19 +260,12 @@ def partial_topk(q_hi, q_lo, corpus, group_l: int, valid_n: int):
         raise ValueError("the split-query pass (q_lo) takes a bfloat16 corpus only")
     dev = _cuda_operands((q_hi, q_lo, corpus), corpus.dtype, d)
     if corpus.dtype == torch.float32:
-        q = q_hi.shape[0]
-        m = n // group_l
-        vals = torch.empty((q, m), dtype=torch.float32, device=dev)
-        idx = torch.empty((q, m), dtype=torch.int32, device=dev)
-        rc = _lib().flat_partial_topk_f32(
-            _ptr(q_hi), _ptr(corpus), q, n, d, group_l, valid_n, _ptr(vals), _ptr(idx),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
         variant = "K1 f32"
+        q_hi, q_lo = split_query_tf32(q_hi)
     else:
         variant = "K1 f16" if corpus.dtype == torch.float16 else (
             "K1 bf16" if q_lo is None else "K1 bf16 precise")
-        rc, vals, idx = _launch_tensor_cores(variant, corpus, None, q_hi, q_lo, None, group_l, valid_n, dev)
+    rc, vals, idx = _launch_tensor_cores(variant, corpus, None, q_hi, q_lo, None, group_l, valid_n, dev)
     partial_topk.launches.add(variant)
     _check_rc(rc, "partial_topk")
     return vals, idx
@@ -305,6 +304,19 @@ def split_query_bf16(queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     q_hi = qf.to(torch.bfloat16)
     q_lo = (qf - q_hi.float()).to(torch.bfloat16)
     return q_hi.contiguous(), q_lo.contiguous()
+
+
+TF32_HI_MASK = -8192  # 0xFFFFE000 as int32: keeps sign, exponent and 10 mantissa bits
+
+
+def split_query_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` exactly for f32 ``x``: ``hi`` is ``x`` with its low 13
+    mantissa bits cleared (a tf32 value), ``lo = x − hi``. K1 f32's 3xTF32
+    products take the queries split this way and split the corpus the same
+    way in shared memory."""
+    x = x.float().contiguous()
+    hi = (x.view(torch.int32) & TF32_HI_MASK).view(torch.float32)
+    return hi, x - hi
 
 
 def split_query_int8(queries: torch.Tensor):

@@ -1,19 +1,21 @@
 """Embedding provider: batched encoder inference on the GPU (port of
-``intool_rag_tpu/providers/tpu_embed.py`` and
-``providers/base.py::instruction_prefix``).
+``intool_rag_tpu/providers/tpu_embed.py``).
 
 Batches pad to the same (batch, sequence) buckets as the JAX provider, or,
 with ``EMBED_PACKED=1``, pack several texts into each fixed-width row
 behind block-diagonal attention (``models/packing.py``;
 ``EMBED_PACK_WIDTH`` sets the row width, default 512). Rows of 1,024 tokens
 and more, packed or padded, take the encoder's flash-attention route.
-Weights are explicit: an encoder passed in, or the checkpoint named by the
-``checkpoint`` argument or ``EMBEDDING_CHECKPOINT``. A missing checkpoint
-raises; there is no silent random fallback.
+Weights: an encoder passed in, else the checkpoint named by the
+``checkpoint`` argument or ``EMBEDDING_CHECKPOINT`` (a path that does not
+exist raises), else, as in the JAX package, random weights of the
+``EMBEDDING_PRESET`` size, drawn from a seeded ``torch.Generator`` on the
+encoder's device, with a warning.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 
@@ -21,11 +23,16 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from ..models.encoder import TextEncoder, load_encoder
+from ..device import resolve_device
+from ..models.encoder import EncoderConfig, TextEncoder, load_encoder
 from ..models.packing import build_packed_arrays, pack_bins, shrink_width
 from ..models.tokenizer import SimpleTokenizer
+from .base import instruction_prefix
+
+logger = logging.getLogger(__name__)
 
 _SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+RANDOM_INIT_SEED = 0  # the generator of the weights used when none are given
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
@@ -36,10 +43,20 @@ def _bucket(n: int, buckets=_SEQ_BUCKETS) -> int:
     return buckets[-1]
 
 
-def instruction_prefix(is_query: bool) -> str:
-    """Embedding instruction prefix from config."""
-    cfg = get_config()
-    return cfg.EMBEDDING_QUERY_INSTRUCTION if is_query else cfg.EMBEDDING_PASSAGE_INSTRUCTION
+def preset_config(device: torch.device) -> EncoderConfig:
+    """The encoder size of ``EMBEDDING_PRESET`` (``auto``: ``bge_m3`` on the
+    card, ``tiny`` on the CPU, as the JAX provider sizes by its backend)."""
+    preset = get_config().EMBEDDING_PRESET
+    if preset == "auto":
+        preset = "tiny" if device.type == "cpu" else "bge_m3"
+    if preset == "bge_m3":
+        return EncoderConfig.bge_m3()
+    if preset == "small":
+        return EncoderConfig(vocab_size=32_768, hidden_size=384, num_layers=6, num_heads=6,
+                             intermediate_size=1536, max_position=2050, dtype="bfloat16")
+    if preset == "tiny":
+        return EncoderConfig.tiny()
+    raise ValueError(f"EMBEDDING_PRESET={preset!r}: expected auto, bge_m3, small or tiny")
 
 
 class CudaEmbeddingProvider:
@@ -58,11 +75,15 @@ class CudaEmbeddingProvider:
         self.model_name = model_name or cfg.EMBEDDING_MODEL
         if encoder is None:
             path = checkpoint or cfg.EMBEDDING_CHECKPOINT
-            if not path:
-                raise ValueError(
-                    "no encoder weights: pass an encoder or a checkpoint, or set EMBEDDING_CHECKPOINT"
-                )
-            encoder = load_encoder(path, device=device)
+            if path:
+                encoder = load_encoder(path, device=device)
+            else:
+                dev = resolve_device(device)
+                logger.warning(
+                    "no weights for %s: random parameters from seed %d (embedding quality is a "
+                    "placeholder until a checkpoint is given)", self.model_name, RANDOM_INIT_SEED)
+                encoder = TextEncoder(preset_config(dev), device=dev).init_random(
+                    torch.Generator(device=dev).manual_seed(RANDOM_INIT_SEED))
         self.encoder = encoder.eval()
         self.encoder_config = encoder.config
         self.device = next(encoder.parameters()).device

@@ -1,9 +1,11 @@
 """Threaded stdlib HTTP front end for RAGService (port of
 ``intool_rag_tpu/service/http.py``).
 
-Run: ``python -m intool_rag_tpu_torch.service --checkpoint <encoder.npz>
+Run: ``python -m intool_rag_tpu_torch.service [--checkpoint <encoder.npz>]
 [--port 8001] [--host 0.0.0.0] [--device cuda]``; documents come from
-``STORAGE_DIR``.
+``STORAGE_DIR``. The embedding provider comes from the embedding factory
+(``EMBEDDING_PROVIDER``, ``llm/embeddings/factory.py``), as in the JAX
+service; ``--checkpoint`` sets ``EMBEDDING_CHECKPOINT`` for the encoder.
 """
 
 from __future__ import annotations
@@ -94,8 +96,10 @@ class ServiceServer:
 
 def main() -> None:
     import argparse
+    import os
 
-    from ..providers.cuda_embed import CudaEmbeddingProvider
+    from ..config import reset_config
+    from ..llm.embeddings.factory import get_embedding_provider
 
     parser = argparse.ArgumentParser(description="intool_rag_tpu_torch service")
     parser.add_argument("--host", default=None)
@@ -103,7 +107,10 @@ def main() -> None:
     parser.add_argument("--checkpoint", default=None, help="encoder checkpoint (default EMBEDDING_CHECKPOINT)")
     parser.add_argument("--device", default=None, help="torch device (default cuda)")
     args = parser.parse_args()
-    provider = CudaEmbeddingProvider(checkpoint=args.checkpoint, device=args.device)
+    if args.checkpoint:
+        os.environ["EMBEDDING_CHECKPOINT"] = args.checkpoint
+        reset_config()
+    provider = get_embedding_provider(device=args.device)
     service = RAGService(provider, device=args.device)
     ServiceServer(service, host=args.host, port=args.port).serve_forever()
 

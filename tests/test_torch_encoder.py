@@ -89,13 +89,34 @@ def test_encoder_mid_matches_jax():
     assert np.abs(got - want).max() <= 1e-4
 
 
-def test_missing_checkpoint_raises(tmp_path):
+def test_missing_checkpoint_raises(tmp_path, monkeypatch, caplog):
+    """A checkpoint path that does not exist raises. With no checkpoint at
+    all the provider starts from seeded random weights of the preset size
+    and warns, as the JAX provider does; the same seed gives the same
+    weights."""
+    from intool_rag_tpu_torch import config
     from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
 
     with pytest.raises(FileNotFoundError):
         tenc.load_encoder(tmp_path / "absent.npz", device="cpu")
-    with pytest.raises(ValueError):
-        CudaEmbeddingProvider(checkpoint="", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        CudaEmbeddingProvider(checkpoint=str(tmp_path / "absent.npz"), device="cpu")
+    monkeypatch.delenv("EMBEDDING_CHECKPOINT", raising=False)
+    monkeypatch.setenv("EMBEDDING_PRESET", "auto")
+    config.reset_config()
+    try:
+        with caplog.at_level("WARNING"):
+            provider = CudaEmbeddingProvider(checkpoint="", device="cpu")
+        assert "random parameters" in caplog.text
+        assert provider.encoder_config == tenc.EncoderConfig.tiny()  # auto on the CPU
+        again = CudaEmbeddingProvider(device="cpu")
+        for a, b in zip(provider.encoder.parameters(), again.encoder.parameters()):
+            assert torch.equal(a, b)
+        emb = provider.embed_batch(TEXTS[:2])
+        np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5)
+    finally:
+        monkeypatch.undo()
+        config.reset_config()
 
 
 def test_provider_buckets_and_device_embeddings():

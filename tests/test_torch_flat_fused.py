@@ -93,6 +93,63 @@ def test_k1_float16_matches_pallas(data, group_l):
     assert got_r.max() < VALID_N
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """What a tf32 tensor-core operand keeps of an f32 value: its low 13
+    mantissa bits cleared."""
+    return (x.view(torch.int32) & flat_fused.TF32_HI_MASK).view(torch.float32)
+
+
+def _scores_3xtf32(queries: np.ndarray, corpus: np.ndarray) -> torch.Tensor:
+    """K1 f32's arithmetic emulated on the CPU with integer bit masks:
+    ``c_hi·q_hi + c_hi·q_lo + c_lo·q_hi``, every operand read as tf32,
+    products summed in f32."""
+    q_hi, q_lo = flat_fused.split_query_tf32(torch.from_numpy(queries))
+    c_hi, c_lo = flat_fused.split_query_tf32(torch.from_numpy(corpus))
+    q_hi, q_lo, c_hi, c_lo = map(_tf32, (q_hi, q_lo, c_hi, c_lo))
+    return q_hi @ c_hi.T + q_lo @ c_hi.T + q_hi @ c_lo.T
+
+
+def test_split_query_tf32_is_exact(data):
+    corpus, _ = data
+    x = torch.from_numpy(corpus)
+    hi, lo = flat_fused.split_query_tf32(x)
+    assert torch.equal(hi + lo, x)
+    assert torch.equal(_tf32(hi), hi)  # hi is a tf32 value: nothing below bit 13
+    assert (lo.abs() <= x.abs() * 2.0**-10).all()
+
+
+@pytest.mark.parametrize("group_l", [4, 32])
+@pytest.mark.parametrize("case", ["random", "near_duplicate"])
+def test_k1_f32_3xtf32_matches_pallas(data, case, group_l):
+    """The 3xTF32 products of K1 f32 against the JAX f32 K1 path (Pallas,
+    interpret mode, precision=HIGHEST): values within 1e-4 on unit-norm
+    data, and a row differs only where its exact score lies within 2e-4 of
+    the row JAX picked. Near-duplicate queries (corpus rows plus noise of
+    1e-3, renormalised) score about 1, where a one-sided truncation error
+    would add up."""
+    corpus, queries = data
+    if case == "near_duplicate":
+        rng = np.random.default_rng(3)
+        rows = rng.choice(VALID_N, size=8, replace=False)
+        noisy = corpus[rows] + 1e-3 * rng.standard_normal((8, D)).astype(np.float32)
+        queries = (noisy / np.linalg.norm(noisy, axis=1, keepdims=True)).astype(np.float32)
+    want_v, want_r = flat_topk_pallas(
+        jnp.asarray(queries), jnp.asarray(corpus), K, group_l=group_l, valid_n=VALID_N, interpret=True,
+        tail="fold",
+    )
+    cand = flat_fused._grouped_max(_scores_3xtf32(queries, corpus), group_l, VALID_N)
+    got_v, got_r = flat_fused._candidates_topk(*cand, K, tail="fold")
+    got_v, got_r, want_v, want_r = got_v.numpy(), got_r.numpy(), np.asarray(want_v), np.asarray(want_r)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-4)
+    exact = queries.astype(np.float64) @ corpus.astype(np.float64).T
+    for qi, pos in zip(*np.nonzero(got_r != want_r)):
+        assert abs(exact[qi, got_r[qi, pos]] - exact[qi, want_r[qi, pos]]) <= 2e-4, (qi, pos)
+    if case == "near_duplicate":
+        assert (got_r[:, 0] == rows).all()  # each query finds the row it was made from
+    # and the emulated scores sit far inside the tolerance of the exact ones
+    assert np.abs(_scores_3xtf32(queries, corpus).numpy() - exact).max() < 1e-5
+
+
 @pytest.mark.parametrize("tail", ["exact", "fold"])
 @pytest.mark.parametrize("group_l", [1, 4, 32])
 @pytest.mark.parametrize("residual", [False, True])
@@ -221,7 +278,7 @@ PLAN_SHAPES = [  # (Q, N, D, group_l): the phase-4 shape, the service store, chi
     *[(q, 53_248, 384, g) for q in (1, 8, 16) for g in (8, 16, 32)],
     *[(q, 65_536, d, g) for q in (3, 64, 256, 300) for d in (384, 1024) for g in (8, 32)],
 ]
-VARIANTS = ["K1 bf16", "K1 bf16 precise", "K1 f16", "K2 int8", "K2 int8+q2", "K2 int8+c2", "K2 int8r"]
+VARIANTS = ["K1 bf16", "K1 bf16 precise", "K1 f16", "K1 f32", "K2 int8", "K2 int8+q2", "K2 int8+c2", "K2 int8r"]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -248,6 +305,11 @@ def test_plan_launch_covers_the_main_shapes(shape):
     # Q 300 in three (five) query tiles: 192 (320) items, no split
     assert plan_launch(300, 65_536, 1024, 8, 132, "K1 bf16") == (128, 1)
     assert plan_launch(300, 65_536, 1024, 8, 132, "K2 int8r") == (64, 1)
+    # K1 f32 (3xTF32) plans as the other K1 variants: 128-wide tiles at the
+    # phase-4 shape, and at the service shape 13 blocks split 8 ways
+    assert plan_launch(256, 1_003_520, 1024, 32, 132, "K1 f32") == (128, 1)
+    assert plan_launch(16, 53_248, 384, 32, 132, "K1 f32") == (16, 8)
+    assert plan_launch(8, 53_248, 384, 8, 132, "K1 f32") == (8, 2)
 
 
 @pytest.mark.parametrize("args", [
@@ -257,7 +319,7 @@ def test_plan_launch_covers_the_main_shapes(shape):
     (8, 53_248, 96, 8, "K1 bf16"),           # D not a multiple of 64
     (8, 53_248, 320, 8, "K2 int8"),          # D not a multiple of 128
     (0, 53_248, 384, 8, "K1 bf16"),
-    (8, 53_248, 384, 8, "K1 f32"),           # the f32 kernel has no tensor-core plan
+    (8, 53_248, 48, 8, "K1 f32"),            # D not a multiple of 32 (one 128-byte k-chunk of f32)
 ])
 def test_plan_launch_refuses(args):
     q, n, d, group_l, variant = args
@@ -302,7 +364,8 @@ def test_kernels_match_plain_on_card():
     cb = corpus.bfloat16().contiguous()
     ch = corpus.half().contiguous()
     for g in (8, 32):
-        for args in ((q_hi, q_lo, cb), (q_hi, None, cb), (queries.half().contiguous(), None, ch)):
+        for args in ((q_hi, q_lo, cb), (q_hi, None, cb), (queries.half().contiguous(), None, ch),
+                     (queries, None, corpus)):
             kv, ki = partial_topk(*args, g, 8000)
             pv, pi = partial_topk_reference(*args, g, 8000)
             finite = torch.isfinite(pv)

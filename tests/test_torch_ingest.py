@@ -141,14 +141,18 @@ def build_pdf(page_texts: list[str], *, xref_stream: bool = False, tounicode: bo
     return bytes(out)
 
 
-def _document(seed: int, pages: int, *, accents: bool = False) -> list[str]:
+def _document(seed: int, pages: int, *, accents: bool = False, symbols: bool = False) -> list[str]:
     """Seeded page texts with numbered headings, paragraphs and a repeated
-    footer line, so that every host stage has something to do."""
+    footer line, so that every host stage has something to do. ``symbols``
+    adds words that keep a symbol inside them in the native analyzer
+    (``€uro``, ``5€``, ``c++``)."""
     rng = np.random.default_rng(seed)
     words = ["invoice", "total", "amount", "shipping", "terms", "payment", "warranty", "region",
              "revenue", "quarter", "supplier", "contract", "delivery", "balance", "account"]
     if accents:
         words += ["café", "naïve", "straße", "señor"]
+    if symbols:
+        words += ["€uro", "5€", "c++"]
     out = []
     for p in range(pages):
         lines = [f"{p + 1}. {' '.join(rng.choice(words, 2)).title()}"]
@@ -307,13 +311,31 @@ def test_loader_errors_and_the_ocr_hook(tmp_path):
 
 
 def test_analyzer_factory_serves_the_heuristic_one_or_refuses(monkeypatch):
+    """The heuristic analyzer where it is asked for, and, as in the JAX
+    package, where no LLM answers: no Gemini key and Ollama unreachable
+    (its readiness probe refused in both packages)."""
+    from intool_rag_tpu.providers.ollama import OllamaLLM as JOllama
+    from intool_rag_tpu_torch.exceptions import ProviderConnectionError
+    from intool_rag_tpu_torch.providers import http_utils
+
+    def refused(method, url, body=None, *, timeout=None):
+        raise ProviderConnectionError(f"{url}: connection refused")
+
     assert type(tfactory.get_semantic_analyzer()).__name__ == type(jfactory.get_semantic_analyzer()).__name__
-    for choice in ("", "gemini", "ollama"):
-        monkeypatch.setenv("LLM_PROVIDER", choice)
-        tconfig.reset_config()
-        tfactory.reset_semantic_analyzer()
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):  # no quiet fall to the heuristic one
-            tfactory.get_semantic_analyzer()
+    monkeypatch.setattr(JOllama, "is_ready", lambda self: False)
+    monkeypatch.setattr(http_utils, "transport", refused)
+    monkeypatch.setenv("GEMINI_API_KEY", "")
+    try:
+        for choice in ("", "gemini", "ollama"):
+            monkeypatch.setenv("LLM_PROVIDER", choice)
+            for config, factory in ((tconfig, tfactory), (jconfig, jfactory)):
+                config.reset_config()
+                factory.reset_semantic_analyzer()
+            assert type(tfactory.get_semantic_analyzer()).__name__ == "HeuristicSemanticAnalyzer"
+            assert type(jfactory.get_semantic_analyzer()).__name__ == "HeuristicSemanticAnalyzer"
+    finally:
+        for factory in (tfactory, jfactory):
+            factory.reset_semantic_analyzer()
 
 
 def test_config_carries_the_chunking_and_upload_fields(tmp_path, monkeypatch):

@@ -3,7 +3,10 @@ package's, with the same tiny encoder weights and the same uploads through
 ``handle("POST", "/ingest?project=…")``. Chunk and tree files must be equal,
 vectors agree to 1e-4 (f32, 2 layers), ``/search`` must name the same chunks
 on a two-project store before and after a ``DELETE``, and the async job
-must reach ``done``. Each service has its own ``STORAGE_DIR``."""
+must reach ``done``. The text uploads carry symbols (``€uro``, ``5€``,
+``c++``), which both packages' native analyzers keep inside their words.
+With ``LLM_PROVIDER`` unset, no Gemini key and no Ollama, both ingest
+through the heuristic analyzer. Each service has its own ``STORAGE_DIR``."""
 
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ UPLOADS = [  # (doc_id, project, file name, mode)
 
 def _payload(name: str) -> bytes:
     if name.endswith(".txt"):
-        return "\f".join(_document(1, 4)).encode()
+        return "\f".join(_document(1, 4, symbols=True)).encode()
     if name.endswith(".pdf"):
         return build_pdf(_document(2, 3, accents=True), xref_stream=True, tounicode=True)
-    return "\n\n".join(_document(3, 3)).encode()
+    return "\n\n".join(_document(3, 3, symbols=True)).encode()
 
 
 @pytest.fixture(scope="module")
@@ -187,3 +190,44 @@ def test_ingest_refuses_bad_requests(services, path, ctype, status):
     assert got == status and "detail" in out
     empty, ctype2 = _multipart([("note", None, b"no file here")])
     assert tservice.handle("POST", "/ingest?project=p", empty, ctype2)[0] == 400
+
+
+def test_ingest_with_llm_provider_unset(services, monkeypatch):
+    """The default configuration: ``LLM_PROVIDER`` unset, no Gemini key,
+    Ollama unreachable. Both analyzer factories fall to the heuristic
+    analyzer, and the port ingests what the JAX service ingests."""
+    from intool_rag_tpu import config as jconfig
+    from intool_rag_tpu.llm.semantic import factory as jfactory
+    from intool_rag_tpu.providers.ollama import OllamaLLM as JOllama
+    from intool_rag_tpu_torch import config as tconfig
+    from intool_rag_tpu_torch.exceptions import ProviderConnectionError
+    from intool_rag_tpu_torch.llm.semantic import factory as tfactory
+    from intool_rag_tpu_torch.providers import http_utils
+
+    def refused(method, url, body=None, *, timeout=None):
+        raise ProviderConnectionError(f"{url}: connection refused")
+
+    monkeypatch.setattr(JOllama, "is_ready", lambda self: False)
+    monkeypatch.setattr(http_utils, "transport", refused)
+    for cfg in (jconfig.get_config(), tconfig.get_config()):  # each keeps its own STORAGE_DIR
+        monkeypatch.setattr(cfg, "LLM_PROVIDER", "")
+        monkeypatch.setattr(cfg, "GEMINI_API_KEY", "")
+    try:
+        for f in (jfactory, tfactory):
+            f.reset_semantic_analyzer()
+        jservice, tservice = services
+        want = _ingest(jservice, "doc-default", "gamma", "default.txt", "sync")
+        got = _ingest(tservice, "doc-default", "gamma", "default.txt", "sync")
+        assert type(tfactory.get_semantic_analyzer()).__name__ == "HeuristicSemanticAnalyzer"
+        assert type(jfactory.get_semantic_analyzer()).__name__ == "HeuristicSemanticAnalyzer"
+        assert got["success"] and got["total_chunks"] == want["total_chunks"] >= 3
+        jst, tst = jservice.registry.storage, tservice.registry.storage
+        assert tst.load_chunks("doc-default").to_dict() == jst.load_chunks("doc-default").to_dict()
+        assert tst.load_page_index("doc-default").to_dict() == jst.load_page_index("doc-default").to_dict()
+        np.testing.assert_allclose(tst.load_vectors("doc-default")[0], jst.load_vectors("doc-default")[0],
+                                   atol=1e-4, rtol=0)
+        question = tst.load_chunks("doc-default").chunks[0].text
+        _same_hits(_search(tservice, question, "gamma"), _search(jservice, question, "gamma"))
+    finally:
+        for f in (jfactory, tfactory):
+            f.reset_semantic_analyzer()
