@@ -7,8 +7,9 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
    and each kernel's registers and shared memory: for K1/K2's tensor-core
-   kernels per variant and query-tile width, with their spill bytes, and
-   fails if any of them spills or the compiler warns.
+   kernels per variant and query-tile width and for K5's four backward
+   entries (dkv, dq; bf16, f32), with their spill bytes, and fails if any
+   of them spills or the compiler warns on either source.
 2. kernels vs plain: every K1 (``partial_topk``: bf16, bf16 precise, f16,
    f32) and K2 (``partial_topk_int8``: int8, +q2, +c2, int8r) variant
    against its plain PyTorch version on the card, at the shapes of
@@ -30,11 +31,16 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    on every layout of ``_segment_layouts`` and on rows no key matches, and
    at S 8192 one head at a time: atol 2e-5 (f32) and 2e-2 (bf16) on
    unit-variance inputs; unsupported shapes must raise. K5's backward
-   kernels (dkv and dq) at the same shapes and layouts, on the encoder's
+   kernels (dkv and dq) at the same shapes and layouts, and at the edges of
+   the bf16 kernels' tile skip (``_skip_layouts``: a row no key matches in a
+   tile that would otherwise be skipped, interleaved ids that differ between
+   queries and keys), on the encoder's
    strided views, against the plain backward given the kernel forward's own
    ``o, l, m``: atol 5e-5 (f32) and two bf16 steps of the largest gradient
    (bf16); the forward's saved ``l, m`` against the plain version's; every
-   backward run twice, bit-equal; once through ``torch.autograd``.
+   backward run twice, bit-equal; once through ``torch.autograd``; each
+   bf16 CTA's own count of the tiles it loaded and computed equal to the
+   skip rule's plain model (``computed_tiles``).
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
@@ -107,8 +113,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    100 pairs at ``bge_m3`` width, packed rows through K5 against the
    bucketed scores. K5 forward / dkv / dq per launch at the two training
    shapes and the backward kernels' kernel-table rows (S 8192, beside the
-   plain backward and ``torch.autograd`` through the library's attention)
-   follow.
+   plain backward and ``torch.autograd`` through the library's attention,
+   with the share of tiles the bf16 kernels compute) follow.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -256,6 +262,27 @@ def _tensor_core_kernels(text: str) -> dict:
     return out
 
 
+def _k5_backward_kernels(text: str) -> dict:
+    """K5 dkv / dq entries: registers, spill bytes and shared memory (the
+    bf16 kernels' TMA ring is dynamic). Fails on a spill or a compiler
+    warning (an ignored setmaxnreg shows as one)."""
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    dyn = fa._lib_bwd().flash_attention_bwd_smem()
+    out = {}
+    for e in _ptxas_entries(text):
+        if m := re.search(r"flash_(dkv|dq)_(bf16|f32)_kernel", e["entry"]):
+            out[f"K5 {m.group(1)} {m.group(2)}"] = {
+                "registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                "smem_bytes": e["static_smem"] + (dyn if m.group(2) == "bf16" else 0)}
+    log(f"built flash_attention_bwd.cu: K5 backward (registers, spill bytes, shared memory): {json.dumps(out)}")
+    warnings = sorted({ln.strip() for ln in text.splitlines() if "warning" in ln.lower()})
+    spilled = [k for k, e in out.items() if e["spill_bytes"]]
+    if warnings or spilled or len(out) != 4:
+        raise AssertionError(f"K5 backward kernels: warnings {warnings}, spills {spilled}, entries {sorted(out)}")
+    return out
+
+
 def phase_build(state: dict) -> None:
     from intool_rag_tpu_torch.kernels import build
 
@@ -279,6 +306,9 @@ def phase_build(state: dict) -> None:
             if spilled or len(tc) != 8:
                 raise AssertionError(f"K1/K2 tensor-core kernels: spills {spilled}, variants {sorted(tc)}")
             state["tensor_core_kernels"] = tc
+            continue
+        if name == "flash_attention_bwd.cu":
+            state["k5_backward_kernels"] = _k5_backward_kernels(text)
             continue
         kept = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines()
                 if "registers" in ln or "smem" in ln or "spill" in ln]
@@ -689,13 +719,60 @@ K5_BWD_ATOL_F32 = 5e-5
 K5_BWD_REL_BF16 = 2.0 ** -7
 
 
+def _skip_layouts(b: int, s: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """(seg_q, seg_kv) layouts at the edges of the backward kernels' tile
+    skip: a query row whose id no key carries, inside a query tile whose id
+    range meets no other key tile (ids 2, 4, 6, ... in runs of 100, row 5
+    given 3), so only that row keeps the tile; and interleaved, non-monotonic
+    ids that differ between queries (runs of 80) and keys (runs of 96), with
+    rows no key matches among them."""
+    pos = np.arange(s)[None, :]
+    even = np.broadcast_to(2 * (pos // 100 + 1), (b, s)).astype(np.int32)
+    odd_row = even.copy()
+    odd_row[:, 5] = 3
+    kv_ids = np.array([5, 1, 6, 2, 7, 3, 8, 4, 9], np.int32)
+    q_ids = np.array([1, 5, 2, 6, 3, 7, 4, 8, 10, 9], np.int32)
+    seg_kv = np.broadcast_to(kv_ids[(pos // 96) % len(kv_ids)], (b, s)).astype(np.int32)
+    seg_q = np.broadcast_to(q_ids[(pos // 80) % len(q_ids)], (b, s)).astype(np.int32)
+    return {"no key in a skipped tile": (odd_row, even.copy()), "interleaved": (seg_q.copy(), seg_kv.copy())}
+
+
+def _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what: str) -> float:
+    """One launch of bf16 backward kernel ``what`` (``dkv`` or ``dq``) with
+    its tile counts on: every CTA's producer and both consumer warpgroups
+    report the streamed tiles they walked. Fails unless each count equals the
+    skip rule's plain model (``computed_tiles``); returns the share of the
+    (query tile, key tile) pairs that the kernel computed, as it counted
+    them."""
+    from intool_rag_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, _ = q.shape
+    counts = torch.full((b, h, s // 128, 3), -1, dtype=torch.int32, device=q.device)
+    kernel = fa.flash_attention_dkv if what == "dkv" else fa.flash_attention_dq
+    fa.count_tiles(counts)
+    try:
+        kernel(q, k, v, seg_q, seg_kv, l, m, do, di, 0.125)
+        torch.cuda.synchronize()
+    finally:
+        fa.count_tiles(None)
+    tq, tk = fa.BWD_TILES[what]
+    tiles = fa.computed_tiles(seg_q, seg_kv, m, tq, tk)
+    want = (tiles.sum(2) if what == "dkv" else tiles.sum(3)).int()  # per CTA: its 128 keys (dkv) or queries (dq)
+    if not torch.equal(counts, want[..., None].expand(-1, -1, -1, 3)):
+        bad = (counts != want[..., None]).nonzero()[:4].tolist()
+        raise AssertionError(f"K5 {what} bf16 {(b, h, s)}: the kernel's tile counts differ from the skip "
+                             f"rule's at (b, h, cta, role) {bad}")
+    return counts[..., 0].sum().item() / tiles.numel()
+
+
 def _check_k5_backward(dev) -> dict[str, float]:
     """K5 dkv and dq against ``flash_attention_backward_plain`` on the card,
     both given the kernel forward's own ``o, l, m``: max |diff| per kernel
     variant. Also holds the forward's saved ``l, m`` against the plain
     version's, takes the gradient once through ``torch.autograd`` (the
     Function), and runs every backward twice: the runs must be bit-equal.
-    S 8192 is compared one head at a time."""
+    The bf16 kernels' own tile counts must equal the skip rule's on every
+    layout. S 8192 is compared one head at a time."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(8)
@@ -740,6 +817,10 @@ def _check_k5_backward(dev) -> dict[str, float]:
         want = fa.flash_attention_backward_plain(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
         for what, g, w in zip(("dq", "dk", "dv"), got, want):
             hold(name, what, g, w)
+        if q.dtype == torch.bfloat16:
+            di = (out.float() * do.float()).sum(dim=-1).contiguous()
+            for what in ("dkv", "dq"):
+                _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what)
         return do, got
 
     for dt, b, h, s in K5_CHECKS:
@@ -755,6 +836,8 @@ def _check_k5_backward(dev) -> dict[str, float]:
             raise AssertionError(f"K5 backward {dt} {(b, h, s)}: torch.autograd through the Function differs")
         # rows whose segment id no key carries: every p = 1/l, and the gradient flows
         compare("no key for a row", q, k, v, torch.roll(seg, 37, dims=1).contiguous(), seg)
+        for name, (seg_q, seg_kv) in _skip_layouts(b, s).items():  # the tile skip's edges
+            compare(name, q, k, v, torch.as_tensor(seg_q, device=dev), torch.as_tensor(seg_kv, device=dev))
         del q, k, v, do, got, auto, leaves
     for dt in ("float32", "bfloat16"):
         seg_np = _segment_layouts(rng, 4, 8192)
@@ -782,6 +865,15 @@ def _check_k5_backward(dev) -> dict[str, float]:
         except ValueError:
             continue
         raise AssertionError(f"K5 backward accepted {why}")
+    # k and v expanded over the heads (a zero stride): the forward reads them, so the backward takes them too
+    q, do = (strided((1, 4, 256, 64), torch.bfloat16) for _ in range(2))
+    kv = strided((1, 1, 256, 64), torch.bfloat16).expand(1, 4, 256, 64)
+    seg = torch.ones((1, 256), dtype=torch.int32, device=dev)
+    out, l, m = fa._forward_cuda(q, kv, kv, seg, seg, 0.125, True)
+    got = fa.flash_attention_backward(q, kv, kv, seg, seg, out, l, m, do, 0.125)
+    want = fa.flash_attention_backward(q, kv.contiguous(), kv.contiguous(), seg, seg, out, l, m, do, 0.125)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K5 backward bf16: expanded k, v give other gradients than their copies")
     torch.cuda.empty_cache()
     log(f"phase 2 K5 backward: {checks} kernel-vs-plain checks passed, every run repeated bit-equal; "
         f"max |err| {json.dumps(errs)}")
@@ -2405,6 +2497,8 @@ def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
         for what in ("fwd", "dkv", "dq"):
             bound = _k5_bound(seg, 16, 2) if what == "fwd" else _k5_backward_bound(seg, 16, 2, what)
             entry[f"{what}_bound_ms"], entry[f"{what}_dense_bound_ms"] = bound["bound_ms"], bound["dense_bound_ms"]
+            if what != "fwd":  # as the kernel counted them
+                entry[f"{what}_tiles_computed_share"] = _counted_tiles_share(q, k, v, seg, seg, l, m, do, di, what)
         per_launch.append(entry)
     log(f"phase 7 K5 per launch (bf16, H 16): {json.dumps(per_launch)}")
     state["train"]["k5_per_launch"] = per_launch
@@ -2446,6 +2540,9 @@ def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
         }
         for what, (kernel, err) in kernels.items():
             name = f"K5 {what} {tag}"
+            # the bf16 kernels' own count of the tiles they computed (the f32 kernels skip none)
+            counted = ({"tiles_computed_share": _counted_tiles_share(q, k, v, seg, seg, l, m, do, di, what)}
+                       if dt == torch.bfloat16 else {})
             row = {
                 "name": name, "route": "cuda", "source": "intool_rag_tpu_torch/kernels/flash_attention_bwd.cu",
                 "replaces": "intool_rag_tpu/models/encoder.py:138",
@@ -2457,6 +2554,7 @@ def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
                 # the plain version and the library call each return dq, dk and dv together
                 "plain_ms": plain_ms, **_k5_backward_bound(seg, 16, q.element_size(), what),
                 "library_ms": library_ms, "plain_and_library_cover": "dq + dk + dv",
+                **counted,
                 "max_abs_diff_library": lib_diff,
             }
             rows.append(row)

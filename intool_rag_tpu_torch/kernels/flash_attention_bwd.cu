@@ -20,276 +20,554 @@
 //   dq_i  = sum_j ds_ij * k_j          (dq kernel)
 // p and ds are rounded to the input type in front of their second products, as
 // in the library; every sum is f32. No [S, S] tensor exists anywhere: p is
-// recomputed tile by tile from l and m.
+// recomputed tile by tile from l and m. Nothing is summed across CTAs and
+// every output element is written by one CTA, so there are no atomics and a
+// result repeats bit for bit.
 //
 // The tensors are read through their (batch, head, row) strides and the
 // gradients are written through theirs, so the encoder's [B, S, H*64] layout
 // is used as it is on both sides.
 //
-// Design for an H100. The work is 8*S*S*64 (dkv) and 6*S*S*64 (dq) operations
-// per head against 6*S*64 values moved: bound by operations. Nothing is summed
-// across CTAs, so there are no atomics and a result repeats bit for bit.
-// bf16 variants, four warps of 16 rows, mma.sync.m16n8k16 with f32 sums:
-//  - dkv: one CTA per (batch, head, 64-key tile). The k and v tiles become A
-//    fragments that stay in registers; the loop walks 64-query tiles of q and
-//    do staged in padded shared rows, with m, 1/l, di and the ids beside them.
-//    Each warp forms the transposed tiles sT = k.qT and dpT = v.doT directly
-//    (16 keys x 64 queries), so that pT and dsT come out of the C fragments as
-//    the A fragments of pT.do and dsT.q with no shuffle; those products read
-//    do and q through ldmatrix.trans. dk and dv are 2 x 32 f32 registers a
-//    thread, stored once at the end.
-//  - dq: one CTA per (batch, head, 64-query tile), q and do as A fragments in
-//    registers, the loop walks 64-key tiles of k and v; s = q.kT, dp = do.vT,
-//    ds repacked as A fragments, dq += ds.k through ldmatrix.trans.
+// What bounds them on an H100: operations. Per head and per pair of equal
+// id, dkv does 8 x 64 (k.qT, v.doT, pT.do, dsT.q) and dq 6 x 64 (q.kT,
+// do.vT, ds.k) against 6 x 64 values moved per row. At a head width of 64
+// the exponentials and the masking cost about as many instruction slots as the
+// tensor cores take for the products, and an m64n64k16 wgmma with both
+// operands in shared memory reads as many bytes a cycle as shared memory
+// gives. The bf16 variants are built for the tensor cores and for doing no
+// work that the ids rule out:
+//  * dkv: one CTA per (batch, head, 128-key tile). Two consumer warpgroups
+//    own 64 keys each; the producer warpgroup hands its registers to them
+//    (setmaxnreg 56 / 224) and its first warp feeds the ring. The k and v
+//    tiles land once by TMA in 128-byte-swizzled shared memory; a ring of
+//    STAGES stages carries the 64-query tiles of q and do (TMA from a 4-D
+//    tensor map over the strided [B, H, S, 64] view: dims (64, S, H, B))
+//    and the tile's m * log2(e), 1 / l, di, the mask's p (1 on a row no key
+//    matches) and seg_q, which the producer warp loads one tile ahead and
+//    writes itself, so no consumer divides. Per stage sT = k.qT and
+//    dpT = v.doT are wgmma m64n64k16 x 4 with A = k / v and B = q / do, all
+//    K-major in shared memory. pT is formed in the accumulator registers
+//    while dpT is still running and rounded to bf16; the accumulator layout
+//    of an m64n64 wgmma is the register-A fragment of the next, so it is the
+//    A operand of dv += pT.do as it is, started before dsT is formed; dsT
+//    then feeds dk += dsT.q the same way, and those two products run on
+//    under the next tile's first products. p and ds never touch shared
+//    memory; do and q are read as MN-major B (the transpose bit) from the
+//    buffers that were K-major B a moment before.
+//  * dq: one CTA per (batch, head, 128-query tile). q and do are resident
+//    A operands (64 queries per consumer warpgroup); the ring carries the
+//    64-key tiles of k and v with their seg_kv (bulk copy). s = q.kT and
+//    dp = do.vT read K-major B; p is formed while dp runs; ds, rounded to
+//    bf16 in registers, is the A of dq += ds.k, which reads k as MN-major B.
+//  * Tiles whose segments cannot meet are skipped (the rule and its plain
+//    model: ops/flash_attention.py::computed_tiles). Before the ring starts,
+//    the CTA reduces the [min, max] id of each streamed 64-row tile and of
+//    its own 128 rows; a streamed tile is computed unless the two ranges are
+//    disjoint and no query row of either is a row no key matches
+//    (m == mask value, where p = 1/l on every key). A skipped tile costs no
+//    copy and no wgmma; its p and ds are exactly 0. The producer and the
+//    consumers walk the same list, and a CTA that skips every tile writes
+//    zeros. Where both ranges are one and the same id, every pair matches
+//    and p is formed without the id compare. On request
+//    (flash_attention_bwd_count_tiles) each CTA reports the tiles that its
+//    producer loaded and its consumers computed, so that the skip is
+//    measured in the kernel and held against the plain model.
+//  * exp2 is ex2.approx.ftz on the special-function unit: a few ulp of f32
+//    against the bf16 rounding that follows.
+// p and ds are formed once in each kernel (twice in all): one pass would have
+// to add dq across key-tile CTAs, which takes atomics or a scratch of partial
+// sums.
 // f32 variants (CUDA cores, no TF32): two threads per row, each holding half of
 // the head's 64 values; the halves of a dot product meet in one shuffle.
 //
-// Still open: wgmma and TMA, double buffering, one fused kernel that forms p
-// and ds once for all three gradients (each is formed twice here), and skipping
-// tiles whose segment ranges cannot meet.
-//
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
-// plain C interface (loaded through ctypes). Each entry point returns the
-// cudaError_t of its launch.
+// plain C interface (loaded through ctypes); cuTensorMapEncodeTiled comes from
+// the driver (tensor_map.cuh). Each entry point returns the cudaError_t of its
+// launch.
 
 #include "flash_common.cuh"
+#include "tensor_map.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-// A fragments (16 rows x 64 values, four k-steps) of this warp's rows of a staged tile
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const __nv_bfloat16* tile, int r0,
-                                             int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(tile + r0 * LDS + kk * 16 + 2 * t);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(tile + (r0 + 8) * LDS + kk * 16 + 2 * t);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(tile + r0 * LDS + kk * 16 + 2 * t + 8);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(tile + (r0 + 8) * LDS + kk * 16 + 2 * t + 8);
-  }
-}
+// ---------------------------------------------------------------- bf16 (tensor cores)
 
-// c[nt] += a . tileT: 16 rows x 64 tile rows, contracting the 64 values of a head
-__device__ __forceinline__ void mma_a_tileT(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                            const __nv_bfloat16* tile, int g, int t) {
+constexpr int BT = 64;                           // rows of a streamed tile (queries for dkv, keys for dq)
+constexpr int CT = 128;                          // rows a CTA owns: two consumer warpgroups of 64
+constexpr int MAX_SEQ = 8192;
+constexpr int MAX_TILES = MAX_SEQ / BT;          // streamed tiles of one row, at most 128
+constexpr int CONSUMERS = 256;                   // two warpgroups
+constexpr int BWD_THREADS = CONSUMERS + 128;     // and a producer warpgroup, of which one warp feeds the ring
+constexpr int PRODUCER_REGS = 56;   // dkv's producer warp holds a tile's row statistics
+constexpr int CONSUMER_REGS = 224;  // 2 x 128 x 224 + 128 x 56 = 64,512 of the SM's 65,536
+constexpr int STAGES = 6;
+constexpr int TILE_BYTES = BT * DH * 2;          // 8 KB: a streamed bf16 tile
+constexpr int OWN_BYTES = CT * DH * 2;           // 16 KB: one of the CTA's own tiles
+constexpr int STATS_BYTES = BT * 4;              // one 64-row vector of f32 or i32 (dkv: five a stage, dq: one)
+constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2048;  // two tiles and up to five vectors, 1,024-aligned
+constexpr int BWD_SMEM = 2 * OWN_BYTES + STAGES * STAGE_BYTES + 1024;  // + slack to align to 1,024 bytes
+
+// Where the bf16 kernels report what the tile skip did
+// (flash_attention_bwd_count_tiles): per CTA, the streamed tiles that each
+// consumer warpgroup computed and that the producer loaded. Off (nullptr)
+// unless asked for; a measurement, not part of the contract.
+int* tile_counts = nullptr;
+long long tile_counts_len = 0;
+
+// Which streamed tiles a CTA computes.
+struct TilePlan {
+  int lo[MAX_TILES], hi[MAX_TILES];  // id range of each streamed tile
+  int own_lo[4], own_hi[4], own_nomatch[4];  // of the own rows, per warp of 32
+  uint8_t nomatch[MAX_TILES];        // a streamed query tile holds a row no key matches
+  uint8_t live[MAX_TILES];          // 0 skipped, 1 computed, 2 computed and every pair of it has equal ids
+};
+
+// live[t] = 0 where the id ranges of streamed tile t and of the CTA's own 128
+// rows are disjoint and neither holds a query row with m == MASK_VALUE.
+// stream_m (own_m) is the row max of the streamed (own) rows where they are
+// queries, else nullptr. Threads 0..n_tiles-1 reduce one streamed tile each,
+// the warps of threads 128..255 the own rows. Ends in __syncthreads.
+__device__ __forceinline__ void plan_tiles(TilePlan& pl, const int* stream_ids, const float* stream_m,
+                                           const int* own_ids, const float* own_m, int n_tiles) {
+  const int tid = threadIdx.x;
+  if (tid < n_tiles) {
+    const int4* ids = reinterpret_cast<const int4*>(stream_ids + tid * BT);
+    int lo = 0x7fffffff, hi = -0x7fffffff - 1;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* r = tile + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
-      mma_bf16_16x8x16(c[nt], a[kk][0], a[kk][1], a[kk][2], a[kk][3],
-                       *reinterpret_cast<const uint32_t*>(r),
-                       *reinterpret_cast<const uint32_t*>(r + 8));
+    for (int j = 0; j < BT / 4; ++j) {
+      const int4 x = __ldg(ids + j);
+      lo = min(lo, min(min(x.x, x.y), min(x.z, x.w)));
+      hi = max(hi, max(max(x.x, x.y), max(x.z, x.w)));
     }
+    bool nm = false;
+    if (stream_m != nullptr) {
+      const float4* mm = reinterpret_cast<const float4*>(stream_m + tid * BT);
+#pragma unroll
+      for (int j = 0; j < BT / 4; ++j) {
+        const float4 x = __ldg(mm + j);
+        nm |= x.x == MASK_VALUE || x.y == MASK_VALUE || x.z == MASK_VALUE || x.w == MASK_VALUE;
+      }
+    }
+    pl.lo[tid] = lo;
+    pl.hi[tid] = hi;
+    pl.nomatch[tid] = nm;
+  } else if (tid >= 128 && tid < 128 + CT) {
+    const int r = tid - 128;
+    const int id = __ldg(own_ids + r);
+    const bool nm = own_m != nullptr && __ldg(own_m + r) == MASK_VALUE;
+    const int lo = __reduce_min_sync(0xffffffffu, id), hi = __reduce_max_sync(0xffffffffu, id);
+    const bool any_nm = __any_sync(0xffffffffu, nm);
+    if ((tid & 31) == 0) {
+      pl.own_lo[r / 32] = lo;
+      pl.own_hi[r / 32] = hi;
+      pl.own_nomatch[r / 32] = any_nm;
+    }
+  }
+  __syncthreads();
+  if (tid < n_tiles) {
+    const int lo = min(min(pl.own_lo[0], pl.own_lo[1]), min(pl.own_lo[2], pl.own_lo[3]));
+    const int hi = max(max(pl.own_hi[0], pl.own_hi[1]), max(pl.own_hi[2], pl.own_hi[3]));
+    const bool nm = pl.own_nomatch[0] | pl.own_nomatch[1] | pl.own_nomatch[2] | pl.own_nomatch[3] | pl.nomatch[tid];
+    const bool uniform = !nm && lo == hi && pl.lo[tid] == lo && pl.hi[tid] == hi;
+    pl.live[tid] = uniform ? 2 : nm || !(pl.hi[tid] < lo || pl.lo[tid] > hi);
+  }
+  __syncthreads();
 }
 
-// acc += x . tile, x a 16 x 64 C-fragment tile rounded to bf16 and contracted
-// over the tile's 64 rows
-__device__ __forceinline__ void mma_c_tile(float (&acc)[8][4], const float (&x)[8][4],
-                                           const __nv_bfloat16* tile, int lane) {
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
+__device__ __forceinline__ void init_ring(uint64_t* full, uint32_t full_count, uint64_t* empty, uint64_t* own_full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], CONSUMERS / 32);  // lane 0 of every consumer warp
+    }
+    mbar_init(own_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// The first live streamed tile at or after t (n_tiles if none).
+__device__ __forceinline__ int next_live(const TilePlan& pl, int t, int n_tiles) {
+  while (t < n_tiles && !pl.live[t]) ++t;
+  return t;
+}
+
+// Rows i and i + 1 of (b, h): m, l, di and seg_q (stat: the offset of (b, h)).
+__device__ __forceinline__ void load_row_stats(const float* m, const float* l, const float* di, const int* seg,
+                                               long long stat, int i, float2& mm, float2& ll, float2& dd, int2& sg) {
+  mm = __ldg(reinterpret_cast<const float2*>(m + stat + i));
+  ll = __ldg(reinterpret_cast<const float2*>(l + stat + i));
+  dd = __ldg(reinterpret_cast<const float2*>(di + stat + i));
+  sg = __ldg(reinterpret_cast<const int2*>(seg + i));
+}
+
+// The ring slot of the n-th tile a CTA streams (n counts live tiles only):
+// stage n % STAGES, barrier parity (n / STAGES) & 1. One counter is the whole
+// ring state, and at the end it is the number of tiles walked.
+__device__ __forceinline__ int ring_stage(uint32_t n) { return n % STAGES; }
+__device__ __forceinline__ uint32_t ring_phase(uint32_t n) { return (n / STAGES) & 1; }
+
+// Tile count n of role 0 / 1 (consumer warpgroup) or 2 (producer) of this CTA,
+// where counts is set (flash_attention_bwd_count_tiles).
+__device__ __forceinline__ void report_tiles(int* counts, int role, uint32_t n) {
+  if (counts != nullptr)
+    counts[3 * (((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) + role] = n;
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// dkv: pT in place of sT for this thread's keys (ids sgk) against the stage's
+// 64 queries (column 8c + 2 t4 + e). UNIFORM: every pair has equal ids.
+template <bool UNIFORM>
+__device__ __forceinline__ void form_pT(float (&s)[32], const int (&sgk)[2], const float* m2_s, const float* il_s,
+                                        const float* pm_s, const int* sg_s, int t4, float scale_log2) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a0 = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t4;
+    const float2 m2 = *reinterpret_cast<const float2*>(m2_s + col);
+    const float2 il = *reinterpret_cast<const float2*>(il_s + col);
+    if constexpr (UNIFORM) {
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4_trans(b0, b1, b2, b3, tile + (kk * 16 + v_row) * LDS + dp * 16 + v_col);
-      mma_bf16_16x8x16(acc[2 * dp], a0, a1, a2, a3, b0, b1);
-      mma_bf16_16x8x16(acc[2 * dp + 1], a0, a1, a2, a3, b2, b3);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = ex2(s[v] * scale_log2 - m2.x) * il.x;
+        s[v + 1] = ex2(s[v + 1] * scale_log2 - m2.y) * il.y;
+      }
+    } else {
+      const int2 sg = *reinterpret_cast<const int2*>(sg_s + col);
+      const float2 pm = *reinterpret_cast<const float2*>(pm_s + col);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = (sgk[hh] == sg.x ? ex2(s[v] * scale_log2 - m2.x) : pm.x) * il.x;
+        s[v + 1] = (sgk[hh] == sg.y ? ex2(s[v + 1] * scale_log2 - m2.y) : pm.y) * il.y;
+      }
     }
   }
 }
 
-__device__ __forceinline__ void zero_tile(float (&c)[8][4]) {
+// dq: p in place of s for this thread's queries (ids sgq, row statistics m2,
+// pm, il) against the stage's 64 keys (column 8c + 2 t4 + e).
+template <bool UNIFORM>
+__device__ __forceinline__ void form_p(float (&s)[32], const int (&sgq)[2], const float (&m2)[2],
+                                       const float (&pm)[2], const float (&il)[2], const int* sg_s, int t4,
+                                       float scale_log2) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int c = 0; c < 8; ++c) {
+    if constexpr (UNIFORM) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = ex2(s[v] * scale_log2 - m2[hh]) * il[hh];
+        s[v + 1] = ex2(s[v + 1] * scale_log2 - m2[hh]) * il[hh];
+      }
+    } else {
+      const int2 sg = *reinterpret_cast<const int2*>(sg_s + 8 * c + 2 * t4);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = (sgq[hh] == sg.x ? ex2(s[v] * scale_log2 - m2[hh]) : pm[hh]) * il[hh];
+        s[v + 1] = (sgq[hh] == sg.y ? ex2(s[v + 1] * scale_log2 - m2[hh]) : pm[hh]) * il[hh];
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* row0, long long row_stride,
-                                                const float (&acc)[8][4], int t) {
-  __nv_bfloat16* row1 = row0 + 8 * row_stride;
+// A k-step's register-A fragment of a 64 x 64 accumulator x (f32 -> bf16):
+// a[4kk .. 4kk+3] for k-step kk.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[16], const float (&x)[32]) {
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(row0 + dt * 8 + 2 * t) = pack_bf16(acc[dt][0], acc[dt][1]);
-    *reinterpret_cast<uint32_t*>(row1 + dt * 8 + 2 * t) = pack_bf16(acc[dt][2], acc[dt][3]);
-  }
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// Rows r0 and r0 + 8 of a warpgroup's 64 x 64 f32 accumulator into bf16 rows.
+__device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* row0, long long row_stride, const float (&acc)[32],
+                                               int t4) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(row0 + hh * 8 * row_stride + 8 * c + 2 * t4) =
+          pack_bf16(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 }
 
 // ---------------------------------------------------------------- bf16 dkv
 
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                       const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                      const float* __restrict__ l, const float* __restrict__ m,
-                      const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, Strides sq, Strides sk, Strides sv,
-                      Strides sdo, Strides sdk, Strides sdv, float scale_log2, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BM * LDS];
-  __shared__ __align__(16) float m2_s[BM];    // row max in the exp2 domain
-  __shared__ __align__(16) float invl_s[BM];  // 1 / row sum
-  __shared__ __align__(16) float di_s[BM];
-  __shared__ __align__(16) float pmask_s[BM];  // exp(mask - m): 1 on a row no key matches, else 0
-  __shared__ __align__(16) int segq_s[BM];
+                      const float* __restrict__ l, const float* __restrict__ m, const float* __restrict__ di,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, Strides sdk,
+                      Strides sdv, float scale_log2, float sm_scale, int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // k, then v: 128 keys each
+  uint8_t* ring = own + 2 * OWN_BYTES;  // per stage: q tile, do tile, then m2, 1/l, di, pmask, seg_q
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], own_full;
+  __shared__ TilePlan plan;
 
-  const int n0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's keys of the tile: r0 and r0 + 8
+  const int n0 = blockIdx.x * CT, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / BT;
+  const long long stat = ((long long)b * gridDim.y + h) * S;  // row statistics of (b, h)
+  const int* sq_b = seg_q + (long long)b * S;
+  init_ring(full, 32, empty, &own_full);  // full: the producer warp's 32 lanes (lane 0 with the TMA bytes)
+  plan_tiles(plan, sq_b, m + stat, seg_kv + (long long)b * S + n0, nullptr, n_tiles);
 
-  // k and v tiles -> A fragments in registers (through q_s and do_s)
-  stage_tile(q_s, k + b * sk.b + h * sk.h + (long long)n0 * sk.s, sk.s);
-  stage_tile(do_s, v + b * sv.b + h * sv.h + (long long)n0 * sv.s, sv.s);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, q_s, r0, t);
-  load_a_frags(va, do_s, r0, t);
-  const int sgk0 = seg_kv[(long long)b * S + n0 + r0];
-  const int sgk1 = seg_kv[(long long)b * S + n0 + r0 + 8];
-  __syncthreads();
-
-  float dk_acc[8][4], dv_acc[8][4];
-  zero_tile(dk_acc);
-  zero_tile(dv_acc);
-
-  const __nv_bfloat16* qh = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* doh = dout + b * sdo.b + h * sdo.h;
-  const long long stat = ((long long)b * gridDim.y + h) * S;
-
-  for (int m0 = 0; m0 < S; m0 += BM) {
-    stage_tile(q_s, qh + (long long)m0 * sq.s, sq.s);
-    stage_tile(do_s, doh + (long long)m0 * sdo.s, sdo.s);
-    if (threadIdx.x < BM) {
-      const int i = threadIdx.x;
-      const float mi = m[stat + m0 + i];
-      m2_s[i] = mi * LOG2E;
-      pmask_s[i] = mi == MASK_VALUE ? 1.f : 0.f;
-      invl_s[i] = 1.f / l[stat + m0 + i];
-      di_s[i] = di[stat + m0 + i];
-      segq_s[i] = seg_q[(long long)b * S + m0 + i];
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: its first warp feeds the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x < CONSUMERS + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(&own_full, 2 * OWN_BYTES);
+        tma_load_4d(own, &map_k, &own_full, 0, n0, h, b);
+        tma_load_4d(own + OWN_BYTES, &map_v, &own_full, 0, n0, h, b);
+      }
+      // lane i prepares queries 2i and 2i + 1 of each tile: their statistics
+      // are loaded one tile ahead, before the wait for a free stage
+      int t = next_live(plan, 0, n_tiles);
+      float2 mm, ll, dd;
+      int2 sg;
+      if (t < n_tiles) load_row_stats(m, l, di, sq_b, stat, t * BT + 2 * lane, mm, ll, dd, sg);
+      uint32_t n = 0;
+      while (t < n_tiles) {
+        const int stage = ring_stage(n);
+        mbar_wait(&empty[stage], ring_phase(n) ^ 1);
+        uint8_t* st = ring + stage * STAGE_BYTES;
+        float* vec = reinterpret_cast<float*>(st + 2 * TILE_BYTES) + 2 * lane;
+        *reinterpret_cast<float2*>(vec) = make_float2(mm.x * LOG2E, mm.y * LOG2E);
+        *reinterpret_cast<float2*>(vec + BT) = make_float2(1.f / ll.x, 1.f / ll.y);
+        *reinterpret_cast<float2*>(vec + 2 * BT) = dd;
+        *reinterpret_cast<float2*>(vec + 3 * BT) =
+            make_float2(mm.x == MASK_VALUE ? 1.f : 0.f, mm.y == MASK_VALUE ? 1.f : 0.f);
+        *reinterpret_cast<int2*>(vec + 4 * BT) = sg;
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * TILE_BYTES);
+          tma_load_4d(st, &map_q, &full[stage], 0, t * BT, h, b);
+          tma_load_4d(st + TILE_BYTES, &map_do, &full[stage], 0, t * BT, h, b);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        ++n;
+        t = next_live(plan, t + 1, n_tiles);
+        if (t < n_tiles) load_row_stats(m, l, di, sq_b, stat, t * BT + 2 * lane, mm, ll, dd, sg);
+      }
+      if (lane == 0) report_tiles(counts, 2, n);
     }
-    __syncthreads();
-
-    // sT = k . qT and dpT = v . doT: 16 keys x 64 queries per warp
-    float sT[8][4], dpT[8][4];
-    zero_tile(sT);
-    zero_tile(dpT);
-    mma_a_tileT(sT, ka, q_s, g, t);
-    mma_a_tileT(dpT, va, do_s, g, t);
-
-    // pT in sT, dsT in dpT; the query is the column: c and c + 1
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      const int2 sg = *reinterpret_cast<const int2*>(segq_s + c);
-      const float2 m2 = *reinterpret_cast<const float2*>(m2_s + c);
-      const float2 il = *reinterpret_cast<const float2*>(invl_s + c);
-      const float2 dd = *reinterpret_cast<const float2*>(di_s + c);
-      const float2 pm = *reinterpret_cast<const float2*>(pmask_s + c);
-      const float p0 = (sgk0 == sg.x ? exp2f(sT[nt][0] * scale_log2 - m2.x) : pm.x) * il.x;
-      const float p1 = (sgk0 == sg.y ? exp2f(sT[nt][1] * scale_log2 - m2.y) : pm.y) * il.y;
-      const float p2 = (sgk1 == sg.x ? exp2f(sT[nt][2] * scale_log2 - m2.x) : pm.x) * il.x;
-      const float p3 = (sgk1 == sg.y ? exp2f(sT[nt][3] * scale_log2 - m2.y) : pm.y) * il.y;
-      sT[nt][0] = p0;
-      sT[nt][1] = p1;
-      sT[nt][2] = p2;
-      sT[nt][3] = p3;
-      dpT[nt][0] = (dpT[nt][0] - dd.x) * p0 * sm_scale;
-      dpT[nt][1] = (dpT[nt][1] - dd.y) * p1 * sm_scale;
-      dpT[nt][2] = (dpT[nt][2] - dd.x) * p2 * sm_scale;
-      dpT[nt][3] = (dpT[nt][3] - dd.y) * p3 * sm_scale;
-    }
-
-    mma_c_tile(dv_acc, sT, do_s, lane);   // dv += pT . do
-    mma_c_tile(dk_acc, dpT, q_s, lane);   // dk += dsT . q
-    __syncthreads();
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
-  store_rows_bf16(dk + b * sdk.b + h * sdk.h + (long long)(n0 + r0) * sdk.s, sdk.s, dk_acc, t);
-  store_rows_bf16(dv + b * sdv.b + h * sdv.h + (long long)(n0 + r0) * sdv.s, sdv.s, dv_acc, t);
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, t4 = lane % 4;
+  const int key0 = n0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
+  const int sgk[2] = {__ldg(seg_kv + (long long)b * S + key0), __ldg(seg_kv + (long long)b * S + key0 + 8)};
+  const uint64_t ka = desc_sw128(own + wg * TILE_BYTES);
+  const uint64_t va = desc_sw128(own + OWN_BYTES + wg * TILE_BYTES);
+
+  float dk_acc[32], dv_acc[32];
+  uint32_t pa[16], dsa[16];  // pT and dsT as register A; in flight until the next tile's first wait
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  mbar_wait(&own_full, 0);
+  uint32_t n = 0;  // live tiles done so far
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!plan.live[t]) continue;
+    const int stage = ring_stage(n);
+    mbar_wait(&full[stage], ring_phase(n));
+    const uint8_t* st = ring + stage * STAGE_BYTES;
+    const float* m2_s = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
+    const float* il_s = m2_s + BT;
+    const float* di_s = m2_s + 2 * BT;
+    const float* pm_s = m2_s + 3 * BT;
+    const int* sg_s = reinterpret_cast<const int*>(m2_s + 4 * BT);
+
+    // sT = k . qT and dpT = v . doT: this warpgroup's 64 keys x 64 queries
+    float s[32], dp[32];
+    const uint64_t qb = desc_sw128(st), dob = desc_sw128(st + TILE_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<__nv_bfloat16, 64>(s, ka + 2 * kk, qb + 2 * kk, kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<__nv_bfloat16, 64>(dp, va + 2 * kk, dob + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's second products and sT are done; dpT runs on
+    fence_regs(s);
+    fence_regs(pa);
+    fence_regs(dsa);
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    if (n > 0 && lane == 0) mbar_arrive(&empty[ring_stage(n - 1)]);  // the stage those products read
+
+    // pT in s
+    if (plan.live[t] == 2) form_pT<true>(s, sgk, m2_s, il_s, pm_s, sg_s, t4, scale_log2);
+    else form_pT<false>(s, sgk, m2_s, il_s, pm_s, sg_s, t4, scale_log2);
+    pack_a(pa, s);
+
+    // dv += pT . do: A from registers, do as MN-major B; it runs while dsT is formed
+    const uint64_t dob_mn = desc_mn_sw128(st + TILE_BYTES), qb_mn = desc_mn_sw128(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ra<64>(dv_acc, pa + 4 * kk, dob_mn + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // dpT is done
+    fence_regs(dp);
+
+    // dsT in dp
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 dd = *reinterpret_cast<const float2*>(di_s + 8 * c + 2 * t4);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        dp[v] = (dp[v] - dd.x) * s[v] * sm_scale;
+        dp[v + 1] = (dp[v + 1] - dd.y) * s[v + 1] * sm_scale;
+      }
+    }
+    pack_a(dsa, dp);
+
+    // dk += dsT . q: q as MN-major B; it runs on under the next tile's first products
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ra<64>(dk_acc, dsa + 4 * kk, qb_mn + 128 * kk, 1);
+    wgmma_commit();
+    ++n;
+  }
+  wgmma_wait<0>();
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
+  fence_regs(pa);
+  fence_regs(dsa);
+
+  store_acc_bf16(dk + b * sdk.b + h * sdk.h + (long long)key0 * sdk.s, sdk.s, dk_acc, t4);
+  store_acc_bf16(dv + b * sdv.b + h * sdv.h + (long long)key0 * sdv.s, sdv.s, dv_acc, t4);
+  if (threadIdx.x % 128 == 0) report_tiles(counts, threadIdx.x / 128, n);
 }
 
 // ---------------------------------------------------------------- bf16 dq
 
-__global__ void __launch_bounds__(THREADS)
-flash_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                     const float* __restrict__ l, const float* __restrict__ m,
-                     const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int S,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, float scale_log2,
-                     float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * LDS];
-  __shared__ __align__(16) int segk_s[BN];
+                     const float* __restrict__ l, const float* __restrict__ m, const float* __restrict__ di,
+                     __nv_bfloat16* __restrict__ dq, int S, Strides sdq, float scale_log2, float sm_scale,
+                     int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // q, then do: 128 queries each
+  uint8_t* ring = own + 2 * OWN_BYTES;  // per stage: k tile, v tile, seg_kv
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], own_full;
+  __shared__ TilePlan plan;
 
-  const int m0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's queries of the tile: r0 and r0 + 8
+  const int m0 = blockIdx.x * CT, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / BT;
+  const long long stat = ((long long)b * gridDim.y + h) * S;
+  const int* sk_b = seg_kv + (long long)b * S;
+  init_ring(full, 1, empty, &own_full);
+  plan_tiles(plan, sk_b, nullptr, seg_q + (long long)b * S + m0, m + stat + m0, n_tiles);
 
-  // q and do tiles -> A fragments in registers (through k_s and v_s)
-  stage_tile(k_s, q + b * sq.b + h * sq.h + (long long)m0 * sq.s, sq.s);
-  stage_tile(v_s, dout + b * sdo.b + h * sdo.h + (long long)m0 * sdo.s, sdo.s);
-  __syncthreads();
-  uint32_t qa[4][4], doa[4][4];
-  load_a_frags(qa, k_s, r0, t);
-  load_a_frags(doa, v_s, r0, t);
-  const int sgq0 = seg_q[(long long)b * S + m0 + r0];
-  const int sgq1 = seg_q[(long long)b * S + m0 + r0 + 8];
-  const long long stat = ((long long)b * gridDim.y + h) * S + m0 + r0;
-  const float mi0 = m[stat], mi1 = m[stat + 8];
-  const float m2_0 = mi0 * LOG2E, m2_1 = mi1 * LOG2E;
-  const float pm0 = mi0 == MASK_VALUE ? 1.f : 0.f, pm1 = mi1 == MASK_VALUE ? 1.f : 0.f;
-  const float il0 = 1.f / l[stat], il1 = 1.f / l[stat + 8];
-  const float di0 = di[stat], di1 = di[stat + 8];
-  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(&own_full, 2 * OWN_BYTES);
+      tma_load_4d(own, &map_q, &own_full, 0, m0, h, b);
+      tma_load_4d(own + OWN_BYTES, &map_do, &own_full, 0, m0, h, b);
+      uint32_t n = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (!plan.live[t]) continue;
+        const int stage = ring_stage(n);
+        mbar_wait(&empty[stage], ring_phase(n) ^ 1);
+        uint8_t* st = ring + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], 2 * TILE_BYTES + STATS_BYTES);
+        tma_load_4d(st, &map_k, &full[stage], 0, t * BT, h, b);
+        tma_load_4d(st + TILE_BYTES, &map_v, &full[stage], 0, t * BT, h, b);
+        bulk_load(st + 2 * TILE_BYTES, sk_b + t * BT, STATS_BYTES, &full[stage]);
+        ++n;
+      }
+      report_tiles(counts, 2, n);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
-  float dq_acc[8][4];
-  zero_tile(dq_acc);
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, t4 = lane % 4;
+  const int row0 = m0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;  // this thread's queries: row0, row0 + 8
+  int sgq[2];
+  float m2[2], pm[2], il[2], dii[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = row0 + 8 * hh;
+    const float mi = __ldg(m + stat + i);
+    sgq[hh] = __ldg(seg_q + (long long)b * S + i);
+    m2[hh] = mi * LOG2E;
+    pm[hh] = mi == MASK_VALUE ? 1.f : 0.f;
+    il[hh] = 1.f / __ldg(l + stat + i);
+    dii[hh] = __ldg(di + stat + i);
+  }
+  const uint64_t qa = desc_sw128(own + wg * TILE_BYTES);
+  const uint64_t doa = desc_sw128(own + OWN_BYTES + wg * TILE_BYTES);
 
-  const __nv_bfloat16* kh = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vh = v + b * sv.b + h * sv.h;
-  const int* sgk = seg_kv + (long long)b * S;
+  float dq_acc[32];
+  uint32_t dsa[16];  // ds as register A
+  zero_acc(dq_acc);
+  mbar_wait(&own_full, 0);
+  uint32_t n = 0;  // live tiles done so far
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!plan.live[t]) continue;
+    const int stage = ring_stage(n);
+    mbar_wait(&full[stage], ring_phase(n));
+    const uint8_t* st = ring + stage * STAGE_BYTES;
+    const int* sg_s = reinterpret_cast<const int*>(st + 2 * TILE_BYTES);
 
-  for (int n0 = 0; n0 < S; n0 += BN) {
-    stage_tile(k_s, kh + (long long)n0 * sk.s, sk.s);
-    stage_tile(v_s, vh + (long long)n0 * sv.s, sv.s);
-    if (threadIdx.x < BN) segk_s[threadIdx.x] = sgk[n0 + threadIdx.x];
-    __syncthreads();
+    // s = q . kT and dp = do . vT: this warpgroup's 64 queries x 64 keys
+    float s[32], dp[32];
+    const uint64_t kb = desc_sw128(st), vb = desc_sw128(st + TILE_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<__nv_bfloat16, 64>(s, qa + 2 * kk, kb + 2 * kk, kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<__nv_bfloat16, 64>(dp, doa + 2 * kk, vb + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // s is done; dp runs on
+    fence_regs(s);
 
-    // s = q . kT and dp = do . vT: 16 queries x 64 keys per warp
-    float s[8][4], dp[8][4];
-    zero_tile(s);
-    zero_tile(dp);
-    mma_a_tileT(s, qa, k_s, g, t);
-    mma_a_tileT(dp, doa, v_s, g, t);
+    // p in s
+    if (plan.live[t] == 2) form_p<true>(s, sgq, m2, pm, il, sg_s, t4, scale_log2);
+    else form_p<false>(s, sgq, m2, pm, il, sg_s, t4, scale_log2);
+    wgmma_wait<0>();  // dp is done
+    fence_regs(dp);
 
     // ds in dp
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int2 sg = *reinterpret_cast<const int2*>(segk_s + nt * 8 + 2 * t);
-      const float p0 = (sgq0 == sg.x ? exp2f(s[nt][0] * scale_log2 - m2_0) : pm0) * il0;
-      const float p1 = (sgq0 == sg.y ? exp2f(s[nt][1] * scale_log2 - m2_0) : pm0) * il0;
-      const float p2 = (sgq1 == sg.x ? exp2f(s[nt][2] * scale_log2 - m2_1) : pm1) * il1;
-      const float p3 = (sgq1 == sg.y ? exp2f(s[nt][3] * scale_log2 - m2_1) : pm1) * il1;
-      dp[nt][0] = (dp[nt][0] - di0) * p0 * sm_scale;
-      dp[nt][1] = (dp[nt][1] - di0) * p1 * sm_scale;
-      dp[nt][2] = (dp[nt][2] - di1) * p2 * sm_scale;
-      dp[nt][3] = (dp[nt][3] - di1) * p3 * sm_scale;
-    }
+    for (int v = 0; v < 32; ++v) dp[v] = (dp[v] - dii[(v >> 1) & 1]) * s[v] * sm_scale;
+    pack_a(dsa, dp);
 
-    mma_c_tile(dq_acc, dp, k_s, lane);  // dq += ds . k
-    __syncthreads();
+    // dq += ds . k: A from registers, k as MN-major B. Waiting for it here,
+    // not under the next tile's first products, measured faster.
+    const uint64_t kb_mn = desc_mn_sw128(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ra<64>(dq_acc, dsa + 4 * kk, kb_mn + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    ++n;
   }
 
-  store_rows_bf16(dq + b * sdq.b + h * sdq.h + (long long)(m0 + r0) * sdq.s, sdq.s, dq_acc, t);
+  store_acc_bf16(dq + b * sdq.b + h * sdq.h + (long long)row0 * sdq.s, sdq.s, dq_acc, t4);
+  if (threadIdx.x % 128 == 0) report_tiles(counts, threadIdx.x / 128, n);
 }
 
 // ---------------------------------------------------------------- f32
@@ -456,6 +734,36 @@ bool bad_shape(int B, int H, int S) {
   return B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S % 128 != 0;
 }
 
+// [B, H, S, 64] bf16 through (batch, head, row) strides in elements, read in
+// boxes of (64 values, box_rows rows) under 128-byte swizzle.
+bool bhsd_map(CUtensorMap* map, const void* base, int B, int H, int S, const Strides& st, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)DH, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What the bf16 kernels need beyond bad_shape: S up to MAX_SEQ, room for the
+// grid in tile_counts where it is set, the ids and row statistics 16-byte
+// aligned (bulk copies), the four tensor maps (box rows: streamed tiles BT,
+// the CTA's own CT), and the shared-memory size.
+template <typename Kernel>
+cudaError_t prepare_bf16(Kernel kernel, const void* const (&stats)[5], CUtensorMap (&maps)[4],
+                         const void* const (&tensors)[4], const Strides (&strides)[4], const int (&box)[4],
+                         int B, int H, int S) {
+  if (S > MAX_SEQ || (tile_counts != nullptr && 3LL * (S / CT) * H * B > tile_counts_len)) return cudaErrorInvalidValue;
+  for (const void* p : stats)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (!bhsd_map(&maps[i], tensors[i], B, H, S, strides[i], box[i])) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+}
+
 }  // namespace
 
 extern "C" {
@@ -463,7 +771,8 @@ extern "C" {
 // q, k, v, dout, dk, dv: [B, H, S, 64] through (batch, head, row) strides in
 // elements, the 64 values of a head contiguous and 16-byte aligned; bf16 when
 // is_bf16, else f32. seg_q, seg_kv [B, S] i32 and l, m, di [B, H, S] f32,
-// contiguous. S a multiple of 128.
+// contiguous (16-byte aligned for bf16). S a multiple of 128 (bf16: up to
+// 8192, strides positive).
 int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout,
                         const void* seg_q, const void* seg_kv, const void* l, const void* m,
                         const void* di, void* dk, void* dv, int B, int H, int S, int is_bf16,
@@ -478,11 +787,14 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
   const float scale_log2 = sm_scale * LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    flash_dkv_bf16_kernel<<<dim3(S / BN, H, B), THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const __nv_bfloat16*)dout, (const int*)seg_q, (const int*)seg_kv, (const float*)l,
-        (const float*)m, (const float*)di, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, sq, sk, sv,
-        sdo, sdk, sdv, scale_log2, sm_scale);
+    CUtensorMap maps[4];
+    const cudaError_t err = prepare_bf16(flash_dkv_bf16_kernel, {seg_q, seg_kv, l, m, di}, maps, {q, k, v, dout},
+                                         {sq, sk, sv, sdo}, {BT, CT, CT, BT}, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    flash_dkv_bf16_kernel<<<dim3(S / CT, H, B), BWD_THREADS, BWD_SMEM, st>>>(
+        maps[0], maps[1], maps[2], maps[3], (const int*)seg_q, (const int*)seg_kv, (const float*)l,
+        (const float*)m, (const float*)di, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, sdk, sdv, scale_log2,
+        sm_scale, tile_counts);
   } else {
     flash_dkv_f32_kernel<<<dim3(S / FR, H, B), 2 * FR, 0, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const int*)seg_q,
@@ -490,6 +802,19 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
         (float*)dv, S, sq, sk, sv, sdo, sdk, sdv, scale_log2, sm_scale);
   }
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 backward CTA (k and v or q and do, and the ring).
+int flash_attention_bwd_smem() { return BWD_SMEM; }
+
+// Until called with nullptr, every bf16 launch writes, for CTA
+// (b * H + h) * S/128 + x, the streamed tiles that its consumer warpgroups 0
+// and 1 computed and that its producer loaded into counts[3 * cta .. + 2]
+// (i32 on the device, n values; a launch whose grid does not fit fails).
+int flash_attention_bwd_count_tiles(void* counts, long long n) {
+  tile_counts = (int*)counts;
+  tile_counts_len = counts == nullptr ? 0 : n;
+  return 0;
 }
 
 // As flash_attention_dkv, for dq.
@@ -506,11 +831,14 @@ int flash_attention_dq(const void* q, const void* k, const void* v, const void* 
   const float scale_log2 = sm_scale * LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    flash_dq_bf16_kernel<<<dim3(S / BM, H, B), THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const __nv_bfloat16*)dout, (const int*)seg_q, (const int*)seg_kv, (const float*)l,
-        (const float*)m, (const float*)di, (__nv_bfloat16*)dq, S, sq, sk, sv, sdo, sdq, scale_log2,
-        sm_scale);
+    CUtensorMap maps[4];
+    const cudaError_t err = prepare_bf16(flash_dq_bf16_kernel, {seg_q, seg_kv, l, m, di}, maps, {q, k, v, dout},
+                                         {sq, sk, sv, sdo}, {CT, BT, BT, CT}, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    flash_dq_bf16_kernel<<<dim3(S / CT, H, B), BWD_THREADS, BWD_SMEM, st>>>(
+        maps[0], maps[1], maps[2], maps[3], (const int*)seg_q, (const int*)seg_kv, (const float*)l,
+        (const float*)m, (const float*)di, (__nv_bfloat16*)dq, S, sdq, scale_log2, sm_scale,
+        tile_counts);
   } else {
     flash_dq_f32_kernel<<<dim3(S / FR, H, B), 2 * FR, 0, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const int*)seg_q,

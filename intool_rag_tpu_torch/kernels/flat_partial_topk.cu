@@ -74,7 +74,7 @@
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
 // plain C interface (loaded through ctypes); it links against the CUDA
 // runtime only and takes cuTensorMapEncodeTiled from the driver through
-// cudaGetDriverEntryPoint(ByVersion). Each entry point returns the
+// cudaGetDriverEntryPoint(ByVersion) (tensor_map.cuh). Each entry point returns the
 // cudaError_t of its launch.
 
 #include <cuda.h>
@@ -86,6 +86,7 @@
 
 #include <type_traits>
 
+#include "tensor_map.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -427,24 +428,6 @@ partial_topk_kernel(const __grid_constant__ CUtensorMap map_c1, const __grid_con
 }
 
 // ---------------------------------------------------------------- host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
 
 // A [rows, cols] row-major operand read in boxes of (box_rows, 128 bytes)
 // under 128-byte swizzle; rows past the end read as zeros.

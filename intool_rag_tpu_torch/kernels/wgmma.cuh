@@ -1,5 +1,6 @@
 // Hopper warpgroup MMA (wgmma) and the TMA / mbarrier primitives the dense
-// search kernels K1 and K2 (flat_partial_topk.cu) are built from. sm_90a only.
+// search kernels K1 and K2 (flat_partial_topk.cu) and the attention backward
+// kernels K5 dkv / dq (flash_attention_bwd.cu) are built from. sm_90a only.
 //
 // mma<T, N>(d, a, b, scale_d) issues one wgmma.mma_async of shape m64nNk16
 // (bf16, f16 -> f32), m64nNk8 (T = float: tf32 -> f32) or m64nNk32
@@ -8,6 +9,13 @@
 // desc_sw128; d holds the warpgroup's accumulator fragment (N/2 values per
 // thread: value 4c + 2h + e sits at row 16*warp + lane/4 + 8h, column
 // 8c + 2*(lane%4) + e). scale_d = 0 overwrites d instead of adding to it.
+//
+// mma_ra<N>(d, a, b, scale_d) is the bf16 m64nNk16 product with A from
+// registers and B MN-major in shared memory (desc_mn_sw128, the transpose
+// bit). A's fragment is that of an accumulator: for k-step kk of a 64 x 64
+// f32 accumulator x, a = {x[8kk], x[8kk+1]}, {x[8kk+2], x[8kk+3]},
+// {x[8kk+4], x[8kk+5]}, {x[8kk+6], x[8kk+7]}, each pair rounded to bf16
+// (low half first).
 
 #pragma once
 
@@ -28,6 +36,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 1,024 bytes (stride byte offset 64 x 16 B); the tile base is 1,024-aligned.
 // Adding 2 (32 bytes) steps one wgmma depth along K inside the atom.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return ((uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// MN-major operand under 128-byte swizzle, as TMA lands a [K rows, 64] bf16
+// tile: each 128-byte row holds the 64 N values of one k, 8 rows form a
+// 1,024-byte atom, and the next 8 k lie one stride byte offset (1,024 bytes)
+// on. A k16 step is two atoms: add 128 (2,048 bytes). With N = 64 the width
+// is one atom, so the leading byte offset (the step to the next 64 N values)
+// is never taken.
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p) {
   return ((uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
@@ -74,6 +92,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
           "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
       : "memory");
+}
+
+// One TMA copy of a box of a 4-D tensor (x along the row, then y, z, w).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int x, int y, int z,
+                                            int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z), "r"(w)
+      : "memory");
+}
+
+// A bulk copy of `bytes` contiguous bytes (both ends 16-byte aligned, a
+// multiple of 16) into shared memory; it reports its bytes to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -318,4 +355,20 @@ template <> __device__ __forceinline__ void mma<int8_t, 128>(int32_t* d, uint64_
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+
+template <int N>
+__device__ void mma_ra(float* d, const uint32_t* a, uint64_t b, int scale_d);
+
+template <> __device__ __forceinline__ void mma_ra<64>(float* d, const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 }  // namespace

@@ -19,7 +19,9 @@ would lose ``log l`` beside the mask value of a row no key matches) and
 whose backward is :func:`flash_attention_backward`: the two kernels of
 ``kernels/flash_attention_bwd.cu`` (dk and dv in one, dq in the other) on
 the card, :func:`flash_attention_backward_plain` for CPU tensors. Neither
-direction ever falls back on a CUDA tensor.
+direction ever falls back on a CUDA tensor. The bf16 backward kernels skip
+the (query tile, key tile) pairs whose ids cannot meet;
+:func:`computed_tiles` is the plain model of that rule.
 
 The tensors may be strided views (the encoder passes its ``[B, S, H·64]``
 projections viewed as ``[B, H, S, 64]``); only the last dim must be
@@ -44,6 +46,9 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _SOURCE = "flash_attention.cu"
 _SOURCE_BWD = "flash_attention_bwd.cu"
 _DTYPES = (torch.bfloat16, torch.float32)
+# (query tile, key tile) of the bf16 backward kernels: dkv streams 64-query
+# tiles past a CTA's 128 keys, dq 64-key tiles past a CTA's 128 queries
+BWD_TILES = {"dkv": (64, 128), "dq": (128, 64)}
 
 
 def _check(q, k, v, seg_q, seg_kv) -> None:
@@ -98,6 +103,28 @@ def _check_backward(q, l, m, **like_q) -> None:
             raise ValueError(f"{name} must be float32 [{b}, {h}, {s}], got {t.dtype} {tuple(t.shape)}")
 
 
+def computed_tiles(seg_q, seg_kv, m, query_tile: int, key_tile: int) -> torch.Tensor:
+    """Plain model of the tile skip of the bf16 backward kernels:
+    ``[B, H, S/query_tile, S/key_tile]`` bool, True where the kernel computes
+    the pair (query tile, key tile). A pair is skipped only when the
+    ``[min, max]`` ranges of the two tiles' ids are disjoint, so that no
+    pair of equal id lies in it whatever the order of the ids, and no query
+    row of the query tile is one that no key matches (``m`` is the mask
+    value there, and ``p = 1/l`` on every key). On a skipped pair ``p`` and
+    ``ds`` are exactly 0. ``m`` is the forward's ``[B, H, S]`` row max."""
+    b, s = seg_q.shape
+
+    def ranges(seg, tile):
+        t = seg.reshape(b, s // tile, tile)
+        return t.amin(-1), t.amax(-1)
+
+    qlo, qhi = ranges(seg_q, query_tile)
+    klo, khi = ranges(seg_kv, key_tile)
+    meet = (qlo[:, :, None] <= khi[:, None, :]) & (klo[:, None, :] <= qhi[:, :, None])
+    nomatch = (m == MASK_VALUE).reshape(b, m.shape[1], s // query_tile, query_tile).any(-1)
+    return meet[:, None] | nomatch[..., None]
+
+
 def flash_attention_backward_plain(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: float):
     """Plain version of the backward kernels: ``(dq, dk, dv)`` from the
     forward's ``o``, ``l``, ``m`` and the output gradient ``do``, on f32
@@ -147,6 +174,7 @@ def _lib_bwd() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_dkv.argtypes = [p] * 11 + [i] * 4 + [ll] * 18 + [ctypes.c_float, p]
         lib.flash_attention_dq.argtypes = [p] * 10 + [i] * 4 + [ll] * 15 + [ctypes.c_float, p]
+        lib.flash_attention_bwd_count_tiles.argtypes = [p, ll]
         lib.flash_attention_dkv.restype = lib.flash_attention_dq.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -160,6 +188,12 @@ def _readable(t: torch.Tensor) -> bool:
     return sd == 1 and not (sb % per16 or sh % per16 or ss % per16 or t.data_ptr() % 16)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) at a 16-byte aligned address: the bf16 kernels
+    bulk-copy the ids and row statistics."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
     """(batch, head, row) strides in elements of a tensor the kernel can read."""
     if not _readable(t):
@@ -167,7 +201,10 @@ def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
             f"{name}: the {HEAD_DIM} values of a head must be contiguous and 16-byte aligned, "
             f"got strides {t.stride()}"
         )
-    return t.stride()[:3]
+    b, h, s, _ = t.shape
+    sb, sh, ss = t.stride()[:3]
+    # a dim of size 1 never advances; give it its natural stride (a TMA map refuses 0)
+    return (sb if b > 1 else h * s * HEAD_DIM), (sh if h > 1 else s * HEAD_DIM), ss
 
 
 def _same_device(dev, **tensors) -> None:
@@ -221,8 +258,10 @@ def _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di):
     _same_device(q.device, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv, l=l, m=m, do=do, di=di)
     if di.shape != l.shape or di.dtype != torch.float32:
         raise ValueError(f"di must be float32 {tuple(l.shape)}, got {di.dtype} {tuple(di.shape)}")
-    stats = [t.contiguous() for t in (seg_q, seg_kv, l, m, di)]
+    stats = [_aligned(t.contiguous()) for t in (seg_q, seg_kv, l, m, di)]
     strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")) for x in _strides(t, n)]
+    if q.dtype == torch.bfloat16 and min(strides) <= 0:  # TMA reads them: no repeated rows
+        raise ValueError(f"the bf16 backward kernels need positive strides, got {strides}")
     return stats, strides
 
 
@@ -265,6 +304,20 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale: float) ->
 flash_attention_dq.launches = LaunchCount()
 
 
+def count_tiles(counts: torch.Tensor | None) -> None:
+    """Have the bf16 backward kernels report what their tile skip did: until
+    called with None, each launch writes, per CTA, the streamed tiles that
+    its two consumer warpgroups computed and that its producer loaded into
+    ``counts``, int32 CUDA ``[B, H, S/128, 3]`` at that launch's shape (a
+    larger grid makes the launch fail). A measurement of the kernels, held
+    against :func:`computed_tiles`; the f32 kernels skip nothing and write
+    nothing."""
+    if counts is not None and not (counts.is_cuda and counts.dtype == torch.int32 and counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int32 CUDA tensor, got {counts.dtype} on {counts.device}")
+    _lib_bwd().flash_attention_bwd_count_tiles(None if counts is None else counts.data_ptr(),
+                                               0 if counts is None else counts.numel())
+
+
 def flash_attention_backward(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: float):
     """``(dq, dk, dv)``, each a ``[B, H, S, 64]`` view of a ``[B, S, H, 64]``
     tensor in its input's type. CUDA tensors go through the dkv and dq
@@ -274,8 +327,10 @@ def flash_attention_backward(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: floa
     _check_backward(q, l, m, o=o, do=do)
     if not q.is_cuda:
         return flash_attention_backward_plain(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale)
-    if not _readable(do):
+    if not _readable(do) or min(_strides(do, "do")) <= 0:
         do = do.contiguous()  # whatever layout the next op's backward produced
+    if q.dtype == torch.bfloat16:  # TMA reads q, k, v: a repeated row (zero stride) becomes a copy
+        q, k, v = (t.contiguous() if min(_strides(t, n)) <= 0 else t for t, n in ((q, "q"), (k, "k"), (v, "v")))
     di = (o.float() * do.float()).sum(dim=-1).contiguous()
     dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)
     dq = flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)

@@ -214,6 +214,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     assert getattr(tflash, kernel).launches.count == 0
 
 
+def test_tile_counts_take_cuda_tensors_only():
+    """The kernels write their tile counts on the device: a CPU buffer is
+    refused before any library is loaded."""
+    with pytest.raises(ValueError):
+        tflash.count_tiles(torch.zeros((1, 1, 1, 3), dtype=torch.int32))
+
+
 def test_cpu_route_counts_plain_calls_not_launches():
     rng, q, k, v = _inputs(27, 1, 1, 128, "float32")
     for counter in (tflash.flash_attention_plain.calls, tflash.flash_attention_backward_plain.calls,
@@ -228,15 +235,26 @@ def test_cpu_route_counts_plain_calls_not_launches():
     assert tflash.flash_attention_dkv.launches.count == tflash.flash_attention_dq.launches.count == 0
 
 
+def _card_cases():
+    """(name, S, seg_q, seg_kv) for the card test: packed rows at S 1024 and
+    S 128, and the edges of the bf16 kernels' tile skip at S 1024."""
+    rng = np.random.default_rng(1)
+    cases = [("packed", s, seg, seg) for s in (1024, 128) for seg in [_segments(rng, "packed", 2, s)]]
+    for name in ("no key in a skipped tile", "interleaved"):
+        seg_q, seg_kv = _skip_layouts(rng, 2, 1024)[name]
+        cases.append((name, 1024, seg_q, seg_kv))
+    return cases
+
+
 def test_backward_kernels_on_card():
     """The CUDA kernels against the plain backward, strided views included,
     and two runs bit-equal (needs the card; ``python3 chip_smoke.py
     --phases 1,2`` runs the full set)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
-    for dtype in (torch.float32, torch.bfloat16):
-        rng, q, k, v = _inputs(1, 2, 6, 1024, "float32")
-        seg = torch.from_numpy(_segments(rng, "packed", 2, 1024)).cuda()
+    for dtype, (name, s, seg_q, seg_kv) in ((d, c) for d in (torch.float32, torch.bfloat16) for c in _card_cases()):
+        rng, q, k, v = _inputs(1, 2, 6, s, "float32")
+        seg_q, seg_kv = torch.from_numpy(seg_q).cuda(), torch.from_numpy(seg_kv).cuda()
         do = _do(rng, q.shape, "float32")
         # the encoder's layout: [B, S, H*64] viewed as [B, H, S, 64]
         q, k, v, do = (torch.from_numpy(x).cuda().to(dtype).transpose(1, 2).contiguous().transpose(1, 2)
@@ -244,14 +262,185 @@ def test_backward_kernels_on_card():
         leaves = [x.requires_grad_() for x in (q, k, v)]
         for counter in (tflash.flash_attention_dkv.launches, tflash.flash_attention_dq.launches):
             counter.reset()
-        out = tflash.flash_attention_segments(*leaves, seg, seg, SCALE)
+        out = tflash.flash_attention_segments(*leaves, seg_q, seg_kv, SCALE)
         got = torch.autograd.grad(out, leaves, do, retain_graph=True)
         again = torch.autograd.grad(out, leaves, do)
         torch.cuda.synchronize()
         assert tflash.flash_attention_dkv.launches.count == tflash.flash_attention_dq.launches.count == 2
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
-        _, l, m = tflash.flash_attention_plain(q, k, v, seg, seg, SCALE, save_residuals=True)
-        want = tflash.flash_attention_backward_plain(q, k, v, seg, seg, out.detach(), l, m, do, SCALE)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (name, s, dtype)
+        _, l, m = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, SCALE, save_residuals=True)
+        want = tflash.flash_attention_backward_plain(q, k, v, seg_q, seg_kv, out.detach(), l, m, do, SCALE)
         for g, w in zip(got, want):
             atol = 5e-5 if dtype == torch.float32 else max(2.0 ** -7 * w.float().abs().max().item(), 2e-3)
-            assert (g.float() - w.float()).abs().max().item() <= atol
+            assert (g.float() - w.float()).abs().max().item() <= atol, (name, s, dtype)
+
+
+# ---------------------------------------------------------------- the tile skip
+
+
+def _skip_layouts(rng: np.random.Generator, b: int, s: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """(seg_q, seg_kv) pairs for the skip rule: every ``LAYOUTS`` entry with
+    seg_q = seg_kv; a query row whose id no key carries, inside a tile whose
+    range no other key tile meets (ids 2, 4, 6, ... in runs of 100, row 5
+    given 3); and interleaved, non-monotonic ids that differ between the
+    queries and the keys (runs of 96 and 80, rows no key matches among
+    them)."""
+    out = {name: (seg, seg) for name in LAYOUTS for seg in [_segments(rng, name, b, s)]}
+    pos = np.arange(s)[None, :]
+    even = np.broadcast_to(2 * (pos // 100 + 1), (b, s)).astype(np.int32)
+    odd_row = even.copy()
+    odd_row[:, 5] = 3
+    out["no key in a skipped tile"] = (odd_row, even.copy())
+    kv_ids = np.array([5, 1, 6, 2, 7, 3, 8, 4, 9], np.int32)
+    q_ids = np.array([1, 5, 2, 6, 3, 7, 4, 8, 10, 9], np.int32)
+    seg_kv = np.broadcast_to(kv_ids[(pos // 96) % len(kv_ids)], (b, s)).astype(np.int32)
+    seg_q = np.broadcast_to(q_ids[(pos // 80) % len(q_ids)], (b, s)).astype(np.int32)
+    out["interleaved"] = (seg_q.copy(), seg_kv.copy())
+    return out
+
+
+SKIP_LAYOUTS = (*LAYOUTS, "no key in a skipped tile", "interleaved")
+
+
+def _restricted_backward(q, k, v, seg_q, seg_kv, o, l, m, do):
+    """The plain backward with ``p`` and ``ds`` zeroed on every pair that
+    the bf16 kernels skip (:func:`tflash.computed_tiles` at dkv's tiles for
+    dk and dv, at dq's for dq); every other step as
+    ``flash_attention_backward_plain`` takes it."""
+    def computed_pairs(what):
+        tq, tk = tflash.BWD_TILES[what]
+        tiles = tflash.computed_tiles(seg_q, seg_kv, m, tq, tk)
+        return tiles.repeat_interleave(tq, dim=2).repeat_interleave(tk, dim=3)
+
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = (qf @ kf.transpose(-1, -2)) * SCALE
+    logits = logits.masked_fill(seg_q[:, None, :, None] != seg_kv[:, None, None, :], tflash.MASK_VALUE)
+    p = torch.exp(logits - m[..., None]) * (1.0 / l)[..., None]
+    di = (o.float() * dof).sum(dim=-1)
+    ds = (dof @ vf.transpose(-1, -2) - di[..., None]) * p
+    ds = (ds * SCALE).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    keep = computed_pairs("dkv")
+    dv = (torch.where(keep, p, 0.0).transpose(-1, -2) @ dof).to(v.dtype)
+    dk = (torch.where(keep, ds, 0.0).transpose(-1, -2) @ qf).to(k.dtype)
+    dq = (torch.where(computed_pairs("dq"), ds, 0.0) @ kf).to(q.dtype)
+    return dq, dk, dv
+
+
+def _plain_residuals(q, k, v, seg_q, seg_kv, dtype: str):
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    seg_q, seg_kv = torch.from_numpy(seg_q), torch.from_numpy(seg_kv)
+    out, l, m = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, SCALE, save_residuals=True)
+    return q, k, v, seg_q, seg_kv, out, l, m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", SKIP_LAYOUTS)
+def test_backward_restricted_to_computed_tiles_is_bit_equal(layout, dtype):
+    """Skipping the pairs the rule rules out changes no gradient value: p
+    and ds are exactly 0 there (a zero may change sign, which compares
+    equal)."""
+    b, h, s = 2, 2, 512
+    rng, q, k, v = _inputs(31, b, h, s, dtype)
+    seg_q, seg_kv = _skip_layouts(rng, b, s)[layout]
+    args = _plain_residuals(q, k, v, seg_q, seg_kv, dtype)
+    do = torch.from_numpy(_do(rng, q.shape, dtype)).to(args[0].dtype)
+    full = tflash.flash_attention_backward_plain(*args, do, SCALE)
+    restricted = _restricted_backward(*args, do)
+    for name, a, r in zip(("dq", "dk", "dv"), full, restricted):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("what", ["dkv", "dq"])
+def test_skip_rule_skips_nothing_on_one_segment_and_some_tiles_of_packed_rows(what):
+    b, h, s = 2, 2, 1024
+    tq, tk = tflash.BWD_TILES[what]
+    rng = np.random.default_rng(32)
+    m = torch.zeros((b, h, s))
+    share = {}
+    for name in ("one", "straddle", "packed"):
+        seg = torch.from_numpy(_segments(rng, name, b, s))
+        tiles = tflash.computed_tiles(seg, seg, m, tq, tk)
+        assert tiles.shape == (b, h, s // tq, s // tk)
+        share[name] = tiles.float().mean().item()
+    assert share["one"] == 1.0
+    assert share["straddle"] < 1.0 and share["packed"] < 1.0
+    # a row no key matches keeps every key tile of its query tile
+    seg = torch.from_numpy(_segments(rng, "straddle", b, s))
+    m[0, 1, 70] = tflash.MASK_VALUE
+    tiles = tflash.computed_tiles(seg, seg, m, tq, tk)
+    assert tiles[0, 1, 70 // tq].all() and not tiles[0, 0, 70 // tq].all()
+
+
+def test_skip_rule_model_on_a_hand_made_layout():
+    """Query tiles of 64 against key tiles of 128 (dkv): ids 1 | 2 | 3 | 4 in
+    runs of 128, so query tile t meets key tile t // 2 alone."""
+    s = 512
+    seg = torch.from_numpy(np.repeat(np.arange(1, 5, dtype=np.int32), 128)[None])
+    m = torch.zeros((1, 1, s))
+    tiles = tflash.computed_tiles(seg, seg, m, 64, 128)[0, 0]
+    want = torch.zeros((8, 4), dtype=torch.bool)
+    want[torch.arange(8), torch.arange(8) // 2] = True
+    assert torch.equal(tiles, want)
+    m[0, 0, 200] = tflash.MASK_VALUE  # query tile 3 then meets every key tile
+    want[3] = True
+    assert torch.equal(tflash.computed_tiles(seg, seg, m, 64, 128)[0, 0], want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_restricted_backward_matches_library_kernels_in_interpret_mode(dtype):
+    b, h, s = 1, 2, 256
+    rng, q, k, v = _inputs(33, b, h, s, dtype)
+    seg = _segments(rng, "packed", b, s)
+    do = _do(rng, q.shape, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = _library_grads(_kernels, q, k, v, seg, seg, do, dtype)
+    args = _plain_residuals(q, k, v, seg, seg, dtype)
+    got = _restricted_backward(*args, torch.from_numpy(do).to(args[0].dtype))
+    _assert_close([g.float().numpy() for g in got], want, dtype)
+
+
+def test_kernels_count_the_tiles_the_rule_computes_on_card():
+    """Each CTA of the bf16 kernels reports the streamed tiles its producer
+    loaded and its two consumer warpgroups computed: every count equals the
+    plain model's (needs the card; ``chip_smoke.py`` phase 2 holds every
+    layout)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    b, h, s = 2, 2, 1024
+    rng = np.random.default_rng(34)
+    for name, (seg_q, seg_kv) in _skip_layouts(rng, b, s).items():
+        q, k, v, do = (torch.randn((b, h, s, 64), device="cuda").to(torch.bfloat16) for _ in range(4))
+        seg_q, seg_kv = torch.from_numpy(seg_q).cuda(), torch.from_numpy(seg_kv).cuda()
+        out, l, m = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, SCALE, save_residuals=True)
+        di = (out.float() * do.float()).sum(dim=-1).contiguous()
+        for what, kernel in (("dkv", tflash.flash_attention_dkv), ("dq", tflash.flash_attention_dq)):
+            counts = torch.full((b, h, s // 128, 3), -1, dtype=torch.int32, device="cuda")
+            tflash.count_tiles(counts)
+            try:
+                kernel(q, k, v, seg_q, seg_kv, l, m, do, di, SCALE)
+                torch.cuda.synchronize()
+            finally:
+                tflash.count_tiles(None)
+            tiles = tflash.computed_tiles(seg_q, seg_kv, m, *tflash.BWD_TILES[what])
+            want = tiles.sum(2) if what == "dkv" else tiles.sum(3)  # per CTA: its 128 keys (dkv) or queries (dq)
+            assert torch.equal(counts, want.int()[..., None].expand(-1, -1, -1, 3)), (name, what)
+
+
+def test_backward_takes_what_the_forward_takes_on_card():
+    """k and v expanded over the heads (a zero stride) go through the
+    forward, so the backward takes them too: the same gradients as their
+    contiguous copies (needs the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = (torch.randn((1, 4, 256, 64), device="cuda").to(dtype) for _ in range(2))
+        kv = torch.randn((1, 1, 256, 64), device="cuda").to(dtype).expand(1, 4, 256, 64)
+        seg = torch.ones((1, 256), dtype=torch.int32, device="cuda")
+        grads = []
+        for k in (kv, kv.contiguous()):
+            leaves = [x.detach().requires_grad_() for x in (q, k, k)]
+            out = tflash.flash_attention_segments(*leaves, seg, seg, SCALE)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), dtype
