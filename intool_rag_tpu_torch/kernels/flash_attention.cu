@@ -26,34 +26,66 @@
 // projections as they are and gets the result in that layout: no transpose is
 // copied on either side.
 //
-// Design for an H100. At S 8192 the work is 4*S*S*64 operations per head
-// against 4*S*64 values moved: bound by operations, far above the card's 295
-// operations per byte. bf16 variant: one CTA per (batch, head, 64 query rows),
-// four warps of 16 rows. The q tile goes once through shared memory into
-// mma.sync.m16n8k16 A fragments that stay in registers. The loop walks 64-key
-// tiles: k and v tiles are staged in shared memory in rows padded to 72 values
-// (144 bytes), which makes the fragment loads conflict-free; q.kT reads the B
-// fragments of k as 32-bit words, p.v reads those of v with ldmatrix.trans,
-// and the C fragments of q.kT are repacked in registers as the A fragments of
-// p.v. Running max and sum live in registers, one pair per thread row. f32
-// variant (CUDA cores, no TF32): one thread per query row, 128 rows per CTA,
-// 32-key tiles broadcast from shared memory, online softmax in chunks of 8
-// keys.
-//
 // A differentiated call also saves each row's sum l and max m ([B, H, S] f32,
 // m in the natural-exponent domain, the mask value itself for a row no key
 // matches) for the backward kernels of flash_attention_bwd.cu; the library
 // keeps the two apart as well, since m + log l would lose log l beside the
 // mask value.
 //
-// Still open: wgmma and TMA, double buffering of the k/v tiles (loads and
-// MMAs of one CTA do not overlap; several CTAs per SM hide part of it), and
-// skipping key tiles whose segment range cannot meet the query tile's, which
-// would cut a packed row's work from S*S to the sum of its segments' squares.
+// What bounds it on an H100: operations. Per head and per pair of equal id it
+// does 4 x 64 (q.kT and p.v) against 4 x 64 values moved per row; at a head
+// width of 64 the exponentials, the masking and the online softmax take about
+// as many issue slots as the tensor cores take cycles for the two products.
+// The bf16 variant is built for the tensor cores and for doing no work that
+// the ids rule out, on the geometry of the backward's dq kernel
+// (flash_attention_bwd.cu, pieces shared in flash_common.cuh):
+//  * one CTA per (batch, head, 128-query tile): two consumer warpgroups own
+//    64 queries each, the producer warpgroup hands its registers to them
+//    (setmaxnreg) and one of its threads feeds the ring. q lands once by TMA
+//    in 128-byte-swizzled shared memory and stays there for the whole walk;
+//    a ring of STAGES stages carries the 128-key tiles of k and v (TMA
+//    from 4-D tensor maps over the strided [B, H, S, 64] view) and their
+//    seg_kv (bulk copy).
+//  * s = q.kT is a wgmma m64n128k16 x 4 with both operands in shared memory
+//    (k K-major). The online softmax runs on the accumulator registers in the
+//    exp2 domain (ex2.approx.ftz: a few ulp of f32 against the bf16 rounding
+//    that follows); p, rounded to bf16, is the register-A fragment of
+//    o += p.v as it stands (the accumulator layout of a wgmma is the A
+//    fragment of the next), with v read as MN-major B (the transpose bit).
+//    A tile's p.v is issued right behind the next tile's q.kT, so the tensor
+//    cores run the two back to back and a warpgroup waits once a tile; the
+//    two warpgroups take turns to issue (ping-pong on two named barriers),
+//    so one's products run under the other's softmax. (Forming the next
+//    softmax while p.v runs keeps p live beside s and o: at 128-key tiles
+//    that spilled under the 168 registers ptxas gives a thread of this
+//    384-thread CTA. 64-key tiles ran slower either way: PERF.md §6.)
+//    Where every pair of a tile matches, s is not scaled in place: its max
+//    is, and p = 2^(s * scale - m) takes one FFMA.
+//  * Key tiles whose id range cannot meet the CTA's query rows are skipped
+//    (the rule and its plain model: ops/flash_attention.py::computed_tiles
+//    with query tile 128, key tile 128). For a row with a matching key this
+//    is exact: every matching key lies in a walked tile, and a skipped tile
+//    would add exp2(MASK_VALUE - m) = 0. A row that no key matches must still
+//    average v over every key, so after the live tiles the consumers look for
+//    a running max at or below the mask value; where a row of the CTA has
+//    one, the producer (told through a shared flag and a barrier) streams the
+//    skipped tiles too, and both warpgroups walk them. The tiles walked then
+//    equal computed_tiles with the forward's own m, the rule the backward
+//    kernels follow. Where both tiles hold one and the same id, every pair
+//    matches and the id compare is left out. On request
+//    (flash_attention_count_tiles) each CTA reports the tiles its producer
+//    loaded and its consumers computed, so that the skip is measured in the
+//    kernel and held against the plain model.
+//  * The accumulator is divided by l once and stored in the [B, S, H, 64]
+//    layout the encoder reads. No atomics: a result repeats bit for bit.
+// f32 variant (CUDA cores, no TF32): one thread per query row, 128 rows per
+// CTA, 32-key tiles broadcast from shared memory, online softmax in chunks of
+// 8 keys; it walks every key tile.
 //
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
-// plain C interface (loaded through ctypes). The entry point returns the
-// cudaError_t of its launch.
+// plain C interface (loaded through ctypes); cuTensorMapEncodeTiled comes from
+// the driver (tensor_map.cuh). The entry point returns the cudaError_t of its
+// launch.
 
 #include "flash_common.cuh"
 
@@ -61,200 +93,252 @@ namespace {
 
 constexpr float LN2 = 0.6931471805599453f;
 
-// The bf16 kernel's tiles and its mma.sync / ldmatrix fragment helpers. Tiles
-// are 64 rows of 64 bf16 values in shared-memory rows padded to 72 values
-// (144 bytes), which makes every fragment load conflict-free.
-constexpr int BM = 64;   // query rows per CTA
-constexpr int BN = 64;   // keys per tile
-constexpr int LDS = 72;  // padded shared-memory row, in bf16 values
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                                 uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed: lane l gives the address of stored row
-// l%8 of matrix l/8; thread (g, t) receives {M[2t][g], M[2t+1][g]} of each.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3, const void* row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// rows [rows0, rows0 + 64) of one head into a padded shared tile, 16 bytes a thread
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride) {
-  for (int c = threadIdx.x; c < BN * (DH / 8); c += THREADS) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDS + col) =
-        __ldg(reinterpret_cast<const uint4*>(src + (long long)r * row_stride + col));
-  }
-}
-
-// ---------------------------------------------------------------- bf16
-
 // the running max leaves the exp2 domain for the saved residual; a row no key
 // matched keeps the mask value itself
 __device__ __forceinline__ float natural_max(float m2) {
   return m2 == MASK_VALUE ? MASK_VALUE : m2 * LN2;
 }
 
+// ---------------------------------------------------------------- bf16 (tensor cores)
+
+constexpr int KT = 128;                            // keys per streamed tile
+constexpr int KT_BYTES = KT * DH * 2;              // 16 KB: a k or v tile
+constexpr int FWD_STAGE_BYTES = 2 * KT_BYTES + 1024;  // k, v and their ids, 1,024-aligned
+constexpr int FWD_SMEM = OWN_BYTES + STAGES * FWD_STAGE_BYTES + 1024;  // q, the ring, slack to align to 1,024 bytes
+
+// One key tile of the online softmax for this thread's two query rows (ids
+// sgq): s, the tile's q.kT accumulator (value 4c + 2hh + e at row 8hh of the
+// thread's pair, key 8c + 2 t4 + e), becomes p; the running max m2 (exp2
+// domain) and this thread's share l of each row's running sum move on, and
+// alpha is the factor that rescales o to the new max. UNIFORM: every pair has
+// equal ids, so s is neither masked nor scaled in place: its max scales
+// (rounding is monotone, so max(s) * scale is the max of s * scale) and
+// p = 2^(s * scale - m2) takes one FFMA.
+template <bool UNIFORM, int NV>
+__device__ __forceinline__ void softmax_tile(float (&s)[NV], float (&alpha)[2], float (&m2)[2], float (&l)[2],
+                                             const int (&sgq)[2], const int* sg_s, int t4, float scale_log2) {
+  float mx[2] = {UNIFORM ? -CUDART_INF_F : m2[0], UNIFORM ? -CUDART_INF_F : m2[1]};
+#pragma unroll
+  for (int c = 0; c < NV / 4; ++c) {
+    if constexpr (!UNIFORM) {
+      const int2 sg = *reinterpret_cast<const int2*>(sg_s + 8 * c + 2 * t4);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = sgq[hh] == sg.x ? s[v] * scale_log2 : MASK_VALUE;
+        s[v + 1] = sgq[hh] == sg.y ? s[v + 1] * scale_log2 : MASK_VALUE;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) mx[hh] = fmaxf(mx[hh], fmaxf(s[4 * c + 2 * hh], s[4 * c + 2 * hh + 1]));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // the four threads of a row (lanes 4g .. 4g + 3) share its max
+    if constexpr (UNIFORM) mx[hh] = fmaxf(m2[hh], mx[hh] * scale_log2);
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    alpha[hh] = ex2(m2[hh] - mx[hh]);  // 0 on the first tile (m2 = -inf)
+    m2[hh] = mx[hh];
+  }
+#pragma unroll
+  for (int c = 0; c < NV / 4; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int v = 4 * c + 2 * hh;
+      if constexpr (UNIFORM) {
+        s[v] = ex2(fmaf(s[v], scale_log2, -m2[hh]));
+        s[v + 1] = ex2(fmaf(s[v + 1], scale_log2, -m2[hh]));
+      } else {
+        s[v] = ex2(s[v] - m2[hh]);
+        s[v + 1] = ex2(s[v + 1] - m2[hh]);
+      }
+      sum[hh] += s[v] + s[v + 1];
+    }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// One key tile of a consumer warpgroup (its 64 queries against the stage's
+// KT keys at st): s = q . kT and, issued right behind it unless FIRST, the
+// previous tile's o += p . v (p from the registers pa, v from stage prev as
+// MN-major B), so the tensor cores run the two back to back and the
+// warpgroup waits once. Then the previous stage is released, this tile's
+// softmax formed, o rescaled to the new running max and p packed into pa.
+// The two warpgroups take turns to issue (named barriers 1 and 2: each
+// issues, then lets the other), so one's products run under the other's
+// softmax. No branch lies between a product's issue and its wait, so ptxas
+// keeps the products asynchronous.
+template <bool UNIFORM, bool FIRST>
+__device__ __forceinline__ void consume_tile(float (&o)[32], uint32_t (&pa)[KT / 4], float (&m2)[2], float (&l)[2],
+                                             const int (&sgq)[2], uint64_t qa, const uint8_t* st,
+                                             const uint8_t* prev, uint64_t* prev_empty, int wg, int lane, int t4,
+                                             float scale_log2) {
+  float s[KT / 2], alpha[2];
+  const uint64_t kb = desc_sw128(st), vb = desc_mn_sw128(prev + KT_BYTES);
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");  // this warpgroup's turn to issue
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma<__nv_bfloat16, KT>(s, qa + 2 * kk, kb + 2 * kk, kk > 0);
+  wgmma_commit();
+  if constexpr (!FIRST) {
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) mma_ra<64>(o, pa + 4 * kk, vb + 128 * kk, 1);
+    wgmma_commit();
+  }
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");  // the other warpgroup's turn
+  wgmma_wait<0>();
+  fence_regs(s);
+  if constexpr (!FIRST) {  // the previous p . v is done: its stage is free, o and pa may be written
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(prev_empty);
+  }
+  softmax_tile<UNIFORM>(s, alpha, m2, l, sgq, reinterpret_cast<const int*>(st + 2 * KT_BYTES), t4, scale_log2);
+#pragma unroll
+  for (int v = 0; v < 32; ++v) o[v] *= alpha[(v >> 1) & 1];
+  pack_a(pa, s);
+}
+
+// The next tile of walk `walk` after t (0: the live tiles, 1: the skipped
+// ones), or n_tiles.
+__device__ __forceinline__ int next_walked(const TilePlan& pl, int t, int walk, int n_tiles) {
+  do ++t;
+  while (t < n_tiles && (pl.live[t] == 0) != (walk == 1));
+  return t;
+}
+
 // SAVE: also write the row sums l and maxima m ([B, H, S] f32) the backward
 // kernels need; the inference instantiation has no such stores.
 template <bool SAVE>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ o,
-                  float* __restrict__ l_out, float* __restrict__ m_out, int S, Strides sq,
-                  Strides sk, Strides sv, Strides so, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * LDS];
-  __shared__ __align__(16) int segk_s[BN];
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ o, float* __restrict__ l_out,
+                  float* __restrict__ m_out, int S, Strides so, float scale_log2, int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = align_1024(smem_raw);  // q: the CTA's 128 queries
+  uint8_t* ring = own + OWN_BYTES;      // per stage: k tile, v tile, seg_kv
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], own_full, decided;
+  __shared__ TilePlan plan;
+  __shared__ int second_walk;  // a query row of this CTA met no key in the live tiles
 
-  const int m0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows of the tile: r0 and r0 + 8
-
-  // q tile -> A fragments in registers (through k_s)
-  stage_tile(k_s, q + b * sq.b + h * sq.h + (long long)m0 * sq.s, sq.s);
-  __syncthreads();
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(k_s + r0 * LDS + kk * 16 + 2 * t);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(k_s + (r0 + 8) * LDS + kk * 16 + 2 * t);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(k_s + r0 * LDS + kk * 16 + 2 * t + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(k_s + (r0 + 8) * LDS + kk * 16 + 2 * t + 8);
+  const int m0 = blockIdx.x * CT, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / KT;
+  const int* sk_b = seg_kv + (long long)b * S;
+  if (threadIdx.x == 0) {
+    mbar_init(&decided, CONSUMERS / 32);  // lane 0 of every consumer warp, after the live tiles
+    second_walk = 0;
   }
-  const int sgq0 = seg_q[(long long)b * S + m0 + r0];
-  const int sgq1 = seg_q[(long long)b * S + m0 + r0 + 8];
-  __syncthreads();
+  init_ring(full, 1, empty, &own_full);
+  plan_tiles<KT>(plan, sk_b, nullptr, seg_q + (long long)b * S + m0, nullptr, n_tiles);
 
-  float o_acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[dt][e] = 0.f;
-  float m_i[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, in the exp2 domain
-  float l_i[2] = {0.f, 0.f};                      // this thread's share of the running sum
-
-  const __nv_bfloat16* kh = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vh = v + b * sv.b + h * sv.h;
-  const int* sgk = seg_kv + (long long)b * S;
-  // ldmatrix row of this lane inside a 16-key x 16-dim block of v_s
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
-
-  for (int n0 = 0; n0 < S; n0 += BN) {
-    stage_tile(k_s, kh + (long long)n0 * sk.s, sk.s);
-    stage_tile(v_s, vh + (long long)n0 * sv.s, sv.s);
-    if (threadIdx.x < BN) segk_s[threadIdx.x] = sgk[n0 + threadIdx.x];
-    __syncthreads();
-
-    // s = q . kT: 16 rows x 64 keys per warp
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kr = k_s + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
-        mma_bf16_16x8x16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
-                         *reinterpret_cast<const uint32_t*>(kr),
-                         *reinterpret_cast<const uint32_t*>(kr + 8));
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread feeds the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(&own_full, OWN_BYTES);
+      tma_load_4d(own, &map_q, &own_full, 0, m0, h, b);
+      uint32_t n = 0;
+      for (int walk = 0; walk < 2; ++walk) {  // the live tiles, then (maybe) the skipped ones
+        if (walk == 1) {
+          mbar_wait(&decided, 0);
+          if (!*reinterpret_cast<volatile int*>(&second_walk)) break;
+        }
+        for (int t = 0; t < n_tiles; ++t) {
+          if ((plan.live[t] == 0) != (walk == 1)) continue;
+          const int stage = ring_stage(n);
+          mbar_wait(&empty[stage], ring_phase(n) ^ 1);
+          uint8_t* st = ring + stage * FWD_STAGE_BYTES;
+          mbar_expect_tx(&full[stage], 2 * KT_BYTES + KT * 4);
+          tma_load_4d(st, &map_k, &full[stage], 0, t * KT, h, b);
+          tma_load_4d(st + KT_BYTES, &map_v, &full[stage], 0, t * KT, h, b);
+          bulk_load(st + 2 * KT_BYTES, sk_b + t * KT, KT * 4, &full[stage]);
+          ++n;
+        }
       }
+      report_tiles(counts, 2, n);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
-    // scale, mask, running max
-    float mx0 = m_i[0], mx1 = m_i[1];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int2 sg = *reinterpret_cast<const int2*>(segk_s + nt * 8 + 2 * t);
-      s[nt][0] = sgq0 == sg.x ? s[nt][0] * scale_log2 : MASK_VALUE;
-      s[nt][1] = sgq0 == sg.y ? s[nt][1] * scale_log2 : MASK_VALUE;
-      s[nt][2] = sgq1 == sg.x ? s[nt][2] * scale_log2 : MASK_VALUE;
-      s[nt][3] = sgq1 == sg.y ? s[nt][3] * scale_log2 : MASK_VALUE;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = exp2f(m_i[0] - mx0), alpha1 = exp2f(m_i[1] - mx1);
-    m_i[0] = mx0;
-    m_i[1] = mx1;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, t4 = lane % 4;
+  const int row0 = m0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;  // this thread's queries: row0, row0 + 8
+  const int sgq[2] = {__ldg(seg_q + (long long)b * S + row0), __ldg(seg_q + (long long)b * S + row0 + 8)};
+  const uint64_t qa = desc_sw128(own + wg * TILE_BYTES);
 
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mx0);
-      s[nt][1] = exp2f(s[nt][1] - mx0);
-      s[nt][2] = exp2f(s[nt][2] - mx1);
-      s[nt][3] = exp2f(s[nt][3] - mx1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    l_i[0] = l_i[0] * alpha0 + sum0;
-    l_i[1] = l_i[1] * alpha1 + sum1;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      o_acc[dt][0] *= alpha0;
-      o_acc[dt][1] *= alpha0;
-      o_acc[dt][2] *= alpha1;
-      o_acc[dt][3] *= alpha1;
-    }
+  float o_acc[32], m2[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  uint32_t pa[KT / 4];  // the previous tile's p as register A
+  zero_acc(o_acc);
+  mbar_wait(&own_full, 0);
 
-    // o += p . v, p rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, v_s + (kk * 16 + v_row) * LDS + dp * 16 + v_col);
-        mma_bf16_16x8x16(o_acc[2 * dp], a0, a1, a2, a3, b0, b1);
-        mma_bf16_16x8x16(o_acc[2 * dp + 1], a0, a1, a2, a3, b2, b3);
-      }
+  // After the live tiles: does a row of the CTA lack a key so far (running max
+  // at, or with no tile walked below, the mask value)? Then all walk the
+  // skipped tiles too. Every consumer warp asks once.
+  auto second = [&]() {
+    const bool lost = __any_sync(0xffffffffu, m2[0] <= MASK_VALUE || m2[1] <= MASK_VALUE);
+    if (lane == 0) {
+      if (lost) atomicOr(&second_walk, 1);
+      mbar_arrive(&decided);
     }
-    __syncthreads();
+    mbar_wait(&decided, 0);
+    return *reinterpret_cast<volatile int*>(&second_walk) != 0;
+  };
+  int walk = 0, t = next_walked(plan, -1, 0, n_tiles);
+  if (t == n_tiles && second()) {
+    walk = 1;
+    t = next_walked(plan, -1, 1, n_tiles);
+  }
+  if (wg == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // warpgroup 0 issues first
+  // the first tile, in stage 0: no p . v before it (a CTA walks at least one tile)
+  mbar_wait(&full[0], 0);
+  if (plan.live[t] == 2) consume_tile<true, true>(o_acc, pa, m2, l, sgq, qa, ring, ring, nullptr, wg, lane, t4, scale_log2);
+  else consume_tile<false, true>(o_acc, pa, m2, l, sgq, qa, ring, ring, nullptr, wg, lane, t4, scale_log2);
+  const uint8_t* prev = ring;
+  uint32_t n = 1;  // tiles walked so far
+  for (;; ++n) {
+    t = next_walked(plan, t, walk, n_tiles);
+    if (t == n_tiles && walk == 0 && second()) {
+      walk = 1;
+      t = next_walked(plan, -1, 1, n_tiles);
+    }
+    if (t == n_tiles) break;
+    const int stage = ring_stage(n);
+    mbar_wait(&full[stage], ring_phase(n));
+    const uint8_t* st = ring + stage * FWD_STAGE_BYTES;
+    uint64_t* prev_empty = &empty[ring_stage(n - 1)];
+    if (plan.live[t] == 2) consume_tile<true, false>(o_acc, pa, m2, l, sgq, qa, st, prev, prev_empty, wg, lane, t4, scale_log2);
+    else consume_tile<false, false>(o_acc, pa, m2, l, sgq, qa, st, prev, prev_empty, wg, lane, t4, scale_log2);
+    prev = st;
+  }
+  {  // the last tile's o += p . v (its stage is not released: the producer is done)
+    const uint64_t vb = desc_mn_sw128(prev + KT_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) mma_ra<64>(o_acc, pa + 4 * kk, vb + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(pa);
   }
 
-  // the four threads of a row hold its sum in shares
-  l_i[0] += __shfl_xor_sync(0xffffffffu, l_i[0], 1);
-  l_i[0] += __shfl_xor_sync(0xffffffffu, l_i[0], 2);
-  l_i[1] += __shfl_xor_sync(0xffffffffu, l_i[1], 1);
-  l_i[1] += __shfl_xor_sync(0xffffffffu, l_i[1], 2);
-  if (SAVE && t == 0) {
-    const long long row = ((long long)b * gridDim.y + h) * S + m0 + r0;
-    l_out[row] = l_i[0];
-    l_out[row + 8] = l_i[1];
-    m_out[row] = natural_max(m_i[0]);
-    m_out[row + 8] = natural_max(m_i[1]);
-  }
-  const float inv0 = 1.f / l_i[0], inv1 = 1.f / l_i[1];
-  __nv_bfloat16* o0 = o + b * so.b + h * so.h + (long long)(m0 + r0) * so.s;
-  __nv_bfloat16* o1 = o0 + 8 * so.s;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o0 + dt * 8 + 2 * t) =
-        pack_bf16(o_acc[dt][0] * inv0, o_acc[dt][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + dt * 8 + 2 * t) =
-        pack_bf16(o_acc[dt][2] * inv1, o_acc[dt][3] * inv1);
+  for (int hh = 0; hh < 2; ++hh) {  // the four threads of a row hold its sum in shares
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
   }
+  if (SAVE && t4 == 0) {
+    const long long row = ((long long)b * gridDim.y + h) * S + row0;
+    l_out[row] = l[0];
+    l_out[row + 8] = l[1];
+    m_out[row] = natural_max(m2[0]);
+    m_out[row + 8] = natural_max(m2[1]);
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int v = 0; v < 32; ++v) o_acc[v] *= inv[(v >> 1) & 1];
+  store_acc_bf16(o + b * so.b + h * so.h + (long long)row0 * so.s, so.s, o_acc, t4);
+  if (threadIdx.x % 128 == 0) report_tiles(counts, wg, n);
 }
 
 // ---------------------------------------------------------------- f32
@@ -364,9 +448,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" {
 
 // q, k, v, o: [B, H, S, 64] through (batch, head, row) strides in elements, the
-// 64 values of a head contiguous; bf16 when is_bf16, else f32. seg_q, seg_kv
-// [B, S] i32, contiguous. S a multiple of 128. l_out, m_out: [B, H, S] f32,
-// contiguous, both given (a differentiated call) or both null (inference).
+// 64 values of a head contiguous and 16-byte aligned; bf16 when is_bf16, else
+// f32. seg_q, seg_kv [B, S] i32, contiguous (16-byte aligned for bf16). S a
+// multiple of 128 (bf16: up to 8192, q, k, v strides positive). l_out, m_out:
+// [B, H, S] f32, contiguous, both given (a differentiated call) or both null
+// (inference).
 int flash_attention_segments(const void* q, const void* k, const void* v, const void* seg_q,
                              const void* seg_kv, void* o, void* l_out, void* m_out, int B, int H,
                              int S, int is_bf16,
@@ -374,19 +460,20 @@ int flash_attention_segments(const void* q, const void* k, const void* v, const 
                              long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                              long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                              float sm_scale, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S % 128 != 0 ||
-      (l_out == nullptr) != (m_out == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, S) || (l_out == nullptr) != (m_out == nullptr)) return (int)cudaErrorInvalidValue;
   const bool save = l_out != nullptr;
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   const float scale_log2 = sm_scale * LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
     auto kernel = save ? flash_bf16_kernel<true> : flash_bf16_kernel<false>;
-    kernel<<<dim3(S / BM, H, B), THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int*)seg_q,
-        (const int*)seg_kv, (__nv_bfloat16*)o, (float*)l_out, (float*)m_out, S, sq, sk, sv, so,
-        scale_log2);
+    CUtensorMap maps[3];
+    const cudaError_t err =
+        prepare_bf16(kernel, FWD_SMEM, {seg_q, seg_kv}, maps, {q, k, v}, {sq, sk, sv}, {CT, KT, KT}, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(S / CT, H, B), TC_THREADS, FWD_SMEM, st>>>(
+        maps[0], maps[1], maps[2], (const int*)seg_q, (const int*)seg_kv, (__nv_bfloat16*)o, (float*)l_out,
+        (float*)m_out, S, so, scale_log2, tile_counts);
   } else {
     auto kernel = save ? flash_f32_kernel<true> : flash_f32_kernel<false>;
     kernel<<<dim3(S / FM, H, B), FM, 0, st>>>(
@@ -394,6 +481,19 @@ int flash_attention_segments(const void* q, const void* k, const void* v, const 
         (float*)o, (float*)l_out, (float*)m_out, S, sq, sk, sv, so, scale_log2);
   }
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 forward CTA (q and the ring).
+int flash_attention_smem() { return FWD_SMEM; }
+
+// Until called with nullptr, every bf16 launch writes, for CTA
+// (b * H + h) * S/128 + x, the key tiles that its consumer warpgroups 0 and 1
+// computed and that its producer loaded into counts[3 * cta .. + 2] (i32 on
+// the device, n values; a launch whose grid does not fit fails).
+int flash_attention_count_tiles(void* counts, long long n) {
+  tile_counts = (int*)counts;
+  tile_counts_len = counts == nullptr ? 0 : n;
+  return 0;
 }
 
 }  // extern "C"

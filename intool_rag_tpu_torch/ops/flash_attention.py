@@ -19,8 +19,8 @@ would lose ``log l`` beside the mask value of a row no key matches) and
 whose backward is :func:`flash_attention_backward`: the two kernels of
 ``kernels/flash_attention_bwd.cu`` (dk and dv in one, dq in the other) on
 the card, :func:`flash_attention_backward_plain` for CPU tensors. Neither
-direction ever falls back on a CUDA tensor. The bf16 backward kernels skip
-the (query tile, key tile) pairs whose ids cannot meet;
+direction ever falls back on a CUDA tensor. The bf16 kernels (forward, dkv
+and dq) skip the (query tile, key tile) pairs whose ids cannot meet;
 :func:`computed_tiles` is the plain model of that rule.
 
 The tensors may be strided views (the encoder passes its ``[B, S, H·64]``
@@ -46,9 +46,10 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _SOURCE = "flash_attention.cu"
 _SOURCE_BWD = "flash_attention_bwd.cu"
 _DTYPES = (torch.bfloat16, torch.float32)
-# (query tile, key tile) of the bf16 backward kernels: dkv streams 64-query
-# tiles past a CTA's 128 keys, dq 64-key tiles past a CTA's 128 queries
-BWD_TILES = {"dkv": (64, 128), "dq": (128, 64)}
+# (query tile, key tile) of the bf16 kernels: the forward streams 128-key
+# tiles and dq 64-key tiles past a CTA's 128 queries, dkv 64-query tiles past
+# a CTA's 128 keys
+TILES = {"fwd": (128, 128), "dkv": (64, 128), "dq": (128, 64)}
 
 
 def _check(q, k, v, seg_q, seg_kv) -> None:
@@ -104,7 +105,7 @@ def _check_backward(q, l, m, **like_q) -> None:
 
 
 def computed_tiles(seg_q, seg_kv, m, query_tile: int, key_tile: int) -> torch.Tensor:
-    """Plain model of the tile skip of the bf16 backward kernels:
+    """Plain model of the tile skip of the bf16 kernels:
     ``[B, H, S/query_tile, S/key_tile]`` bool, True where the kernel computes
     the pair (query tile, key tile). A pair is skipped only when the
     ``[min, max]`` ranges of the two tiles' ids are disjoint, so that no
@@ -161,6 +162,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_count_tiles.argtypes = [p, ll]
         lib.flash_attention_segments.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -207,6 +209,12 @@ def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
     return (sb if b > 1 else h * s * HEAD_DIM), (sh if h > 1 else s * HEAD_DIM), ss
 
 
+def _tma_readable(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as a bf16 kernel's TMA reads it: a view that repeats rows (a
+    zero stride, e.g. k and v expanded over the heads) becomes a copy."""
+    return t.contiguous() if min(_strides(t, name)) <= 0 else t
+
+
 def _same_device(dev, **tensors) -> None:
     for name, t in tensors.items():
         if t.device != dev:
@@ -229,7 +237,9 @@ def _forward_cuda(q, k, v, seg_q, seg_kv, sm_scale: float, save_residuals: bool)
     dev = q.device
     _same_device(dev, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv)
     b, h, s, _ = q.shape
-    seg_q, seg_kv = seg_q.contiguous(), seg_kv.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_readable(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    seg_q, seg_kv = _aligned(seg_q.contiguous()), _aligned(seg_kv.contiguous())
     out = _empty_bhsd(q)
     l = m = None
     if save_residuals:
@@ -305,17 +315,18 @@ flash_attention_dq.launches = LaunchCount()
 
 
 def count_tiles(counts: torch.Tensor | None) -> None:
-    """Have the bf16 backward kernels report what their tile skip did: until
-    called with None, each launch writes, per CTA, the streamed tiles that
-    its two consumer warpgroups computed and that its producer loaded into
-    ``counts``, int32 CUDA ``[B, H, S/128, 3]`` at that launch's shape (a
-    larger grid makes the launch fail). A measurement of the kernels, held
-    against :func:`computed_tiles`; the f32 kernels skip nothing and write
-    nothing."""
+    """Have the bf16 kernels (forward, dkv, dq) report what their tile skip
+    did: until called with None, each launch writes, per CTA, the streamed
+    tiles that its two consumer warpgroups computed and that its producer
+    loaded into ``counts``, int32 CUDA ``[B, H, S/128, 3]`` at that launch's
+    shape (a larger grid makes the launch fail). A measurement of the
+    kernels, held against :func:`computed_tiles` at :data:`TILES`; the f32
+    kernels skip nothing and write nothing."""
     if counts is not None and not (counts.is_cuda and counts.dtype == torch.int32 and counts.is_contiguous()):
         raise ValueError(f"counts must be a contiguous int32 CUDA tensor, got {counts.dtype} on {counts.device}")
-    _lib_bwd().flash_attention_bwd_count_tiles(None if counts is None else counts.data_ptr(),
-                                               0 if counts is None else counts.numel())
+    ptr, n = (None, 0) if counts is None else (counts.data_ptr(), counts.numel())
+    _lib().flash_attention_count_tiles(ptr, n)
+    _lib_bwd().flash_attention_bwd_count_tiles(ptr, n)
 
 
 def flash_attention_backward(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: float):
@@ -329,8 +340,8 @@ def flash_attention_backward(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale: floa
         return flash_attention_backward_plain(q, k, v, seg_q, seg_kv, o, l, m, do, sm_scale)
     if not _readable(do) or min(_strides(do, "do")) <= 0:
         do = do.contiguous()  # whatever layout the next op's backward produced
-    if q.dtype == torch.bfloat16:  # TMA reads q, k, v: a repeated row (zero stride) becomes a copy
-        q, k, v = (t.contiguous() if min(_strides(t, n)) <= 0 else t for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_readable(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
     di = (o.float() * do.float()).sum(dim=-1).contiguous()
     dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)
     dq = flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale)

@@ -54,6 +54,30 @@ def _segments(rng: np.random.Generator, name: str, b: int, s: int) -> np.ndarray
     return seg
 
 
+def _skip_layouts(rng: np.random.Generator, b: int, s: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """(seg_q, seg_kv) pairs for the skip rule: every ``LAYOUTS`` entry with
+    seg_q = seg_kv; a query row whose id no key carries, inside a tile whose
+    range no other key tile meets (ids 2, 4, 6, ... in runs of 100, row 5
+    given 3); and interleaved, non-monotonic ids that differ between the
+    queries and the keys (runs of 96 and 80, rows no key matches among
+    them)."""
+    out = {name: (seg, seg) for name in LAYOUTS for seg in [_segments(rng, name, b, s)]}
+    pos = np.arange(s)[None, :]
+    even = np.broadcast_to(2 * (pos // 100 + 1), (b, s)).astype(np.int32)
+    odd_row = even.copy()
+    odd_row[:, 5] = 3
+    out["no key in a skipped tile"] = (odd_row, even.copy())
+    kv_ids = np.array([5, 1, 6, 2, 7, 3, 8, 4, 9], np.int32)
+    q_ids = np.array([1, 5, 2, 6, 3, 7, 4, 8, 10, 9], np.int32)
+    seg_kv = np.broadcast_to(kv_ids[(pos // 96) % len(kv_ids)], (b, s)).astype(np.int32)
+    seg_q = np.broadcast_to(q_ids[(pos // 80) % len(q_ids)], (b, s)).astype(np.int32)
+    out["interleaved"] = (seg_q.copy(), seg_kv.copy())
+    return out
+
+
+SKIP_LAYOUTS = (*LAYOUTS, "no key in a skipped tile", "interleaved")
+
+
 def _inputs(seed: int, b: int, h: int, s: int, dtype: str):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((b, h, s, 64)).astype(np.float32) for _ in range(3))
@@ -152,19 +176,32 @@ def test_cpu_route_counts_plain_calls_not_launches():
 
 
 def test_flash_kernel_on_card():
-    """The CUDA kernel against the plain version, strided views included
-    (needs the card; ``python3 chip_smoke.py --phases 1,2`` runs the full set)."""
+    """The CUDA kernel against the plain version, strided views included, on
+    packed rows and on the edges of the bf16 kernel's tile skip (rows no key
+    matches among them), two runs bit-equal; and k, v expanded over the heads
+    (a zero stride) against their copies (needs the card; ``python3
+    chip_smoke.py --phases 1,2`` runs the full set)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         rng, q, k, v = _inputs(1, 2, 6, 1024, "float32")
-        seg = torch.from_numpy(_segments(rng, "packed", 2, 1024)).cuda()
+        cases = {"packed": (_segments(rng, "packed", 2, 1024),) * 2}
+        cases.update((n, ids) for n, ids in _skip_layouts(rng, 2, 1024).items()
+                     if n in ("no key in a skipped tile", "interleaved"))
         # the encoder's layout: [B, S, H*64] viewed as [B, H, S, 64]
         q, k, v = (torch.from_numpy(x).cuda().to(dtype).transpose(1, 2).contiguous().transpose(1, 2)
                    for x in (q, k, v))
-        tflash.flash_attention_segments.launches.reset()
-        got = tflash.flash_attention_segments(q, k, v, seg, seg, 0.125)
-        torch.cuda.synchronize()
-        assert tflash.flash_attention_segments.launches.count == 1
-        want = tflash.flash_attention_plain(q, k, v, seg, seg, 0.125)
-        assert (got.float() - want.float()).abs().max().item() <= atol
+        for name, (seg_q, seg_kv) in cases.items():
+            seg_q, seg_kv = torch.from_numpy(seg_q).cuda(), torch.from_numpy(seg_kv).cuda()
+            tflash.flash_attention_segments.launches.reset()
+            got = tflash.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125)
+            again = tflash.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125)
+            torch.cuda.synchronize()
+            assert tflash.flash_attention_segments.launches.count == 2
+            assert torch.equal(got, again), (name, dtype)
+            want = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, 0.125)
+            assert (got.float() - want.float()).abs().max().item() <= atol, (name, dtype)
+        kv = k[:, :1].expand(-1, 6, -1, -1)
+        seg = torch.ones((2, 1024), dtype=torch.int32, device="cuda")
+        assert torch.equal(tflash.flash_attention_segments(q, kv, kv, seg, seg, 0.125),
+                           tflash.flash_attention_segments(q, kv.contiguous(), kv.contiguous(), seg, seg, 0.125))

@@ -21,7 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jflash
 
 from intool_rag_tpu_torch.ops import flash_attention as tflash
-from test_torch_flash_attention import LAYOUTS, _inputs, _segments
+from test_torch_flash_attention import LAYOUTS, SKIP_LAYOUTS, _inputs, _segments, _skip_layouts
 
 torch.set_num_threads(2)
 
@@ -278,37 +278,13 @@ def test_backward_kernels_on_card():
 # ---------------------------------------------------------------- the tile skip
 
 
-def _skip_layouts(rng: np.random.Generator, b: int, s: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
-    """(seg_q, seg_kv) pairs for the skip rule: every ``LAYOUTS`` entry with
-    seg_q = seg_kv; a query row whose id no key carries, inside a tile whose
-    range no other key tile meets (ids 2, 4, 6, ... in runs of 100, row 5
-    given 3); and interleaved, non-monotonic ids that differ between the
-    queries and the keys (runs of 96 and 80, rows no key matches among
-    them)."""
-    out = {name: (seg, seg) for name in LAYOUTS for seg in [_segments(rng, name, b, s)]}
-    pos = np.arange(s)[None, :]
-    even = np.broadcast_to(2 * (pos // 100 + 1), (b, s)).astype(np.int32)
-    odd_row = even.copy()
-    odd_row[:, 5] = 3
-    out["no key in a skipped tile"] = (odd_row, even.copy())
-    kv_ids = np.array([5, 1, 6, 2, 7, 3, 8, 4, 9], np.int32)
-    q_ids = np.array([1, 5, 2, 6, 3, 7, 4, 8, 10, 9], np.int32)
-    seg_kv = np.broadcast_to(kv_ids[(pos // 96) % len(kv_ids)], (b, s)).astype(np.int32)
-    seg_q = np.broadcast_to(q_ids[(pos // 80) % len(q_ids)], (b, s)).astype(np.int32)
-    out["interleaved"] = (seg_q.copy(), seg_kv.copy())
-    return out
-
-
-SKIP_LAYOUTS = (*LAYOUTS, "no key in a skipped tile", "interleaved")
-
-
 def _restricted_backward(q, k, v, seg_q, seg_kv, o, l, m, do):
     """The plain backward with ``p`` and ``ds`` zeroed on every pair that
     the bf16 kernels skip (:func:`tflash.computed_tiles` at dkv's tiles for
     dk and dv, at dq's for dq); every other step as
     ``flash_attention_backward_plain`` takes it."""
     def computed_pairs(what):
-        tq, tk = tflash.BWD_TILES[what]
+        tq, tk = tflash.TILES[what]
         tiles = tflash.computed_tiles(seg_q, seg_kv, m, tq, tk)
         return tiles.repeat_interleave(tq, dim=2).repeat_interleave(tk, dim=3)
 
@@ -352,10 +328,10 @@ def test_backward_restricted_to_computed_tiles_is_bit_equal(layout, dtype):
         assert torch.equal(a, r), name
 
 
-@pytest.mark.parametrize("what", ["dkv", "dq"])
+@pytest.mark.parametrize("what", ["fwd", "dkv", "dq"])
 def test_skip_rule_skips_nothing_on_one_segment_and_some_tiles_of_packed_rows(what):
     b, h, s = 2, 2, 1024
-    tq, tk = tflash.BWD_TILES[what]
+    tq, tk = tflash.TILES[what]
     rng = np.random.default_rng(32)
     m = torch.zeros((b, h, s))
     share = {}
@@ -423,7 +399,7 @@ def test_kernels_count_the_tiles_the_rule_computes_on_card():
                 torch.cuda.synchronize()
             finally:
                 tflash.count_tiles(None)
-            tiles = tflash.computed_tiles(seg_q, seg_kv, m, *tflash.BWD_TILES[what])
+            tiles = tflash.computed_tiles(seg_q, seg_kv, m, *tflash.TILES[what])
             want = tiles.sum(2) if what == "dkv" else tiles.sum(3)  # per CTA: its 128 keys (dkv) or queries (dq)
             assert torch.equal(counts, want.int()[..., None].expand(-1, -1, -1, 3)), (name, what)
 
