@@ -11,7 +11,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    (bf16, f32; with and without the saved residuals) and its four backward
    entries (dkv, dq; bf16, f32), with their spill bytes, and fails if any
    of them spills or the compiler warns on any of those three sources, or
-   if ptxas serializes the K5 forward's wgmma pipeline.
+   if ptxas serializes the wgmma pipeline of the K5 forward or of the f32
+   backward kernels (dkv, dq).
 2. kernels vs plain: every K1 (``partial_topk``: bf16, bf16 precise, f16,
    f32) and K2 (``partial_topk_int8``: int8, +q2, +c2, int8r) variant
    against its plain PyTorch version on the card, at the shapes of
@@ -40,15 +41,16 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    (``computed_tiles``, with ``m`` from that launch); k and v expanded over
    the heads give the bits of their copies; unsupported shapes must raise. K5's backward
    kernels (dkv and dq) at the same shapes and layouts, and at the edges of
-   the bf16 kernels' tile skip (``_skip_layouts``: a row no key matches in a
+   the kernels' tile skip (``_skip_layouts``: a row no key matches in a
    tile that would otherwise be skipped, interleaved ids that differ between
    queries and keys), on the encoder's
    strided views, against the plain backward given the kernel forward's own
    ``o, l, m``: atol 5e-5 (f32) and two bf16 steps of the largest gradient
    (bf16); the forward's saved ``l, m`` against the plain version's; every
    backward run twice, bit-equal; once through ``torch.autograd``; each
-   bf16 CTA's own count of the tiles it loaded and computed equal to the
-   skip rule's plain model (``computed_tiles``).
+   CTA's own count of the tiles it loaded and computed equal to the skip
+   rule's plain model (``computed_tiles`` at the kernel's tiles: bf16 and
+   f32, 3xTF32 on the tensor cores, have their own).
 3. service: ``encoder_mid`` embeds ~50k synthetic chunks, the port's
    storage layer writes them, and the port's HTTP service answers 16
    concurrent ``/search`` requests for each store of ``SERVICE_STORES``
@@ -122,7 +124,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    bucketed scores. K5 forward / dkv / dq per launch at the two training
    shapes and the backward kernels' kernel-table rows (S 8192, beside the
    plain backward and ``torch.autograd`` through the library's attention,
-   with the share of tiles the bf16 kernels compute) follow.
+   with the share of tiles each kernel computes; f32 with its 3xTF32 bound
+   and its f32-FMA bound beside) follow.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -273,24 +276,31 @@ def _tensor_core_kernels(text: str) -> dict:
 def _k5_kernels(name: str, text: str) -> dict:
     """K5's entries in ``flash_attention.cu`` (forward, with and without the
     saved residuals) or ``flash_attention_bwd.cu`` (dkv, dq): registers,
-    spill bytes and shared memory (the bf16 kernels' TMA ring is dynamic).
-    Fails on a spill or a compiler warning (an ignored setmaxnreg shows as
-    one). ptxas reports a wgmma pipeline it serialized as an info line, with
-    its reason: that fails the forward, and is printed for the backward
-    (dkv bf16 is serialized: ROADMAP.md Queue B item 3)."""
+    spill bytes and shared memory (the TMA rings of the bf16 kernels and of
+    the f32 backward are dynamic). Fails on a spill or a compiler warning (an
+    ignored setmaxnreg shows as one). ptxas reports a wgmma pipeline it
+    serialized as an info line, with its reason: that fails the forward and
+    the f32 backward (dkv, dq), and is printed for the bf16 backward (dkv
+    bf16 is serialized: ROADMAP.md Queue B item 3)."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     if name == "flash_attention.cu":
-        dyn, pattern = fa._lib().flash_attention_smem(), r"flash_(bf16|f32)_kernelILb([01])E"
+        pattern = r"flash_(bf16|f32)_kernelILb([01])E"
         label = lambda m: f"K5 {m.group(1)}{' save' if m.group(2) == '1' else ''}"
+        dyn = lambda m: fa._lib().flash_attention_smem() if m.group(1) == "bf16" else 0
+        must_pipeline = lambda k: True
     else:
-        dyn, pattern = fa._lib_bwd().flash_attention_bwd_smem(), r"flash_(dkv|dq)_(bf16|f32)_kernel"
+        lib = fa._lib_bwd()
+        pattern = r"flash_(dkv|dq)_(bf16|f32)_kernel"
         label = lambda m: f"K5 {m.group(1)} {m.group(2)}"
+        dyn = lambda m: (lib.flash_attention_bwd_smem() if m.group(2) == "bf16"
+                         else lib.flash_attention_bwd_f32_smem(int(m.group(1) == "dkv")))
+        must_pipeline = lambda k: k.endswith("f32")
     out = {}
     for e in _ptxas_entries(text):
         if m := re.search(pattern, e["entry"]):
             out[label(m)] = {"registers": e["registers"], "spill_bytes": e["spill_bytes"],
-                             "smem_bytes": e["static_smem"] + (dyn if "bf16" in m.group(0) else 0)}
+                             "smem_bytes": e["static_smem"] + dyn(m)}
     for ln in text.splitlines():
         if (m := re.search(r"wgmma\.mma_async instructions are serialized due to (.*) in the function '([^']+)'", ln)) \
                 and (e := re.search(pattern, m.group(2))):
@@ -298,7 +308,7 @@ def _k5_kernels(name: str, text: str) -> dict:
     log(f"built {name}: K5 (registers, spill bytes, shared memory): {json.dumps(out)}")
     warnings = sorted({ln.strip() for ln in text.splitlines() if "warning" in ln.lower()})
     spilled = [k for k, e in out.items() if e["spill_bytes"]]
-    serialized = [k for k, e in out.items() if "wgmma_serialized" in e and name == "flash_attention.cu"]
+    serialized = [k for k, e in out.items() if "wgmma_serialized" in e and must_pipeline(k)]
     if warnings or spilled or serialized or len(out) != 4:
         raise AssertionError(f"K5 kernels of {name}: warnings {warnings}, spills {spilled}, serialized wgmma "
                              f"{serialized}, entries {sorted(out)}")
@@ -823,15 +833,15 @@ def _skip_layouts(b: int, s: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     return {"no key in a skipped tile": (odd_row, even.copy()), "interleaved": (seg_q.copy(), seg_kv.copy())}
 
 
-def _tile_counts(launch, shape: tuple[int, int, int]) -> torch.Tensor:
-    """Runs ``launch`` with the bf16 K5 kernels' tile counts on
-    (``count_tiles``): every CTA's producer and both consumer warpgroups
-    report the streamed tiles they walked. Returns the counts,
-    ``[B, H, S/128, 3]``."""
+def _tile_counts(launch, shape: tuple[int, int, int], rows: int = 128) -> torch.Tensor:
+    """Runs ``launch`` with the K5 kernels' tile counts on (``count_tiles``):
+    every CTA reports the streamed tiles it loaded and that two of its
+    consumers walked. Returns the counts, ``[B, H, S/rows, 3]`` (``rows``:
+    the rows a CTA owns, ``cta_rows``)."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     b, h, s = shape
-    counts = torch.full((b, h, s // 128, 3), -1, dtype=torch.int32, device=DEVICE)
+    counts = torch.full((b, h, s // rows, 3), -1, dtype=torch.int32, device=DEVICE)
     fa.count_tiles(counts)
     try:
         launch()
@@ -846,7 +856,7 @@ def _hold_tile_counts(counts: torch.Tensor, tiles: torch.Tensor, what: str, labe
     (``computed_tiles`` at kernel ``what``'s tiles); returns the share of the
     (query tile, key tile) pairs that the kernel computed, as it counted
     them."""
-    want = (tiles.sum(2) if what == "dkv" else tiles.sum(3)).int()  # per CTA: its 128 keys (dkv) or queries
+    want = (tiles.sum(2) if what.startswith("dkv") else tiles.sum(3)).int()  # per CTA: its keys (dkv) or queries
     if not torch.equal(counts, want[..., None].expand(-1, -1, -1, 3)):
         bad = (counts != want[..., None]).nonzero()[:4].tolist()
         raise AssertionError(f"{label}: the kernel's tile counts differ from the skip rule's at "
@@ -855,16 +865,19 @@ def _hold_tile_counts(counts: torch.Tensor, tiles: torch.Tensor, what: str, labe
 
 
 def _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what: str) -> float:
-    """One launch of bf16 backward kernel ``what`` (``dkv`` or ``dq``) with
-    its tile counts on, held against the skip rule; returns the share of
-    tiles it computed, as it counted them."""
+    """One launch of backward kernel ``what`` (``dkv`` or ``dq``, at q's
+    type: bf16 or f32, each at its own tiles) with its tile counts on, held
+    against the skip rule; returns the share of tiles it computed, as it
+    counted them."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     b, h, s, _ = q.shape
     kernel = fa.flash_attention_dkv if what == "dkv" else fa.flash_attention_dq
-    counts = _tile_counts(lambda: kernel(q, k, v, seg_q, seg_kv, l, m, do, di, 0.125), (b, h, s))
-    return _hold_tile_counts(counts, fa.computed_tiles(seg_q, seg_kv, m, *fa.TILES[what]), what,
-                             f"K5 {what} bf16 {(b, h, s)}")
+    key = fa.tiles_key(what, q.dtype)
+    counts = _tile_counts(lambda: kernel(q, k, v, seg_q, seg_kv, l, m, do, di, 0.125), (b, h, s),
+                          fa.cta_rows(what, q.dtype))
+    return _hold_tile_counts(counts, fa.computed_tiles(seg_q, seg_kv, m, *fa.TILES[key]), key,
+                             f"K5 {what} {'bf16' if q.dtype == torch.bfloat16 else 'f32'} {(b, h, s)}")
 
 
 def _counted_fwd_tiles_share(q, k, v, seg_q, seg_kv, label: str) -> float:
@@ -892,8 +905,9 @@ def _check_k5_backward(dev) -> dict[str, float]:
     variant. Also holds the forward's saved ``l, m`` against the plain
     version's, takes the gradient once through ``torch.autograd`` (the
     Function), and runs every backward twice: the runs must be bit-equal.
-    The bf16 kernels' own tile counts must equal the skip rule's on every
-    layout. S 8192 is compared one head at a time."""
+    Every kernel's own tile counts (bf16 and f32, each at its tiles) must
+    equal the skip rule's on every layout. S 8192 is compared one head at a
+    time."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(8)
@@ -938,10 +952,9 @@ def _check_k5_backward(dev) -> dict[str, float]:
         want = fa.flash_attention_backward_plain(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
         for what, g, w in zip(("dq", "dk", "dv"), got, want):
             hold(name, what, g, w)
-        if q.dtype == torch.bfloat16:
-            di = (out.float() * do.float()).sum(dim=-1).contiguous()
-            for what in ("dkv", "dq"):
-                _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what)
+        di = (out.float() * do.float()).sum(dim=-1).contiguous()
+        for what in ("dkv", "dq"):
+            _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what)
         return do, got
 
     for dt, b, h, s in K5_CHECKS:
@@ -2456,7 +2469,8 @@ def _gradient_routes_agree(state: dict, dev, gen) -> None:
             a, b = g.double().flatten(), grads[1][name].double().flatten()
             cos[name] = float((a @ b) / (a.norm() * b.norm()))
         worst = min(cos, key=cos.get)
-        out[label] = {"min_cosine": cos[worst], "at": worst, "tensors": len(cos), "bar": bar}
+        out[label] = {"min_cosine": cos[worst], "at": worst, "tensors": len(cos), "bar": bar,
+                      "launches": counts["launches"]}
         log(f"phase 7 gradients, K5 route vs pair-mask route (2 layers, S {TRAIN_RUNS[0][2]}), {label}: "
             f"min cosine {cos[worst]:.6f} at {worst} over {len(cos)} tensors")
         if bar is not None and not cos[worst] >= bar:
@@ -2594,16 +2608,22 @@ def _rerank_full_width(state: dict, dev, gen) -> None:
 def _k5_backward_bound(seg: torch.Tensor, heads: int, elem: int, what: str) -> dict:
     """Least time (ms) for one backward kernel on these ids. Operations per
     (query, key) pair of equal id and per head: dkv 8 x 64 (k.qT, v.doT,
-    pT.do, dsT.q), dq 6 x 64 (q.kT, do.vT, ds.k). Bytes: q, k, v, do read,
-    the gradients written (dkv two, dq one), l, m, di and both id arrays."""
+    pT.do, dsT.q), dq 6 x 64 (q.kT, do.vT, ds.k); f32 runs each product as
+    three tf32 products (3xTF32) at the tf32 peak, and its f32-FMA bound (one
+    product at the f32 peak) stands beside as ``fma_bound_ms``. Bytes: q, k,
+    v, do read, the gradients written (dkv two, dq one), l, m, di and both
+    id arrays."""
     b, s = seg.shape
     pairs = sum(int((torch.bincount(row) ** 2).sum()) for row in seg.long())
     per_pair, outputs = (8.0, 2) if what == "dkv" else (6.0, 1)
-    peak = H100_PEAK["bf16" if elem == 2 else "f32"]
+    passes, peak = (1, H100_PEAK["bf16"]) if elem == 2 else (3, H100_PEAK["tf32"])
     t_bytes = ((4 + outputs) * b * heads * s * 64 * elem + 3 * 4 * b * heads * s + 2 * 4 * b * s) / H100_HBM_BYTES_S
-    t_ops = per_pair * heads * 64 * pairs / peak
-    return {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "dense_bound_ms": 1000 * max(t_bytes, per_pair * heads * 64 * b * s * s / peak)}
+    t_ops = passes * per_pair * heads * 64 * pairs / peak
+    out = {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "dense_bound_ms": 1000 * max(t_bytes, passes * per_pair * heads * 64 * b * s * s / peak)}
+    if elem == 4:
+        out["fma_bound_ms"] = 1000 * max(t_bytes, per_pair * heads * 64 * pairs / H100_PEAK["f32"])
+    return out
 
 
 def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
@@ -2670,21 +2690,21 @@ def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
         }
         for what, (kernel, err) in kernels.items():
             name = f"K5 {what} {tag}"
-            # the bf16 kernels' own count of the tiles they computed (the f32 kernels skip none)
-            counted = ({"tiles_computed_share": _counted_tiles_share(q, k, v, seg, seg, l, m, do, di, what)}
-                       if dt == torch.bfloat16 else {})
             row = {
                 "name": name, "route": "cuda", "source": "intool_rag_tpu_torch/kernels/flash_attention_bwd.cu",
                 "replaces": "intool_rag_tpu/models/encoder.py:138",
-                # main path: this phase's training steps; the f32 variants serve f32 encoders only
-                "launches": sum(r["launches"][name] for r in runs) if dt == torch.bfloat16 else None,
+                # main path: this phase's training steps (bf16); the f32 variants serve f32 encoders,
+                # which this phase runs in its f32 gradient check (2 layers)
+                "launches": (sum(r["launches"][name] for r in runs) if dt == torch.bfloat16
+                             else state["train"]["gradient_cosine"]["f32 InfoNCE"]["launches"][name]),
                 "launches_per_step": INGEST_WIDTH[0] if dt == torch.bfloat16 else None,
                 "max_abs_err": max(err, errs.get(name, 0.0)),
                 "ms": cuda_ms(kernel, iters=5, warmup=1),
                 # the plain version and the library call each return dq, dk and dv together
                 "plain_ms": plain_ms, **_k5_backward_bound(seg, 16, q.element_size(), what),
                 "library_ms": library_ms, "plain_and_library_cover": "dq + dk + dv",
-                **counted,
+                # the kernel's own count of the tiles it computed
+                "tiles_computed_share": _counted_tiles_share(q, k, v, seg, seg, l, m, do, di, what),
                 "max_abs_diff_library": lib_diff,
             }
             rows.append(row)

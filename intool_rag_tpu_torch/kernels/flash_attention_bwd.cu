@@ -77,8 +77,43 @@
 // p and ds are formed once in each kernel (twice in all): one pass would have
 // to add dq across key-tile CTAs, which takes atomics or a scratch of partial
 // sums.
-// f32 variants (CUDA cores, no TF32): two threads per row, each holding half of
-// the head's 64 values; the halves of a dot product meet in one shuffle.
+// The f32 variants run on the tensor cores as 3xTF32, the way K1 f32 does:
+// each operand splits as x = hi + lo, hi = x with its low 13 mantissa bits
+// cleared (a tf32 value), lo = x - hi (exact; the tensor cores read it as
+// tf32), and every product is a_hi.b_hi + a_hi.b_lo + a_lo.b_hi into one f32
+// accumulator: about 2^-20 of |a||b| a product, where a single tf32 product
+// is 2^-11 off. Three m64nNk8 tf32 wgmma per k-step of 8, so the tensor-core
+// work per pair of equal id is 3 x 8 x 64 (dkv) and 3 x 6 x 64 (dq).
+//  * tf32 wgmma takes K-major operands only (the transpose bit is for 16-bit
+//    types), and the second products run along the streamed rows: dkv reads
+//    q and do, dq reads k, both row-major (first products) and transposed
+//    (second). A pre-pass (split_tf32_kernel, one launch per operand, on the
+//    caller's stream) writes each operand's hi and lo once per call: row
+//    planes [B*H, 2, S, 32] (the head's two halves of 32 values, one 128-byte
+//    swizzle row each) and, for q, do (dkv) and k (dq), transposed planes
+//    [B*H, 64, S]. The wrapper passes the scratch (12 or 10 planes).
+//  * p and ds go from the accumulator registers to the next wgmma as tf32
+//    register A. In an f32 accumulator a thread holds columns 2 t4 and
+//    2 t4 + 1 of each 8; a tf32 k8 A fragment holds columns t4 and t4 + 4. So
+//    the transposed planes permute the rows of each group of 8 (position f
+//    holds row 0, 2, 4, 6, 1, 3, 5, 7) and the fragment is the accumulator's
+//    values in the order 0, 2, 1, 3 (tf32_frag), split into hi and lo in
+//    registers. p and ds never touch shared memory.
+//  * At f32 with hi and lo planes the bf16 geometry does not fit in shared
+//    memory, so a CTA is one consumer warpgroup that owns 64 rows (dkv:
+//    keys, dq: queries) and streams 32-row tiles of the other side through a
+//    TMA ring: dkv 1 stage of 64 KB (q / do rows and transposed, with m, l,
+//    di and seg_q by bulk copy), dq 2 stages of 48 KB (k / v rows and kT,
+//    with seg_kv). The own rows are register A of the first products where
+//    the registers allow (dq: q and do, 128 registers; dkv: v, 64), loaded
+//    once from the row planes; dkv's k lands by TMA (32 KB). So a CTA takes
+//    about 100 KB and two fit an SM: one's products run while the other
+//    forms p and ds, the overlap a single warpgroup cannot give itself (one
+//    CTA an SM with 2-3 stages measured 1.4x slower). Thread 0 issues
+//    the copies; a stage is refilled after the CTA's barrier at the end of
+//    the tile that read it. The bf16 kernels' tile skip holds at these tiles
+//    (ops/flash_attention.py::TILES "dkv f32" (32, 64), "dq f32" (64, 32)),
+//    rows no key matches included; the live tiles are listed once per CTA.
 //
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
 // plain C interface (loaded through ctypes); cuTensorMapEncodeTiled comes from
@@ -134,13 +169,13 @@ __device__ __forceinline__ void form_pT(float (&s)[32], const int (&sgk)[2], con
 }
 
 // dq: p in place of s for this thread's queries (ids sgq, row statistics m2,
-// pm, il) against the stage's 64 keys (column 8c + 2 t4 + e).
-template <bool UNIFORM>
-__device__ __forceinline__ void form_p(float (&s)[32], const int (&sgq)[2], const float (&m2)[2],
+// pm, il) against the stage's NV / 2 keys (column 8c + 2 t4 + e).
+template <bool UNIFORM, int NV>
+__device__ __forceinline__ void form_p(float (&s)[NV], const int (&sgq)[2], const float (&m2)[2],
                                        const float (&pm)[2], const float (&il)[2], const int* sg_s, int t4,
                                        float scale_log2) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < NV / 4; ++c) {
     if constexpr (UNIFORM) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -429,164 +464,553 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
   if (threadIdx.x % 128 == 0) report_tiles(counts, threadIdx.x / 128, n);
 }
 
-// ---------------------------------------------------------------- f32
+// ---------------------------------------------------------------- f32 (3xTF32 on the tensor cores)
 
-constexpr int FR = 64;    // rows per CTA, two threads each
-constexpr int FT = 32;    // rows of the other side per shared tile
-constexpr int HALF = 32;  // values of a head per thread
+// Geometry: one consumer warpgroup a CTA owns 64 rows (keys for dkv, queries
+// for dq) and streams 32-row tiles of the other side; thread 0 feeds the ring.
+constexpr int F_OWN = 64;                     // rows a CTA owns
+constexpr int F_T = 32;                       // rows of a streamed tile
+constexpr int F_MAX_TILES = MAX_SEQ / F_T;    // 256
+constexpr int F_THREADS = 128;
+constexpr int F_OWN_PLANE = F_OWN * DH * 4;   // 16 KB: hi or lo of an own tensor, [2][64][32]
+constexpr int F_PLANE = F_T * DH * 4;         // 8 KB: hi or lo of a streamed tile, [2][32][32] or [64][32]
+constexpr int F_OWN_HALF = F_OWN * 128;       // the step from one 32-value half of a row plane to the other
+constexpr int F_HALF = F_T * 128;
+constexpr int DQ_STAGES = 2;
+constexpr int DKV_STAGES = 1;
+// dq stage: k hi, k lo, v hi, v lo (row planes), kT hi, kT lo, then seg_kv.
+// dkv stage: q hi, q lo, do hi, do lo (row planes), qT hi, qT lo, doT hi, doT
+// lo, then m, l, di and seg_q. Each is 1,024-aligned. The own rows of dq (q,
+// do) and of dkv's v are register A; dkv's k (hi, lo) lands in shared memory.
+// Two CTAs fit an SM, so one's products run under the other's softmax.
+constexpr int DQ_STAGE = 6 * F_PLANE + 1024;
+constexpr int DKV_STAGE = 8 * F_PLANE + 1024;
+constexpr int DQ_SMEM = DQ_STAGES * DQ_STAGE + 1024;                       // 101,376 bytes
+constexpr int DKV_SMEM = 2 * F_OWN_PLANE + DKV_STAGES * DKV_STAGE + 1024;  // 100,352 bytes
 
-__device__ __forceinline__ void load_half(float (&x)[HALF], const float* src) {
-  const float4* p = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int d = 0; d < HALF / 4; ++d) {
-    const float4 y = __ldg(p + d);
-    x[4 * d] = y.x;
-    x[4 * d + 1] = y.y;
-    x[4 * d + 2] = y.z;
-    x[4 * d + 3] = y.w;
+__device__ __forceinline__ float tf32_hi(float x) { return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u); }
+
+// Position f of a group of 8 rows in a transposed plane holds row perm8(f):
+// 0, 2, 4, 6, 1, 3, 5, 7.
+__device__ __forceinline__ int perm8(int f) { return f < 4 ? 2 * f : 2 * f - 7; }
+
+// The pre-pass: one CTA per (32 rows, head, batch) of x [B, H, S, 64]
+// (strided). hi and lo go to row planes [B*H, 2, S, 32] (the head's two
+// halves of 32 values: one 128-byte swizzle row each) and, where t_hi is
+// set, to transposed planes [B*H, 64, S] with the rows permuted in groups of
+// 8 (perm8).
+__global__ void __launch_bounds__(256)
+split_tf32_kernel(const float* __restrict__ x, Strides sx, int S, float* __restrict__ hi, float* __restrict__ lo,
+                  float* __restrict__ t_hi, float* __restrict__ t_lo) {
+  __shared__ float tile[32][DH + 1];
+  const int s0 = blockIdx.x * 32, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * gridDim.y + h;
+  const float* src = x + b * sx.b + h * sx.h + (long long)s0 * sx.s;
+  for (int i = threadIdx.x; i < 32 * DH / 4; i += 256) {
+    const int r = i / 16, c = (i % 16) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src + (long long)r * sx.s + c));
+    const float4 vh = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), tf32_hi(v.w));
+    const long long at = ((bh * 2 + c / 32) * S + s0 + r) * 32 + c % 32;
+    *reinterpret_cast<float4*>(hi + at) = vh;
+    *reinterpret_cast<float4*>(lo + at) = make_float4(v.x - vh.x, v.y - vh.y, v.z - vh.z, v.w - vh.w);
+    tile[r][c] = v.x;
+    tile[r][c + 1] = v.y;
+    tile[r][c + 2] = v.z;
+    tile[r][c + 3] = v.w;
+  }
+  if (t_hi == nullptr) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * DH; i += 256) {
+    const int n = i / 32, pos = i % 32;
+    const float v = tile[(pos & ~7) + perm8(pos & 7)][n];
+    const float vh = tf32_hi(v);
+    const long long at = (bh * DH + n) * S + s0 + pos;
+    t_hi[at] = vh;
+    t_lo[at] = v - vh;
   }
 }
 
-__device__ __forceinline__ void store_half(float* dst, const float (&x)[HALF]) {
-  float4* p = reinterpret_cast<float4*>(dst);
+// Which streamed tiles a CTA of the f32 kernels computes: the bf16 kernels'
+// rule (plan_tiles) for 32-row tiles against 64 own rows, and the live tiles
+// listed in order for the ring.
+struct TilePlanF32 {
+  int lo[F_MAX_TILES], hi[F_MAX_TILES];
+  int own_lo[2], own_hi[2], own_nomatch[2];
+  uint8_t nomatch[F_MAX_TILES], live[F_MAX_TILES];  // live: 0 skipped, 1 computed, 2 computed, all ids equal
+  uint16_t order[F_MAX_TILES];
+  int n_live;
+};
+
+// As plan_tiles, with every thread of the CTA (F_THREADS) over the tiles and
+// warps 0 and 1 over the own rows. Ends in __syncthreads.
+__device__ __forceinline__ void plan_tiles_f32(TilePlanF32& pl, const int* stream_ids, const float* stream_m,
+                                               const int* own_ids, const float* own_m, int n_tiles) {
+  const int tid = threadIdx.x;
+  for (int t = tid; t < n_tiles; t += F_THREADS) {
+    const int4* ids = reinterpret_cast<const int4*>(stream_ids + t * F_T);
+    int lo = 0x7fffffff, hi = -0x7fffffff - 1;
 #pragma unroll
-  for (int d = 0; d < HALF / 4; ++d)
-    p[d] = make_float4(x[4 * d], x[4 * d + 1], x[4 * d + 2], x[4 * d + 3]);
-}
-
-// this thread's half of x . row, summed with its partner's (lane ^ 1)
-__device__ __forceinline__ float pair_dot(const float (&x)[HALF], const float* row) {
-  const float4* p = reinterpret_cast<const float4*>(row);
-  float dot = 0.f;
-#pragma unroll
-  for (int d = 0; d < HALF / 4; ++d) {
-    const float4 y = p[d];
-    dot = fmaf(x[4 * d], y.x, dot);
-    dot = fmaf(x[4 * d + 1], y.y, dot);
-    dot = fmaf(x[4 * d + 2], y.z, dot);
-    dot = fmaf(x[4 * d + 3], y.w, dot);
-  }
-  return dot + __shfl_xor_sync(0xffffffffu, dot, 1);
-}
-
-__device__ __forceinline__ void axpy_half(float (&acc)[HALF], float a, const float* row) {
-  const float4* p = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int d = 0; d < HALF / 4; ++d) {
-    const float4 y = p[d];
-    acc[4 * d] = fmaf(a, y.x, acc[4 * d]);
-    acc[4 * d + 1] = fmaf(a, y.y, acc[4 * d + 1]);
-    acc[4 * d + 2] = fmaf(a, y.z, acc[4 * d + 2]);
-    acc[4 * d + 3] = fmaf(a, y.w, acc[4 * d + 3]);
-  }
-}
-
-// FT rows of one head into an unpadded shared tile
-__device__ __forceinline__ void stage_tile_f32(float* dst, const float* src, long long row_stride) {
-  for (int c = threadIdx.x; c < FT * (DH / 4); c += 2 * FR) {
-    const int r = c >> 4, col = (c & 15) * 4;
-    *reinterpret_cast<float4*>(dst + r * DH + col) =
-        __ldg(reinterpret_cast<const float4*>(src + (long long)r * row_stride + col));
-  }
-}
-
-__global__ void __launch_bounds__(2 * FR)
-flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                     const float* __restrict__ l, const float* __restrict__ m,
-                     const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv,
-                     int S, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-                     Strides sdv, float scale_log2, float sm_scale) {
-  __shared__ __align__(16) float q_s[FT * DH];
-  __shared__ __align__(16) float do_s[FT * DH];
-  __shared__ float m2_s[FT], invl_s[FT], di_s[FT], pmask_s[FT];
-  __shared__ int segq_s[FT];
-
-  const int key = blockIdx.x * FR + (threadIdx.x >> 1), half = (threadIdx.x & 1) * HALF;
-  const int h = blockIdx.y, b = blockIdx.z;
-  float kr[HALF], vr[HALF], dk_acc[HALF], dv_acc[HALF];
-  load_half(kr, k + b * sk.b + h * sk.h + (long long)key * sk.s + half);
-  load_half(vr, v + b * sv.b + h * sv.h + (long long)key * sv.s + half);
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  const int my_seg = seg_kv[(long long)b * S + key];
-
-  const float* qh = q + b * sq.b + h * sq.h;
-  const float* doh = dout + b * sdo.b + h * sdo.h;
-  const long long stat = ((long long)b * gridDim.y + h) * S;
-
-  for (int m0 = 0; m0 < S; m0 += FT) {
-    stage_tile_f32(q_s, qh + (long long)m0 * sq.s, sq.s);
-    stage_tile_f32(do_s, doh + (long long)m0 * sdo.s, sdo.s);
-    if (threadIdx.x < FT) {
-      const int i = threadIdx.x;
-      const float mi = m[stat + m0 + i];
-      m2_s[i] = mi * LOG2E;
-      pmask_s[i] = mi == MASK_VALUE ? 1.f : 0.f;
-      invl_s[i] = 1.f / l[stat + m0 + i];
-      di_s[i] = di[stat + m0 + i];
-      segq_s[i] = seg_q[(long long)b * S + m0 + i];
+    for (int j = 0; j < F_T / 4; ++j) {
+      const int4 x = __ldg(ids + j);
+      lo = min(lo, min(min(x.x, x.y), min(x.z, x.w)));
+      hi = max(hi, max(max(x.x, x.y), max(x.z, x.w)));
     }
-    __syncthreads();
-    for (int i = 0; i < FT; ++i) {
-      const float s = pair_dot(kr, q_s + i * DH + half);
-      const float dp = pair_dot(vr, do_s + i * DH + half);
-      const float p = (my_seg == segq_s[i] ? exp2f(s * scale_log2 - m2_s[i]) : pmask_s[i]) * invl_s[i];
-      const float ds = (dp - di_s[i]) * p * sm_scale;
-      axpy_half(dv_acc, p, do_s + i * DH + half);
-      axpy_half(dk_acc, ds, q_s + i * DH + half);
+    bool nm = false;
+    if (stream_m != nullptr) {
+      const float4* mm = reinterpret_cast<const float4*>(stream_m + t * F_T);
+#pragma unroll
+      for (int j = 0; j < F_T / 4; ++j) {
+        const float4 x = __ldg(mm + j);
+        nm |= x.x == MASK_VALUE || x.y == MASK_VALUE || x.z == MASK_VALUE || x.w == MASK_VALUE;
+      }
     }
-    __syncthreads();
+    pl.lo[t] = lo;
+    pl.hi[t] = hi;
+    pl.nomatch[t] = nm;
   }
-  store_half(dk + b * sdk.b + h * sdk.h + (long long)key * sdk.s + half, dk_acc);
-  store_half(dv + b * sdv.b + h * sdv.h + (long long)key * sdv.s + half, dv_acc);
+  if (tid < F_OWN) {
+    const int id = __ldg(own_ids + tid);
+    const bool nm = own_m != nullptr && __ldg(own_m + tid) == MASK_VALUE;
+    const int lo = __reduce_min_sync(0xffffffffu, id), hi = __reduce_max_sync(0xffffffffu, id);
+    const bool any_nm = __any_sync(0xffffffffu, nm);
+    if ((tid & 31) == 0) {
+      pl.own_lo[tid / 32] = lo;
+      pl.own_hi[tid / 32] = hi;
+      pl.own_nomatch[tid / 32] = any_nm;
+    }
+  }
+  __syncthreads();
+  const int lo = min(pl.own_lo[0], pl.own_lo[1]), hi = max(pl.own_hi[0], pl.own_hi[1]);
+  const bool own_nm = pl.own_nomatch[0] | pl.own_nomatch[1];
+  for (int t = tid; t < n_tiles; t += F_THREADS) {
+    const bool nm = own_nm || pl.nomatch[t];
+    const bool uniform = !nm && lo == hi && pl.lo[t] == lo && pl.hi[t] == hi;
+    pl.live[t] = uniform ? 2 : nm || !(pl.hi[t] < lo || pl.lo[t] > hi);
+  }
+  __syncthreads();
+  if (tid < 32) {  // warp 0 lists the live tiles
+    int n = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const bool live = t0 + tid < n_tiles && pl.live[t0 + tid];
+      const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+      if (live) pl.order[n + __popc(ballot & ((1u << tid) - 1))] = t0 + tid;
+      n += __popc(ballot);
+    }
+    if (tid == 0) pl.n_live = n;
+  }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(2 * FR)
-flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
-                    const float* __restrict__ l, const float* __restrict__ m,
-                    const float* __restrict__ di, float* __restrict__ dq, int S, Strides sq,
-                    Strides sk, Strides sv, Strides sdo, Strides sdq, float scale_log2,
-                    float sm_scale) {
-  __shared__ __align__(16) float k_s[FT * DH];
-  __shared__ __align__(16) float v_s[FT * DH];
-  __shared__ int segk_s[FT];
-
-  const int row = blockIdx.x * FR + (threadIdx.x >> 1), half = (threadIdx.x & 1) * HALF;
-  const int h = blockIdx.y, b = blockIdx.z;
-  float qr[HALF], dor[HALF], dq_acc[HALF];
-  load_half(qr, q + b * sq.b + h * sq.h + (long long)row * sq.s + half);
-  load_half(dor, dout + b * sdo.b + h * sdo.h + (long long)row * sdo.s + half);
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) dq_acc[d] = 0.f;
-  const int my_seg = seg_q[(long long)b * S + row];
-  const long long stat = ((long long)b * gridDim.y + h) * S + row;
-  const float mi = m[stat];
-  const float m2 = mi * LOG2E, pm = mi == MASK_VALUE ? 1.f : 0.f;
-  const float il = 1.f / l[stat], dii = di[stat];
-
-  const float* kh = k + b * sk.b + h * sk.h;
-  const float* vh = v + b * sv.b + h * sv.h;
-  const int* sgk = seg_kv + (long long)b * S;
-
-  for (int n0 = 0; n0 < S; n0 += FT) {
-    stage_tile_f32(k_s, kh + (long long)n0 * sk.s, sk.s);
-    stage_tile_f32(v_s, vh + (long long)n0 * sv.s, sv.s);
-    if (threadIdx.x < FT) segk_s[threadIdx.x] = sgk[n0 + threadIdx.x];
-    __syncthreads();
-    for (int j = 0; j < FT; ++j) {
-      const float s = pair_dot(qr, k_s + j * DH + half);
-      const float dp = pair_dot(dor, v_s + j * DH + half);
-      const float p = (my_seg == segk_s[j] ? exp2f(s * scale_log2 - m2) : pm) * il;
-      const float ds = (dp - dii) * p * sm_scale;
-      axpy_half(dq_acc, ds, k_s + j * DH + half);
-    }
-    __syncthreads();
+__device__ __forceinline__ void init_f32_ring(uint64_t* full, int stages, uint64_t* own_full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    if (own_full != nullptr) mbar_init(own_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_half(dq + b * sdq.b + h * sdq.h + (long long)row * sdq.s + half, dq_acc);
+}
+
+// k-step kk (8 of the head's 64 values) of a row plane whose halves lie
+// half_bytes apart: 32 bytes a step inside a 128-byte swizzle row.
+__device__ __forceinline__ uint64_t row_step(uint64_t d, int kk, int half_bytes) {
+  return d + (kk >> 2) * (half_bytes >> 4) + 2 * (kk & 3);
+}
+
+// The tf32 register-A fragments of a CTA's 64 own rows (from row0 on) of a
+// row plane (hi or lo, [B*H, 2, S, 32]): k-step kk (8 of the head's values)
+// in a[4kk .. 4kk + 3], rows r and r + 8 (r = 16 warp + lane / 4), columns
+// t4 and t4 + 4 (mma_ra_tf32).
+__device__ __forceinline__ void load_frags(uint32_t (&a)[32], const float* plane, long long bh, int S, int row0) {
+  const int r = row0 + (threadIdx.x / 32) * 16 + threadIdx.x % 32 / 4, t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const float* half = plane + (bh * 2 + kk / 4) * S * 32 + 8 * (kk % 4) + t4;
+    a[4 * kk] = __float_as_uint(__ldg(half + (long long)r * 32));
+    a[4 * kk + 1] = __float_as_uint(__ldg(half + (long long)(r + 8) * 32));
+    a[4 * kk + 2] = __float_as_uint(__ldg(half + (long long)r * 32 + 4));
+    a[4 * kk + 3] = __float_as_uint(__ldg(half + (long long)(r + 8) * 32 + 4));
+  }
+}
+
+// acc (64 x 32) = a . bT as mma3_rows, with a's fragments in registers.
+__device__ __forceinline__ void mma3_rows_ra(float (&acc)[16], const uint32_t (&a_hi)[32], const uint32_t (&a_lo)[32],
+                                             uint64_t b_hi, uint64_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const uint64_t bh = row_step(b_hi, kk, F_HALF), bl = row_step(b_lo, kk, F_HALF);
+    mma_ra_tf32<F_T>(acc, a_hi + 4 * kk, bh, kk > 0);
+    mma_ra_tf32<F_T>(acc, a_hi + 4 * kk, bl, 1);
+    mma_ra_tf32<F_T>(acc, a_lo + 4 * kk, bh, 1);
+  }
+}
+
+// acc (64 x 32) = a . bT over the head's 64 values in 3xTF32
+// (a_hi.b_hi + a_hi.b_lo + a_lo.b_hi): A the CTA's own row planes, B a
+// streamed tile's.
+__device__ __forceinline__ void mma3_rows(float (&acc)[16], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
+                                          uint64_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk) {
+    const uint64_t ah = row_step(a_hi, kk, F_OWN_HALF), al = row_step(a_lo, kk, F_OWN_HALF);
+    const uint64_t bh = row_step(b_hi, kk, F_HALF), bl = row_step(b_lo, kk, F_HALF);
+    mma<float, F_T>(acc, ah, bh, kk > 0);
+    mma<float, F_T>(acc, ah, bl, 1);
+    mma<float, F_T>(acc, al, bh, 1);
+  }
+}
+
+// The register-A fragments (mma_ra_tf32) of a 64 x 32 accumulator x, split
+// into hi and lo. K-step c holds x[4c], x[4c + 2], x[4c + 1], x[4c + 3]:
+// fragment column t4 is the step's column 2 t4 and column t4 + 4 is 2 t4 + 1,
+// which is the order perm8 gives the rows of the transposed planes.
+__device__ __forceinline__ void tf32_frag(uint32_t (&hi)[16], uint32_t (&lo)[16], const float (&x)[16]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = x[4 * c + (j == 1 ? 2 : j == 2 ? 1 : j)];
+      const float h = tf32_hi(v);
+      hi[4 * c + j] = __float_as_uint(h);
+      lo[4 * c + j] = __float_as_uint(v - h);
+    }
+  }
+}
+
+// acc (64 x 64) += x . b over a streamed tile's 32 rows in 3xTF32: x from
+// registers (tf32_frag), B a transposed plane pair.
+__device__ __forceinline__ void mma3_ra(float (&acc)[32], const uint32_t (&x_hi)[16], const uint32_t (&x_lo)[16],
+                                        uint64_t b_hi, uint64_t b_lo) {
+#pragma unroll
+  for (int c = 0; c < F_T / 8; ++c) {
+    mma_ra_tf32<64>(acc, x_hi + 4 * c, b_hi + 2 * c, 1);
+    mma_ra_tf32<64>(acc, x_hi + 4 * c, b_lo + 2 * c, 1);
+    mma_ra_tf32<64>(acc, x_lo + 4 * c, b_hi + 2 * c, 1);
+  }
+}
+
+// Rows r0 and r0 + 8 of a warpgroup's 64 x 64 f32 accumulator.
+__device__ __forceinline__ void store_acc_f32(float* row0, long long row_stride, const float (&acc)[32], int t4) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(row0 + hh * 8 * row_stride + 8 * c + 2 * t4) =
+          make_float2(acc[4 * c + 2 * hh], acc[4 * c + 2 * hh + 1]);
+}
+
+// dkv: pT in place of sT for this thread's keys (ids sgk) against a stage's
+// 32 queries (column 8c + 2 t4 + e), from the stage's raw m and l.
+template <bool UNIFORM>
+__device__ __forceinline__ void form_pT_f32(float (&s)[16], const int (&sgk)[2], const float* m_s, const float* l_s,
+                                            const int* sg_s, int t4, float scale_log2) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = 8 * c + 2 * t4;
+    const float2 mm = *reinterpret_cast<const float2*>(m_s + col);
+    const float2 ll = *reinterpret_cast<const float2*>(l_s + col);
+    const float m2x = mm.x * LOG2E, m2y = mm.y * LOG2E, ilx = 1.f / ll.x, ily = 1.f / ll.y;
+    if constexpr (UNIFORM) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = ex2(s[v] * scale_log2 - m2x) * ilx;
+        s[v + 1] = ex2(s[v + 1] * scale_log2 - m2y) * ily;
+      }
+    } else {
+      const int2 sg = *reinterpret_cast<const int2*>(sg_s + col);
+      const float pmx = mm.x == MASK_VALUE ? 1.f : 0.f, pmy = mm.y == MASK_VALUE ? 1.f : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        s[v] = (sgk[hh] == sg.x ? ex2(s[v] * scale_log2 - m2x) : pmx) * ilx;
+        s[v + 1] = (sgk[hh] == sg.y ? ex2(s[v + 1] * scale_log2 - m2y) : pmy) * ily;
+      }
+    }
+  }
+}
+
+struct DkvMaps {
+  CUtensorMap k_hi, k_lo;                                  // own row planes, boxes of 64 rows
+  CUtensorMap q_hi, q_lo, do_hi, do_lo;                    // streamed row planes, boxes of 32 rows
+  CUtensorMap qt_hi, qt_lo, dot_hi, dot_lo;                // transposed planes
+};
+
+struct DqMaps {
+  CUtensorMap k_hi, k_lo, v_hi, v_lo;                      // streamed row planes
+  CUtensorMap kt_hi, kt_lo;                                // transposed planes
+};
+
+// ---------------------------------------------------------------- f32 dkv
+
+__global__ void __launch_bounds__(F_THREADS, 2)
+flash_dkv_f32_kernel(const __grid_constant__ DkvMaps maps, const float* __restrict__ v_hi,
+                     const float* __restrict__ v_lo, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_kv, const float* __restrict__ l, const float* __restrict__ m,
+                     const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int S,
+                     Strides sdk, Strides sdv, float scale_log2, float sm_scale, int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = align_1024(smem_raw);   // k hi, k lo: 64 keys each
+  uint8_t* ring = own + 2 * F_OWN_PLANE;
+  __shared__ __align__(8) uint64_t full[DKV_STAGES], own_full;
+  __shared__ TilePlanF32 plan;
+
+  const int n0 = blockIdx.x * F_OWN, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / F_T, bh = b * gridDim.y + h;
+  const long long stat = (long long)bh * S;  // row statistics of (b, h)
+  const int* sq_b = seg_q + (long long)b * S;
+  init_f32_ring(full, DKV_STAGES, &own_full);
+  plan_tiles_f32(plan, sq_b, m + stat, seg_kv + (long long)b * S + n0, nullptr, n_tiles);
+  const int n_live = plan.n_live;
+  const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
+
+  int loaded = 0;
+  auto load = [&](int j) {  // thread 0: the j-th live query tile into its stage
+    const int t = plan.order[j], row = t * F_T;
+    uint8_t* st = ring + (j % DKV_STAGES) * DKV_STAGE;
+    uint64_t* bar = &full[j % DKV_STAGES];
+    mbar_expect_tx(bar, 8 * F_PLANE + 4 * F_T * 4);
+    tma_load_4d(st, &maps.q_hi, bar, 0, row, 0, bh);
+    tma_load_4d(st + F_PLANE, &maps.q_lo, bar, 0, row, 0, bh);
+    tma_load_4d(st + 2 * F_PLANE, &maps.do_hi, bar, 0, row, 0, bh);
+    tma_load_4d(st + 3 * F_PLANE, &maps.do_lo, bar, 0, row, 0, bh);
+    tma_load_3d(st + 4 * F_PLANE, &maps.qt_hi, bar, row, 0, bh);
+    tma_load_3d(st + 5 * F_PLANE, &maps.qt_lo, bar, row, 0, bh);
+    tma_load_3d(st + 6 * F_PLANE, &maps.dot_hi, bar, row, 0, bh);
+    tma_load_3d(st + 7 * F_PLANE, &maps.dot_lo, bar, row, 0, bh);
+    uint8_t* vec = st + 8 * F_PLANE;
+    bulk_load(vec, m + stat + row, F_T * 4, bar);
+    bulk_load(vec + F_T * 4, l + stat + row, F_T * 4, bar);
+    bulk_load(vec + 2 * F_T * 4, di + stat + row, F_T * 4, bar);
+    bulk_load(vec + 3 * F_T * 4, sq_b + row, F_T * 4, bar);
+    ++loaded;
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&own_full, 2 * F_OWN_PLANE);
+    tma_load_4d(own, &maps.k_hi, &own_full, 0, n0, 0, bh);
+    tma_load_4d(own + F_OWN_PLANE, &maps.k_lo, &own_full, 0, n0, 0, bh);
+    for (int j = 0; j < min(DKV_STAGES, n_live); ++j) load(j);
+  }
+
+  const int key0 = n0 + (tid / 32) * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
+  const int sgk[2] = {__ldg(seg_kv + (long long)b * S + key0), __ldg(seg_kv + (long long)b * S + key0 + 8)};
+  const uint64_t kh = desc_sw128(own), kl = desc_sw128(own + F_OWN_PLANE);
+  uint32_t va_hi[32], va_lo[32];  // v as register A
+  load_frags(va_hi, v_hi, bh, S, n0);
+  load_frags(va_lo, v_lo, bh, S, n0);
+
+  float dk_acc[32], dv_acc[32];
+  uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];  // pT and dsT as register A
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  mbar_wait(&own_full, 0);
+  for (int j = 0; j < n_live; ++j) {
+    const int stage = j % DKV_STAGES;
+    mbar_wait(&full[stage], (j / DKV_STAGES) & 1);
+    const uint8_t* st = ring + stage * DKV_STAGE;
+    const float* m_s = reinterpret_cast<const float*>(st + 8 * F_PLANE);
+    const float* l_s = m_s + F_T;
+    const float* di_s = m_s + 2 * F_T;
+    const int* sg_s = reinterpret_cast<const int*>(m_s + 3 * F_T);
+
+    // sT = k . qT and dpT = v . doT: 64 keys x 32 queries
+    float s[16], dp[16];
+    wgmma_fence();
+    mma3_rows(s, kh, kl, desc_sw128(st), desc_sw128(st + F_PLANE));
+    wgmma_commit();
+    mma3_rows_ra(dp, va_hi, va_lo, desc_sw128(st + 2 * F_PLANE), desc_sw128(st + 3 * F_PLANE));
+    wgmma_commit();
+    wgmma_wait<1>();  // sT is done; dpT runs on
+    fence_regs(s);
+
+    // pT in s; dv += pT . do runs while dsT is formed
+    if (plan.live[plan.order[j]] == 2) form_pT_f32<true>(s, sgk, m_s, l_s, sg_s, t4, scale_log2);
+    else form_pT_f32<false>(s, sgk, m_s, l_s, sg_s, t4, scale_log2);
+    tf32_frag(p_hi, p_lo, s);
+    wgmma_fence();
+    mma3_ra(dv_acc, p_hi, p_lo, desc_sw128(st + 6 * F_PLANE), desc_sw128(st + 7 * F_PLANE));
+    wgmma_commit();
+    wgmma_wait<1>();  // dpT is done
+    fence_regs(dp);
+
+    // dsT in dp; dk += dsT . q
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float2 dd = *reinterpret_cast<const float2*>(di_s + 8 * c + 2 * t4);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * c + 2 * hh;
+        dp[v] = (dp[v] - dd.x) * s[v] * sm_scale;
+        dp[v + 1] = (dp[v + 1] - dd.y) * s[v + 1] * sm_scale;
+      }
+    }
+    tf32_frag(ds_hi, ds_lo, dp);
+    wgmma_fence();
+    mma3_ra(dk_acc, ds_hi, ds_lo, desc_sw128(st + 4 * F_PLANE), desc_sw128(st + 5 * F_PLANE));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    __syncthreads();  // every warp is done with the stage
+    if (tid == 0 && j + DKV_STAGES < n_live) load(j + DKV_STAGES);
+  }
+
+  store_acc_f32(dk + b * sdk.b + h * sdk.h + (long long)key0 * sdk.s, sdk.s, dk_acc, t4);
+  store_acc_f32(dv + b * sdv.b + h * sdv.h + (long long)key0 * sdv.s, sdv.s, dv_acc, t4);
+  if (tid == 0 || tid == 64) report_tiles(counts, tid / 64, n_live);  // tiles computed, as two warps walked them
+  if (tid == 0) report_tiles(counts, 2, loaded);
+}
+
+// ---------------------------------------------------------------- f32 dq
+
+__global__ void __launch_bounds__(F_THREADS, 2)
+flash_dq_f32_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ q_hi,
+                    const float* __restrict__ q_lo, const float* __restrict__ do_hi, const float* __restrict__ do_lo,
+                    const int* __restrict__ seg_q, const int* __restrict__ seg_kv, const float* __restrict__ l,
+                    const float* __restrict__ m, const float* __restrict__ di, float* __restrict__ dq, int S,
+                    Strides sdq, float scale_log2, float sm_scale, int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align_1024(smem_raw);
+  __shared__ __align__(8) uint64_t full[DQ_STAGES];
+  __shared__ TilePlanF32 plan;
+
+  const int m0 = blockIdx.x * F_OWN, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / F_T, bh = b * gridDim.y + h;
+  const long long stat = (long long)bh * S;
+  const int* sk_b = seg_kv + (long long)b * S;
+  init_f32_ring(full, DQ_STAGES, nullptr);
+  plan_tiles_f32(plan, sk_b, nullptr, seg_q + (long long)b * S + m0, m + stat + m0, n_tiles);
+  const int n_live = plan.n_live;
+  const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
+
+  int loaded = 0;
+  auto load = [&](int j) {  // thread 0: the j-th live key tile into its stage
+    const int t = plan.order[j], row = t * F_T;
+    uint8_t* st = ring + (j % DQ_STAGES) * DQ_STAGE;
+    uint64_t* bar = &full[j % DQ_STAGES];
+    mbar_expect_tx(bar, 6 * F_PLANE + F_T * 4);
+    tma_load_4d(st, &maps.k_hi, bar, 0, row, 0, bh);
+    tma_load_4d(st + F_PLANE, &maps.k_lo, bar, 0, row, 0, bh);
+    tma_load_4d(st + 2 * F_PLANE, &maps.v_hi, bar, 0, row, 0, bh);
+    tma_load_4d(st + 3 * F_PLANE, &maps.v_lo, bar, 0, row, 0, bh);
+    tma_load_3d(st + 4 * F_PLANE, &maps.kt_hi, bar, row, 0, bh);
+    tma_load_3d(st + 5 * F_PLANE, &maps.kt_lo, bar, row, 0, bh);
+    bulk_load(st + 6 * F_PLANE, sk_b + row, F_T * 4, bar);
+    ++loaded;
+  };
+  if (tid == 0) {
+    for (int j = 0; j < min(DQ_STAGES, n_live); ++j) load(j);
+  }
+
+  const int row0 = m0 + (tid / 32) * 16 + lane / 4;  // this thread's queries: row0, row0 + 8
+  int sgq[2];
+  float m2[2], pm[2], il[2], dii[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = row0 + 8 * hh;
+    const float mi = __ldg(m + stat + i);
+    sgq[hh] = __ldg(seg_q + (long long)b * S + i);
+    m2[hh] = mi * LOG2E;
+    pm[hh] = mi == MASK_VALUE ? 1.f : 0.f;
+    il[hh] = 1.f / __ldg(l + stat + i);
+    dii[hh] = __ldg(di + stat + i);
+  }
+  uint32_t qa_hi[32], qa_lo[32], doa_hi[32], doa_lo[32];  // q and do as register A
+  load_frags(qa_hi, q_hi, bh, S, m0);
+  load_frags(qa_lo, q_lo, bh, S, m0);
+  load_frags(doa_hi, do_hi, bh, S, m0);
+  load_frags(doa_lo, do_lo, bh, S, m0);
+
+  float dq_acc[32];
+  uint32_t ds_hi[16], ds_lo[16];  // ds as register A
+  zero_acc(dq_acc);
+  for (int j = 0; j < n_live; ++j) {
+    const int stage = j % DQ_STAGES;
+    mbar_wait(&full[stage], (j / DQ_STAGES) & 1);
+    const uint8_t* st = ring + stage * DQ_STAGE;
+    const int* sg_s = reinterpret_cast<const int*>(st + 6 * F_PLANE);
+
+    // s = q . kT and dp = do . vT: 64 queries x 32 keys
+    float s[16], dp[16];
+    wgmma_fence();
+    mma3_rows_ra(s, qa_hi, qa_lo, desc_sw128(st), desc_sw128(st + F_PLANE));
+    wgmma_commit();
+    mma3_rows_ra(dp, doa_hi, doa_lo, desc_sw128(st + 2 * F_PLANE), desc_sw128(st + 3 * F_PLANE));
+    wgmma_commit();
+    wgmma_wait<1>();  // s is done; dp runs on
+    fence_regs(s);
+    if (plan.live[plan.order[j]] == 2) form_p<true>(s, sgq, m2, pm, il, sg_s, t4, scale_log2);
+    else form_p<false>(s, sgq, m2, pm, il, sg_s, t4, scale_log2);
+    wgmma_wait<0>();  // dp is done
+    fence_regs(dp);
+
+    // ds in dp; dq += ds . k
+#pragma unroll
+    for (int v = 0; v < 16; ++v) dp[v] = (dp[v] - dii[(v >> 1) & 1]) * s[v] * sm_scale;
+    tf32_frag(ds_hi, ds_lo, dp);
+    wgmma_fence();
+    mma3_ra(dq_acc, ds_hi, ds_lo, desc_sw128(st + 4 * F_PLANE), desc_sw128(st + 5 * F_PLANE));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    __syncthreads();  // every warp is done with the stage
+    if (tid == 0 && j + DQ_STAGES < n_live) load(j + DQ_STAGES);
+  }
+
+  store_acc_f32(dq + b * sdq.b + h * sdq.h + (long long)row0 * sdq.s, sdq.s, dq_acc, t4);
+  if (tid == 0 || tid == 64) report_tiles(counts, tid / 64, n_live);
+  if (tid == 0) report_tiles(counts, 2, loaded);
+}
+
+// ---------------------------------------------------------------- f32 host side
+
+// An f32 tensor map under 128-byte swizzle (strides in bytes, dims 1.. only).
+template <int R>
+bool f32_map(CUtensorMap* map, const float* base, const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+             const cuuint32_t (&box)[R]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint32_t ones[R];
+  for (int i = 0; i < R; ++i) ones[i] = 1;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, R, const_cast<float*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row plane [B*H, 2, S, 32] in boxes of `rows` rows, both halves: one
+// [2][rows][32] tile, each half 128-byte rows under the swizzle.
+bool row_plane_map(CUtensorMap* map, const float* base, int BH, int S, int rows) {
+  return f32_map<4>(map, base, {32, (cuuint64_t)S, 2, (cuuint64_t)BH},
+                    {128, (cuuint64_t)S * 128, (cuuint64_t)S * 256}, {32, (cuuint32_t)rows, 2, 1});
+}
+
+// A transposed plane [B*H, 64, S] in boxes of 32 rows of the sequence: one [64][32] tile.
+bool t_plane_map(CUtensorMap* map, const float* base, int BH, int S) {
+  return f32_map<3>(map, base, {(cuuint64_t)S, (cuuint64_t)DH, (cuuint64_t)BH},
+                    {(cuuint64_t)S * 4, (cuuint64_t)S * DH * 4}, {32, (cuuint32_t)DH, 1});
+}
+
+// The hi and lo row planes of x (and its transposed planes where t_hi is set).
+void split_tf32(const void* x, const Strides& sx, int B, int H, int S, float* hi, float* lo, float* t_hi,
+                float* t_lo, cudaStream_t st) {
+  split_tf32_kernel<<<dim3(S / 32, H, B), 256, 0, st>>>((const float*)x, sx, S, hi, lo, t_hi, t_lo);
+}
+
+// What an f32 kernel needs beyond bad_shape: S up to MAX_SEQ, scratch, room
+// for the grid (S/64, H, B) in tile_counts where it is set, the ids and row
+// statistics 16-byte aligned (bulk copies, int4 loads), and the shared memory.
+template <typename Kernel>
+cudaError_t prepare_f32(Kernel kernel, int smem, const void* const (&stats)[5], const void* scratch, int B, int H,
+                        int S) {
+  if (S > MAX_SEQ || scratch == nullptr || (tile_counts != nullptr && 3LL * (S / F_OWN) * H * B > tile_counts_len))
+    return cudaErrorInvalidValue;
+  for (const void* p : stats)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
@@ -596,8 +1020,9 @@ extern "C" {
 // q, k, v, dout, dk, dv: [B, H, S, 64] through (batch, head, row) strides in
 // elements, the 64 values of a head contiguous and 16-byte aligned; bf16 when
 // is_bf16, else f32. seg_q, seg_kv [B, S] i32 and l, m, di [B, H, S] f32,
-// contiguous (16-byte aligned for bf16). S a multiple of 128 (bf16: up to
-// 8192, strides positive).
+// contiguous and 16-byte aligned. S a multiple of 128 up to 8192 (bf16:
+// strides positive). scratch: f32 only, 12 (dkv) or 10 (dq) x B*H*S*64 f32
+// for the split planes (flash_attention_bwd_f32_planes).
 int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout,
                         const void* seg_q, const void* seg_kv, const void* l, const void* m,
                         const void* di, void* dk, void* dv, int B, int H, int S, int is_bf16,
@@ -605,7 +1030,7 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
                         long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, long long do_sb, long long do_sh, long long do_ss,
                         long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
-                        long long dv_sh, long long dv_ss, float sm_scale, void* stream) {
+                        long long dv_sh, long long dv_ss, float sm_scale, void* scratch, void* stream) {
   if (bad_shape(B, H, S)) return (int)cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss};
   const Strides sdo{do_sb, do_sh, do_ss}, sdk{dk_sb, dk_sh, dk_ss}, sdv{dv_sb, dv_sh, dv_ss};
@@ -621,10 +1046,26 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
         (const float*)m, (const float*)di, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, sdk, sdv, scale_log2,
         sm_scale, tile_counts);
   } else {
-    flash_dkv_f32_kernel<<<dim3(S / FR, H, B), 2 * FR, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const int*)seg_q,
-        (const int*)seg_kv, (const float*)l, (const float*)m, (const float*)di, (float*)dk,
-        (float*)dv, S, sq, sk, sv, sdo, sdk, sdv, scale_log2, sm_scale);
+    const cudaError_t err = prepare_f32(flash_dkv_f32_kernel, DKV_SMEM, {seg_q, seg_kv, l, m, di}, scratch, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    // scratch: the hi and lo row planes of q, do, k, v, then the transposed planes of q and do
+    const long long P = (long long)B * H * S * DH;
+    float* w = (float*)scratch;
+    split_tf32(q, sq, B, H, S, w, w + P, w + 8 * P, w + 9 * P, st);
+    split_tf32(dout, sdo, B, H, S, w + 2 * P, w + 3 * P, w + 10 * P, w + 11 * P, st);
+    split_tf32(k, sk, B, H, S, w + 4 * P, w + 5 * P, nullptr, nullptr, st);
+    split_tf32(v, sv, B, H, S, w + 6 * P, w + 7 * P, nullptr, nullptr, st);
+    DkvMaps maps;
+    const int BH = B * H;
+    if (!(row_plane_map(&maps.k_hi, w + 4 * P, BH, S, F_OWN) && row_plane_map(&maps.k_lo, w + 5 * P, BH, S, F_OWN) &&
+          row_plane_map(&maps.q_hi, w, BH, S, F_T) && row_plane_map(&maps.q_lo, w + P, BH, S, F_T) &&
+          row_plane_map(&maps.do_hi, w + 2 * P, BH, S, F_T) && row_plane_map(&maps.do_lo, w + 3 * P, BH, S, F_T) &&
+          t_plane_map(&maps.qt_hi, w + 8 * P, BH, S) && t_plane_map(&maps.qt_lo, w + 9 * P, BH, S) &&
+          t_plane_map(&maps.dot_hi, w + 10 * P, BH, S) && t_plane_map(&maps.dot_lo, w + 11 * P, BH, S)))
+      return (int)cudaErrorInvalidValue;
+    flash_dkv_f32_kernel<<<dim3(S / F_OWN, H, B), F_THREADS, DKV_SMEM, st>>>(
+        maps, w + 6 * P, w + 7 * P, (const int*)seg_q, (const int*)seg_kv, (const float*)l, (const float*)m,
+        (const float*)di, (float*)dk, (float*)dv, S, sdk, sdv, scale_log2, sm_scale, tile_counts);
   }
   return (int)cudaGetLastError();
 }
@@ -632,10 +1073,17 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
 // Dynamic shared memory of a bf16 backward CTA (k and v or q and do, and the ring).
 int flash_attention_bwd_smem() { return BWD_SMEM; }
 
-// Until called with nullptr, every bf16 launch writes, for CTA
-// (b * H + h) * S/128 + x, the streamed tiles that its consumer warpgroups 0
-// and 1 computed and that its producer loaded into counts[3 * cta .. + 2]
-// (i32 on the device, n values; a launch whose grid does not fit fails).
+// Dynamic shared memory of an f32 dkv (dkv != 0) or dq CTA.
+int flash_attention_bwd_f32_smem(int dkv) { return dkv ? DKV_SMEM : DQ_SMEM; }
+
+// Scratch of an f32 dkv (dkv != 0) or dq launch, in planes of B*H*S*64 f32.
+int flash_attention_bwd_f32_planes(int dkv) { return dkv ? 12 : 10; }
+
+// Until called with nullptr, every launch writes, for CTA
+// (b * H + h) * S/R + x, the streamed tiles that it computed (bf16: its
+// consumer warpgroups 0 and 1; f32, R = 64: its warps 0 and 2) and that it
+// loaded into counts[3 * cta .. + 2] (i32 on the device, n values; R = 128
+// for bf16; a launch whose grid does not fit fails).
 int flash_attention_bwd_count_tiles(void* counts, long long n) {
   tile_counts = (int*)counts;
   tile_counts_len = counts == nullptr ? 0 : n;
@@ -649,7 +1097,7 @@ int flash_attention_dq(const void* q, const void* k, const void* v, const void* 
                        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                        long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
-                       long long dq_sh, long long dq_ss, float sm_scale, void* stream) {
+                       long long dq_sh, long long dq_ss, float sm_scale, void* scratch, void* stream) {
   if (bad_shape(B, H, S)) return (int)cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss};
   const Strides sdo{do_sb, do_sh, do_ss}, sdq{dq_sb, dq_sh, dq_ss};
@@ -665,10 +1113,24 @@ int flash_attention_dq(const void* q, const void* k, const void* v, const void* 
         (const float*)m, (const float*)di, (__nv_bfloat16*)dq, S, sdq, scale_log2, sm_scale,
         tile_counts);
   } else {
-    flash_dq_f32_kernel<<<dim3(S / FR, H, B), 2 * FR, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const int*)seg_q,
-        (const int*)seg_kv, (const float*)l, (const float*)m, (const float*)di, (float*)dq, S, sq,
-        sk, sv, sdo, sdq, scale_log2, sm_scale);
+    const cudaError_t err = prepare_f32(flash_dq_f32_kernel, DQ_SMEM, {seg_q, seg_kv, l, m, di}, scratch, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    // scratch: the hi and lo row planes of q, do, k, v, then the transposed planes of k
+    const long long P = (long long)B * H * S * DH;
+    float* w = (float*)scratch;
+    split_tf32(q, sq, B, H, S, w, w + P, nullptr, nullptr, st);
+    split_tf32(dout, sdo, B, H, S, w + 2 * P, w + 3 * P, nullptr, nullptr, st);
+    split_tf32(k, sk, B, H, S, w + 4 * P, w + 5 * P, w + 8 * P, w + 9 * P, st);
+    split_tf32(v, sv, B, H, S, w + 6 * P, w + 7 * P, nullptr, nullptr, st);
+    DqMaps maps;
+    const int BH = B * H;
+    if (!(row_plane_map(&maps.k_hi, w + 4 * P, BH, S, F_T) && row_plane_map(&maps.k_lo, w + 5 * P, BH, S, F_T) &&
+          row_plane_map(&maps.v_hi, w + 6 * P, BH, S, F_T) && row_plane_map(&maps.v_lo, w + 7 * P, BH, S, F_T) &&
+          t_plane_map(&maps.kt_hi, w + 8 * P, BH, S) && t_plane_map(&maps.kt_lo, w + 9 * P, BH, S)))
+      return (int)cudaErrorInvalidValue;
+    flash_dq_f32_kernel<<<dim3(S / F_OWN, H, B), F_THREADS, DQ_SMEM, st>>>(
+        maps, w, w + P, w + 2 * P, w + 3 * P, (const int*)seg_q, (const int*)seg_kv, (const float*)l,
+        (const float*)m, (const float*)di, (float*)dq, S, sdq, scale_log2, sm_scale, tile_counts);
   }
   return (int)cudaGetLastError();
 }

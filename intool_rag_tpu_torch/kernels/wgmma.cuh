@@ -1,6 +1,6 @@
 // Hopper warpgroup MMA (wgmma) and the TMA / mbarrier primitives the dense
-// search kernels K1 and K2 (flat_partial_topk.cu) and the attention backward
-// kernels K5 dkv / dq (flash_attention_bwd.cu) are built from. sm_90a only.
+// search kernels K1 and K2 (flat_partial_topk.cu) and the attention kernels
+// K5 (flash_attention.cu, flash_attention_bwd.cu) are built from. sm_90a only.
 //
 // mma<T, N>(d, a, b, scale_d) issues one wgmma.mma_async of shape m64nNk16
 // (bf16, f16 -> f32), m64nNk8 (T = float: tf32 -> f32) or m64nNk32
@@ -16,6 +16,9 @@
 // f32 accumulator x, a = {x[8kk], x[8kk+1]}, {x[8kk+2], x[8kk+3]},
 // {x[8kk+4], x[8kk+5]}, {x[8kk+6], x[8kk+7]}, each pair rounded to bf16
 // (low half first).
+//
+// mma_ra_tf32<N> is the tf32 m64nNk8 product with A from registers and B
+// K-major in shared memory (see its definition for the fragment).
 
 #pragma once
 
@@ -91,6 +94,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
           "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// One TMA copy of a box of a 3-D tensor (x along the row, then y, z).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
 
@@ -371,4 +383,35 @@ template <> __device__ __forceinline__ void mma_ra<64>(float* d, const uint32_t*
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
+// mma_ra_tf32<N>(d, a, b, scale_d) is the m64nNk8 tf32 product with A from
+// registers and B K-major in shared memory (desc_sw128; tf32 has no transpose
+// bit). A's fragment, per warp of 16 rows: a[0] (row lane/4, column lane%4),
+// a[1] (row lane/4 + 8, same column), a[2] and a[3] the same rows at column
+// lane%4 + 4. Each value is f32 bits read as tf32 (the low 13 bits ignored).
+template <int N>
+__device__ void mma_ra_tf32(float* d, const uint32_t* a, uint64_t b, int scale_d);
+
+template <> __device__ __forceinline__ void mma_ra_tf32<32>(float* d, const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <> __device__ __forceinline__ void mma_ra_tf32<64>(float* d, const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 }  // namespace

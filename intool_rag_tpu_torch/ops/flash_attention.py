@@ -20,8 +20,9 @@ whose backward is :func:`flash_attention_backward`: the two kernels of
 ``kernels/flash_attention_bwd.cu`` (dk and dv in one, dq in the other) on
 the card, :func:`flash_attention_backward_plain` for CPU tensors. Neither
 direction ever falls back on a CUDA tensor. The bf16 kernels (forward, dkv
-and dq) skip the (query tile, key tile) pairs whose ids cannot meet;
-:func:`computed_tiles` is the plain model of that rule.
+and dq) and the f32 backward kernels (3xTF32 on the tensor cores) skip the
+(query tile, key tile) pairs whose ids cannot meet; :func:`computed_tiles`
+is the plain model of that rule, at the tiles of :data:`TILES`.
 
 The tensors may be strided views (the encoder passes its ``[B, S, H·64]``
 projections viewed as ``[B, H, S, 64]``); only the last dim must be
@@ -46,10 +47,11 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _SOURCE = "flash_attention.cu"
 _SOURCE_BWD = "flash_attention_bwd.cu"
 _DTYPES = (torch.bfloat16, torch.float32)
-# (query tile, key tile) of the bf16 kernels: the forward streams 128-key
-# tiles and dq 64-key tiles past a CTA's 128 queries, dkv 64-query tiles past
-# a CTA's 128 keys
-TILES = {"fwd": (128, 128), "dkv": (64, 128), "dq": (128, 64)}
+# (query tile, key tile) of the kernels that skip tiles. bf16: the forward
+# streams 128-key tiles and dq 64-key tiles past a CTA's 128 queries, dkv
+# 64-query tiles past a CTA's 128 keys. f32 backward: dkv streams 32-query
+# tiles past a CTA's 64 keys, dq 32-key tiles past a CTA's 64 queries.
+TILES = {"fwd": (128, 128), "dkv": (64, 128), "dq": (128, 64), "dkv f32": (32, 64), "dq f32": (64, 32)}
 
 
 def _check(q, k, v, seg_q, seg_kv) -> None:
@@ -104,8 +106,21 @@ def _check_backward(q, l, m, **like_q) -> None:
             raise ValueError(f"{name} must be float32 [{b}, {h}, {s}], got {t.dtype} {tuple(t.shape)}")
 
 
+def tiles_key(what: str, dtype: torch.dtype) -> str:
+    """The :data:`TILES` key of kernel ``what`` (``fwd``, ``dkv``, ``dq``)
+    at ``dtype``; the f32 backward kernels have tiles of their own."""
+    return what if dtype == torch.bfloat16 or what == "fwd" else f"{what} f32"
+
+
+def cta_rows(what: str, dtype: torch.dtype) -> int:
+    """Rows a CTA of kernel ``what`` owns at ``dtype``: its tile counts
+    (:func:`count_tiles`) have one entry per ``cta_rows`` rows of S."""
+    tq, tk = TILES[tiles_key(what, dtype)]
+    return tk if what == "dkv" else tq
+
+
 def computed_tiles(seg_q, seg_kv, m, query_tile: int, key_tile: int) -> torch.Tensor:
-    """Plain model of the tile skip of the bf16 kernels:
+    """Plain model of the tile skip of the bf16 kernels and the f32 backward kernels:
     ``[B, H, S/query_tile, S/key_tile]`` bool, True where the kernel computes
     the pair (query tile, key tile). A pair is skipped only when the
     ``[min, max]`` ranges of the two tiles' ids are disjoint, so that no
@@ -168,18 +183,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lib_bwd() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_SOURCE_BWD)
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument types of a library built from ``flash_attention_bwd.cu``."""
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_dkv.argtypes = [p] * 11 + [i] * 4 + [ll] * 18 + [ctypes.c_float, p]
-        lib.flash_attention_dq.argtypes = [p] * 10 + [i] * 4 + [ll] * 15 + [ctypes.c_float, p]
+        lib.flash_attention_dkv.argtypes = [p] * 11 + [i] * 4 + [ll] * 18 + [ctypes.c_float, p, p]
+        lib.flash_attention_dq.argtypes = [p] * 10 + [i] * 4 + [ll] * 15 + [ctypes.c_float, p, p]
+        lib.flash_attention_bwd_f32_planes.argtypes = [i]
+        lib.flash_attention_bwd_f32_smem.argtypes = [i]
         lib.flash_attention_bwd_count_tiles.argtypes = [p, ll]
         lib.flash_attention_dkv.restype = lib.flash_attention_dq.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    from ..kernels import build
+
+    return bind_bwd(build.load(_SOURCE_BWD))
 
 
 def _readable(t: torch.Tensor) -> bool:
@@ -275,17 +296,28 @@ def _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di):
     return stats, strides
 
 
+def _scratch(q: torch.Tensor, dkv: bool):
+    """The f32 kernels' split planes (``flash_attention_bwd.cu``: the hi and
+    lo of each operand, row-major and transposed), allocated per call; None
+    for bf16."""
+    if q.dtype == torch.bfloat16:
+        return None
+    planes = _lib_bwd().flash_attention_bwd_f32_planes(int(dkv))
+    return torch.empty(planes * q.numel(), dtype=torch.float32, device=q.device)
+
+
 def flash_attention_dkv(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale: float):
     """``(dk, dv)`` by the dkv kernel (CUDA tensors only). ``l, m`` are the
     forward's residuals and ``di = Σ_d o·do``, all ``[B, H, S]`` f32."""
     stats, strides = _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di)
     dk, dv = _empty_bhsd(k), _empty_bhsd(v)
     b, h, s, _ = q.shape
+    scratch = _scratch(q, True)
     rc = _lib_bwd().flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in stats),
         dk.data_ptr(), dv.data_ptr(), b, h, s, int(q.dtype == torch.bfloat16), *strides,
         *_strides(dk, "dk"), *_strides(dv, "dv"), float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_attention_dkv.launches.add(_variant("K5 dkv", q))
     _check_rc(rc, "flash_attention_dkv")
@@ -301,10 +333,12 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, l, m, do, di, sm_scale: float) ->
     stats, strides = _backward_operands(q, k, v, seg_q, seg_kv, l, m, do, di)
     dq = _empty_bhsd(q)
     b, h, s, _ = q.shape
+    scratch = _scratch(q, False)
     rc = _lib_bwd().flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(t.data_ptr() for t in stats),
         dq.data_ptr(), b, h, s, int(q.dtype == torch.bfloat16), *strides, *_strides(dq, "dq"),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_attention_dq.launches.add(_variant("K5 dq", q))
     _check_rc(rc, "flash_attention_dq")
@@ -315,13 +349,15 @@ flash_attention_dq.launches = LaunchCount()
 
 
 def count_tiles(counts: torch.Tensor | None) -> None:
-    """Have the bf16 kernels (forward, dkv, dq) report what their tile skip
-    did: until called with None, each launch writes, per CTA, the streamed
-    tiles that its two consumer warpgroups computed and that its producer
-    loaded into ``counts``, int32 CUDA ``[B, H, S/128, 3]`` at that launch's
-    shape (a larger grid makes the launch fail). A measurement of the
-    kernels, held against :func:`computed_tiles` at :data:`TILES`; the f32
-    kernels skip nothing and write nothing."""
+    """Have the kernels that skip tiles (bf16 forward, dkv and dq; f32 dkv
+    and dq) report what their tile skip did: until called with None, each
+    launch writes, per CTA, the streamed tiles that two of its consumers
+    computed (bf16: its two consumer warpgroups; f32: two warps of its one)
+    and that it loaded into ``counts``, int32 CUDA ``[B, H, S/R, 3]`` at
+    that launch's shape, R = :func:`cta_rows` (a larger grid makes the
+    launch fail). A measurement of the kernels, held against
+    :func:`computed_tiles` at :data:`TILES`; the f32 forward skips nothing
+    and writes nothing."""
     if counts is not None and not (counts.is_cuda and counts.dtype == torch.int32 and counts.is_contiguous()):
         raise ValueError(f"counts must be a contiguous int32 CUDA tensor, got {counts.dtype} on {counts.device}")
     ptr, n = (None, 0) if counts is None else (counts.data_ptr(), counts.numel())

@@ -1,15 +1,22 @@
-"""Shows that ``chip_smoke.py``'s bars for K5's bf16 forward reject a wrong kernel.
+"""Shows that ``chip_smoke.py``'s bars for K5 reject a wrong kernel: the bf16
+forward and the f32 backward (dkv, dq: 3xTF32 on the tensor cores).
 
 Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``:
-``python3 k5_mutants.py``. It builds mutants of ``flash_bf16_kernel`` from
-patched copies of ``kernels/flash_attention.cu`` in a temporary directory
-(the repository's sources stay as they are), launches each through the
-port's wrapper at the kernel table's shape (1, 16, 8192; one 6,500-token
-chunk) and at packed rows (4, 16, 2048; 100-token segments), and prints,
-for the shipped kernel and each mutant, the max |diff| against the plain
-version and the largest row-relative diff, each beside its bar
-(``K5_ATOL``, ``K5_FWD_REL_BF16``), one JSON object a line. Exits 1 if the
-shipped kernel fails a bar or a mutant passes the row-relative one.
+``python3 k5_mutants.py``. It builds mutants from patched copies of
+``kernels/flash_attention.cu`` (``flash_bf16_kernel``) and
+``kernels/flash_attention_bwd.cu`` (the f32 kernels) in a temporary
+directory (the repository's sources stay as they are), all at once, and
+launches each through the port's wrappers. The forward runs at the kernel
+table's shape (1, 16, 8192; one 6,500-token chunk) and at packed rows
+(4, 16, 2048; 100-token segments): for the shipped kernel and each mutant,
+the max |diff| against the plain version and the largest row-relative diff,
+each beside its bar (``K5_ATOL``, ``K5_FWD_REL_BF16``). The f32 backward
+runs at the table shape and on the "no key in a skipped tile" layout of
+``_skip_layouts`` (1, 16, 2048): the max |diff| of dq, dk and dv against
+``flash_attention_backward_plain`` beside phase 2's ``K5_BWD_ATOL_F32``.
+One JSON object a line. Exits 1 if a shipped kernel fails a bar, a forward
+mutant passes the row-relative one, or a backward mutant passes the f32 bar
+on both inputs.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from intool_rag_tpu_torch.ops import flash_attention as fa
 _LIN2 = "__device__ __forceinline__ float lin2(float x) { return fmaxf(1.f + 0.6931472f * x, 0.f); }\n"
 _SOFTMAX = "template <bool UNIFORM, int NV>\n__device__ __forceinline__ void softmax_tile"
 # name -> (text in flash_attention.cu, its replacement), each text present in the source
-MUTANTS = {
+FWD_MUTANTS = {
     "no p.v": [
         ("mma_ra<64>(o, pa + 4 * kk, vb + 128 * kk, 1);", ";"),
         ("mma_ra<64>(o_acc, pa + 4 * kk, vb + 128 * kk, 1);", ";"),
@@ -51,29 +58,82 @@ MUTANTS = {
 }
 
 
-def _build_mutant(work: Path, name: str, edits) -> ctypes.CDLL:
-    """Patches a copy of the source (and its headers) in the new directory
+# the f32 backward (flash_attention_bwd.cu): each product one tf32 product, the
+# transposed planes unpermuted under the register-A fragment, rows no key matches
+# not keeping their tiles
+BWD_MUTANTS = {
+    "f32 backward: one tf32 product per pair (lo terms dropped)": [
+        ("    mma<float, F_T>(acc, ah, bl, 1);\n    mma<float, F_T>(acc, al, bh, 1);\n", ""),
+        ("    mma_ra_tf32<64>(acc, x_hi + 4 * c, b_lo + 2 * c, 1);\n"
+         "    mma_ra_tf32<64>(acc, x_lo + 4 * c, b_hi + 2 * c, 1);\n", ""),
+    ],
+    "f32 backward: register A without the row permutation": [
+        ("return f < 4 ? 2 * f : 2 * f - 7;", "return f;"),
+    ],
+    "f32 backward: skip ignores rows no key matches": [
+        ("const bool nm = own_nm || pl.nomatch[t];", "const bool nm = false;"),
+    ],
+}
+
+
+def _build_mutant(work: Path, source: str, name: str, edits) -> ctypes.CDLL:
+    """Patches a copy of ``source`` (and the headers) in the new directory
     ``work`` and builds it with the port's nvcc flags; returns the loaded
-    library."""
-    src = (build.KERNEL_DIR / "flash_attention.cu").read_text()
+    library, its argument types set."""
+    src = (build.KERNEL_DIR / source).read_text()
     for old, new in edits:
         if old not in src:
-            raise ValueError(f"mutant {name!r}: {old!r} is not in flash_attention.cu")
+            raise ValueError(f"mutant {name!r}: {old!r} is not in {source}")
         src = src.replace(old, new)
     work.mkdir()
     for header in build.KERNEL_DIR.glob("*.cuh"):
         shutil.copy(header, work)
-    (work / "flash_attention.cu").write_text(src)
+    (work / source).write_text(src)
     lib_path = work / "lib.so"
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(work / "flash_attention.cu")],
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(work / source)],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"mutant {name!r} did not build:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
+    if source == "flash_attention_bwd.cu":
+        return fa.bind_bwd(lib)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
     lib.flash_attention_segments.restype = ctypes.c_int
     return lib
+
+
+def _backward(dev, gen, libs: dict) -> list[str]:
+    """The f32 backward, shipped and mutants, against the plain backward;
+    returns what the bar misjudged."""
+    seg = (torch.arange(8192, device=dev)[None] < 6500).to(torch.int32)
+    no_key = [torch.as_tensor(x, device=dev) for x in cs._skip_layouts(1, 2048)["no key in a skipped tile"]]
+    inputs = {"(1, 16, 8192), one 6,500-token chunk": (seg, seg),
+              "(1, 16, 2048), no key in a skipped tile": tuple(no_key)}
+    lib_of_module, failed, wrong = fa._lib_bwd, {name: False for name in libs}, []
+    try:
+        for shape, (seg_q, seg_kv) in inputs.items():
+            q, k, v = (x.contiguous() for x in cs._k5_inputs(seg_q, 16, torch.float32, gen))
+            do = cs._k5_inputs(seg_q, 16, torch.float32, gen)[0].contiguous()
+            out, l, m = fa._forward_cuda(q, k, v, seg_q, seg_kv, 0.125, True)
+            want = fa.flash_attention_backward_plain(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
+            for name, lib in {"shipped": lib_of_module(), **libs}.items():
+                fa._lib_bwd = lambda lib=lib: lib
+                got = fa.flash_attention_backward(q, k, v, seg_q, seg_kv, out, l, m, do, 0.125)
+                errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+                passes = max(errs) <= cs.K5_BWD_ATOL_F32 and all(torch.isfinite(g).all() for g in got)
+                print(json.dumps({"shape": shape, "kernel": name, "max_abs dq dk dv": errs,
+                                  "atol": cs.K5_BWD_ATOL_F32}), flush=True)
+                if name == "shipped" and not passes:
+                    wrong.append(f"{shape} | shipped f32 backward")
+                elif name != "shipped":
+                    failed[name] |= not passes
+                del got
+            del q, k, v, do, out, l, m, want
+            torch.cuda.empty_cache()
+    finally:
+        fa._lib_bwd = lib_of_module
+    return wrong + [f"{name} passed on every input" for name, f in failed.items() if not f]
 
 
 def main() -> int:
@@ -82,10 +142,13 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    mutants = [("flash_attention.cu", name, edits) for name, edits in FWD_MUTANTS.items()]
+    mutants += [("flash_attention_bwd.cu", name, edits) for name, edits in BWD_MUTANTS.items()]
     with tempfile.TemporaryDirectory() as tmp:
-        with ThreadPoolExecutor(len(MUTANTS)) as pool:  # one nvcc a mutant, all at once
-            built = pool.map(lambda i_kv: _build_mutant(Path(tmp) / str(i_kv[0]), *i_kv[1]), enumerate(MUTANTS.items()))
-            libs = dict(zip(MUTANTS, built))
+        with ThreadPoolExecutor(len(mutants)) as pool:  # one nvcc a mutant, all at once
+            built = list(pool.map(lambda i_m: _build_mutant(Path(tmp) / str(i_m[0]), *i_m[1]), enumerate(mutants)))
+        libs = {name: lib for (source, name, _), lib in zip(mutants, built) if source == "flash_attention.cu"}
+        bwd_libs = {name: lib for (source, name, _), lib in zip(mutants, built) if source != "flash_attention.cu"}
         lib_of_module, shipped = fa._lib, fa._lib()
         gen = torch.Generator(device=dev).manual_seed(11)
         shapes = {
@@ -114,10 +177,13 @@ def main() -> int:
                 del want
         finally:
             fa._lib = lib_of_module
+        torch.cuda.empty_cache()
+        wrong += _backward(dev, gen, bwd_libs)
     if wrong:
         print(f"bars misjudged: {wrong}", file=sys.stderr)
         return 1
-    print("every mutant fails the row-relative bar; the shipped kernel passes both")
+    print("every forward mutant fails the row-relative bar and every f32 backward mutant the f32 bar; "
+          "the shipped kernels pass")
     return 0
 
 

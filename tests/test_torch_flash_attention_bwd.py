@@ -280,11 +280,11 @@ def test_backward_kernels_on_card():
 
 def _restricted_backward(q, k, v, seg_q, seg_kv, o, l, m, do):
     """The plain backward with ``p`` and ``ds`` zeroed on every pair that
-    the bf16 kernels skip (:func:`tflash.computed_tiles` at dkv's tiles for
-    dk and dv, at dq's for dq); every other step as
-    ``flash_attention_backward_plain`` takes it."""
+    the kernels of q's type skip (:func:`tflash.computed_tiles` at dkv's
+    tiles for dk and dv, at dq's for dq; the f32 kernels have tiles of their
+    own); every other step as ``flash_attention_backward_plain`` takes it."""
     def computed_pairs(what):
-        tq, tk = tflash.TILES[what]
+        tq, tk = tflash.TILES[tflash.tiles_key(what, q.dtype)]
         tiles = tflash.computed_tiles(seg_q, seg_kv, m, tq, tk)
         return tiles.repeat_interleave(tq, dim=2).repeat_interleave(tk, dim=3)
 
@@ -328,7 +328,7 @@ def test_backward_restricted_to_computed_tiles_is_bit_equal(layout, dtype):
         assert torch.equal(a, r), name
 
 
-@pytest.mark.parametrize("what", ["fwd", "dkv", "dq"])
+@pytest.mark.parametrize("what", ["fwd", "dkv", "dq", "dkv f32", "dq f32"])
 def test_skip_rule_skips_nothing_on_one_segment_and_some_tiles_of_packed_rows(what):
     b, h, s = 2, 2, 1024
     tq, tk = tflash.TILES[what]
@@ -378,30 +378,32 @@ def test_restricted_backward_matches_library_kernels_in_interpret_mode(dtype):
 
 
 def test_kernels_count_the_tiles_the_rule_computes_on_card():
-    """Each CTA of the bf16 kernels reports the streamed tiles its producer
-    loaded and its two consumer warpgroups computed: every count equals the
-    plain model's (needs the card; ``chip_smoke.py`` phase 2 holds every
-    layout)."""
+    """Each CTA of the backward kernels (bf16 and f32) reports the streamed
+    tiles it loaded and that two of its consumers computed: every count
+    equals the plain model's at the kernel's tiles (needs the card;
+    ``chip_smoke.py`` phase 2 holds every layout)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
     b, h, s = 2, 2, 1024
     rng = np.random.default_rng(34)
-    for name, (seg_q, seg_kv) in _skip_layouts(rng, b, s).items():
-        q, k, v, do = (torch.randn((b, h, s, 64), device="cuda").to(torch.bfloat16) for _ in range(4))
-        seg_q, seg_kv = torch.from_numpy(seg_q).cuda(), torch.from_numpy(seg_kv).cuda()
-        out, l, m = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, SCALE, save_residuals=True)
-        di = (out.float() * do.float()).sum(dim=-1).contiguous()
-        for what, kernel in (("dkv", tflash.flash_attention_dkv), ("dq", tflash.flash_attention_dq)):
-            counts = torch.full((b, h, s // 128, 3), -1, dtype=torch.int32, device="cuda")
-            tflash.count_tiles(counts)
-            try:
-                kernel(q, k, v, seg_q, seg_kv, l, m, do, di, SCALE)
-                torch.cuda.synchronize()
-            finally:
-                tflash.count_tiles(None)
-            tiles = tflash.computed_tiles(seg_q, seg_kv, m, *tflash.TILES[what])
-            want = tiles.sum(2) if what == "dkv" else tiles.sum(3)  # per CTA: its 128 keys (dkv) or queries (dq)
-            assert torch.equal(counts, want.int()[..., None].expand(-1, -1, -1, 3)), (name, what)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (seg_q, seg_kv) in _skip_layouts(rng, b, s).items():
+            q, k, v, do = (torch.randn((b, h, s, 64), device="cuda").to(dtype) for _ in range(4))
+            seg_q, seg_kv = torch.from_numpy(seg_q).cuda(), torch.from_numpy(seg_kv).cuda()
+            out, l, m = tflash.flash_attention_plain(q, k, v, seg_q, seg_kv, SCALE, save_residuals=True)
+            di = (out.float() * do.float()).sum(dim=-1).contiguous()
+            for what, kernel in (("dkv", tflash.flash_attention_dkv), ("dq", tflash.flash_attention_dq)):
+                rows = tflash.cta_rows(what, dtype)
+                counts = torch.full((b, h, s // rows, 3), -1, dtype=torch.int32, device="cuda")
+                tflash.count_tiles(counts)
+                try:
+                    kernel(q, k, v, seg_q, seg_kv, l, m, do, di, SCALE)
+                    torch.cuda.synchronize()
+                finally:
+                    tflash.count_tiles(None)
+                tiles = tflash.computed_tiles(seg_q, seg_kv, m, *tflash.TILES[tflash.tiles_key(what, dtype)])
+                want = tiles.sum(2) if what == "dkv" else tiles.sum(3)  # per CTA: its keys (dkv) or queries (dq)
+                assert torch.equal(counts, want.int()[..., None].expand(-1, -1, -1, 3)), (name, what, dtype)
 
 
 def test_backward_takes_what_the_forward_takes_on_card():
@@ -420,3 +422,87 @@ def test_backward_takes_what_the_forward_takes_on_card():
             out = tflash.flash_attention_segments(*leaves, seg, seg, SCALE)
             grads.append(torch.autograd.grad(out, leaves, do))
         assert all(torch.equal(a, b) for a, b in zip(*grads)), dtype
+
+
+# ---------------------------------------------------------------- 3xTF32
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x read as tf32 by the tensor cores: its low 13 mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """The f32 kernels' split: hi = x as tf32, lo = x - hi (exact in f32)."""
+    hi = _tf32(x)
+    return hi, x - hi
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores take it: 3xTF32 (a_hi.b_hi + a_hi.b_lo +
+    a_lo.b_hi, lo read as tf32, lo.lo dropped) or a single tf32 product;
+    the products summed in f64, rounded to f32 once."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    out = a_hi.double() @ b_hi.double()
+    if passes == 3:
+        out = out + a_hi.double() @ _tf32(b_lo).double() + _tf32(a_lo).double() @ b_hi.double()
+    return out.float()
+
+
+def _tf32_backward(q, k, v, seg_q, seg_kv, o, l, m, do, passes: int):
+    """``flash_attention_backward_plain`` (f32) with every product taken by
+    :func:`_mm_tf32`: a model of the f32 kernels' arithmetic."""
+    logits = _mm_tf32(q, k.transpose(-1, -2), passes) * SCALE
+    logits = logits.masked_fill(seg_q[:, None, :, None] != seg_kv[:, None, None, :], tflash.MASK_VALUE)
+    p = torch.exp(logits - m[..., None]) * (1.0 / l)[..., None]
+    di = (o * do).sum(dim=-1)
+    ds = (_mm_tf32(do, v.transpose(-1, -2), passes) - di[..., None]) * p * SCALE
+    return (_mm_tf32(ds, k, passes), _mm_tf32(ds.transpose(-1, -2), q, passes),
+            _mm_tf32(p.transpose(-1, -2), do, passes))
+
+
+def test_tf32_split_is_exact():
+    """hi + lo gives x back bit for bit, hi's low 13 bits are clear, and lo
+    is at most 2^-10 of |x|."""
+    x = torch.from_numpy(np.random.default_rng(35).standard_normal((4096,)).astype(np.float32) * 100)
+    hi, lo = _split(x)
+    assert torch.equal(hi + lo, x)
+    assert not (hi.view(torch.int32) & ((1 << 13) - 1)).any()
+    assert (lo.abs() <= x.abs() * 2.0 ** -10).all()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tf32x3_backward_model_holds_the_f32_bar_and_one_tf32_product_does_not(layout):
+    """The f32 kernels' 3xTF32 arithmetic, modelled in torch, against
+    ``jax.grad`` of the library's kernels in interpret mode: within the bar
+    that ``chip_smoke.py`` holds the kernels to (``K5_BWD_ATOL_F32``, 5e-5).
+    A single tf32 product per pair misses that bar (by 40x or more here)."""
+    b, h, s = 1, 2, 512
+    rng, q, k, v = _inputs(36, b, h, s, "float32")
+    seg = _segments(rng, layout, b, s)
+    do = _do(rng, q.shape, "float32")
+    with pltpu.force_tpu_interpret_mode():
+        want = _library_grads(_kernels, q, k, v, seg, seg, do, "float32")
+    args = _plain_residuals(q, k, v, seg, seg, "float32")
+    tdo = torch.from_numpy(do)
+    got = _tf32_backward(*args, tdo, passes=3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-5, rtol=0, err_msg=name)
+    single = _tf32_backward(*args, tdo, passes=1)
+    assert max(np.abs(g.numpy() - w).max() for g, w in zip(single, want)) > 5e-5
+
+
+def test_f32_backward_bounds_count_three_tf32_products():
+    """``chip_smoke.py``'s bound for the f32 kernels: three tf32 products a
+    pair at the tf32 peak, the f32-FMA bound beside it; bf16 has no FMA
+    bound. At (1, 16, 8192) with one 6,500-token chunk: 2.241 / 1.681 ms
+    (dkv / dq), 5.516 / 4.137 at the f32 rate."""
+    import chip_smoke as cs
+
+    seg = (torch.arange(8192)[None] < 6500).to(torch.int32)
+    for what, tf32, fma in (("dkv", 2.2411, 5.5159), ("dq", 1.6809, 4.1369)):
+        bound = cs._k5_backward_bound(seg, 16, 4, what)
+        assert bound["bound_by"] == "operations"
+        assert bound["bound_ms"] == pytest.approx(tf32, rel=1e-3)
+        assert bound["fma_bound_ms"] == pytest.approx(fma, rel=1e-3)
+        assert "fma_bound_ms" not in cs._k5_backward_bound(seg, 16, 2, what)
