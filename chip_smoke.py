@@ -7,12 +7,12 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
    and each kernel's registers and shared memory: for K1/K2's tensor-core
-   kernels per variant and query-tile width, for K5's four forward entries
-   (bf16, f32; with and without the saved residuals) and its four backward
-   entries (dkv, dq; bf16, f32), with their spill bytes, and fails if any
-   of them spills or the compiler warns on any of those three sources, or
-   if ptxas serializes the wgmma pipeline of the K5 forward or of the f32
-   backward kernels (dkv, dq).
+   kernels per variant and query-tile width, for K3's scan (per plane width)
+   and plan, for K5's four forward entries (bf16, f32; with and without the
+   saved residuals) and its four backward entries (dkv, dq; bf16, f32), with
+   their spill bytes, and fails if any of them spills or the compiler warns
+   on any of those four sources, or if ptxas serializes the wgmma pipeline
+   of a K5 forward (bf16, f32) or of the f32 backward kernels (dkv, dq).
 2. kernels vs plain: every K1 (``partial_topk``: bf16, bf16 precise, f16,
    f32) and K2 (``partial_topk_int8``: int8, +q2, +c2, int8r) variant
    against its plain PyTorch version on the card, at the shapes of
@@ -25,8 +25,11 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    above 2e-4. K3
    (``bits_scan``) at the shapes of ``K3_CHECKS`` (the service store's and
    the capacity run's among them, with empty slots and an all-empty
-   list): values to rtol 2e-5 / atol 1e-5, ids wherever the within-group
-   gap is above 1e-5. K4 (``quantize_int8_stochastic``): scales bit-equal,
+   list) and ``K3_PLAN_CHECKS`` (one list probed by every tile, more than
+   the plan's group cap; every tile probing the all-empty list): values to
+   rtol 2e-5 / atol 1e-5, ids wherever the within-group gap is above 1e-5,
+   each call repeated bit for bit, and the kernel's scan plan equal to
+   ``scan_plan_reference``. K4 (``quantize_int8_stochastic``): scales bit-equal,
    every code at floor or floor+1, seeds repeatable and distinct, the
    64-seed mean unbiased, and the rounding-up rate within 3 sigma of the
    plain version's. K5 (``flash_attention_segments``) at the shapes of
@@ -35,11 +38,12 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    ``_skip_layouts``, and at S 8192 one head at a time: atol 2e-5 (f32) and
    2e-2 (bf16) on unit-variance inputs, and bf16 also per query row within
    2^-6 of the row's largest |value| (``K5_FWD_REL_BF16``, which holds the
-   long rows, where |o| is about 0.02); bf16 with and without the saved
-   residuals, each run twice, bit-equal, with every CTA's own count of the
-   tiles it loaded and computed equal to the skip rule's plain model
-   (``computed_tiles``, with ``m`` from that launch); k and v expanded over
-   the heads give the bits of their copies; unsupported shapes must raise. K5's backward
+   long rows, where |o| is about 0.02); bf16 and f32 (3xTF32) with and
+   without the saved residuals, each run twice, bit-equal, with every CTA's
+   own count of the tiles it loaded and computed equal to the skip rule's
+   plain model (``computed_tiles`` at that dtype's tiles, with ``m`` from
+   that launch); k and v expanded over the heads give the bits of their
+   copies; unsupported shapes must raise. K5's backward
    kernels (dkv and dq) at the same shapes and layouts, and at the edges of
    the kernels' tile skip (``_skip_layouts``: a row no key matches in a
    tile that would otherwise be skipped, interleaved ids that differ between
@@ -83,7 +87,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    twelve appends; 256 queries, k 10 of a refined pool of 100, nprobe
    8/16/32. Recall@10 and pool@100 against a streamed exact-f32 oracle
    must be >= 0.95 at nprobe 16, and the dense side may launch K3 only.
-   K3 and K4 then join the kernel table.
+   K3 (with the bytes of the distinct, scanned and planned blocks, and its
+   time at the service shape) and K4 then join the kernel table.
 6. ingest at full width: the ``bge_m3``-width encoder (24 x 1024, 16 heads,
    bf16, ``flash_min_len`` 1024, random weights from a seed) behind the
    port's HTTP service on a fresh ``STORAGE_DIR``, twice. Packed:
@@ -106,7 +111,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    the K5 route and with ``flash_min_len=0``, and packed against padded,
    must agree to cosine 0.999 row by row. K5's time per launch at each
    shape, the encoder forward and K5's kernel-table rows (S 8192, with
-   the library's attention beside it) follow.
+   the library's attention beside it; f32 with its 3xTF32 bound and the
+   f32-FMA bound beside; each with the share of tiles it computed) follow.
 7. training at full width: ``make_train_step`` on the ``bge_m3``
    configuration (24 x 1024, f32 master weights, bf16 compute, seeded
    random init, AdamW), six steps on a fixed batch of 4 queries x S 128
@@ -287,7 +293,7 @@ def _k5_kernels(name: str, text: str) -> dict:
     if name == "flash_attention.cu":
         pattern = r"flash_(bf16|f32)_kernelILb([01])E"
         label = lambda m: f"K5 {m.group(1)}{' save' if m.group(2) == '1' else ''}"
-        dyn = lambda m: fa._lib().flash_attention_smem() if m.group(1) == "bf16" else 0
+        dyn = lambda m: fa._lib().flash_attention_smem() if m.group(1) == "bf16" else fa._lib().flash_attention_f32_smem()
         must_pipeline = lambda k: True
     else:
         lib = fa._lib_bwd()
@@ -312,6 +318,33 @@ def _k5_kernels(name: str, text: str) -> dict:
     if warnings or spilled or serialized or len(out) != 4:
         raise AssertionError(f"K5 kernels of {name}: warnings {warnings}, spills {spilled}, serialized wgmma "
                              f"{serialized}, entries {sorted(out)}")
+    return out
+
+
+def _k3_kernels(text: str) -> dict:
+    """K3's entries in ``bits_scan.cu`` (the scan per plane width, the plan):
+    registers, spill bytes and shared memory (the scan's ring and query tiles
+    are dynamic). Fails on a spill or a compiler warning."""
+    from intool_rag_tpu_torch.ops import bits_scan as bs
+
+    out = {}
+    for e in _ptxas_entries(text):
+        if m := re.search(r"bits_scan_kernelILi(\d+)E", e["entry"]):
+            d = 128 * int(m.group(1))
+            out[f"K3 scan D {d}"] = {"registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                                     "smem_bytes": e["static_smem"] + bs._lib().bits_scan_smem(d)}
+        elif "bits_plan_kernel" in e["entry"]:
+            out["K3 plan"] = {"registers": e["registers"], "spill_bytes": e["spill_bytes"],
+                              "smem_bytes": e["static_smem"]}
+    for ln in text.splitlines():  # printed: a scan whose wgmma pipeline ptxas serialized
+        if (m := re.search(r"wgmma\.mma_async instructions are serialized due to (.*) in the function '([^']+)'", ln)) \
+                and (e := re.search(r"bits_scan_kernelILi(\d+)E", m.group(2))):
+            out[f"K3 scan D {128 * int(e.group(1))}"]["wgmma_serialized"] = m.group(1)
+    log(f"built bits_scan.cu: K3 (registers, spill bytes, shared memory): {json.dumps(out)}")
+    warnings = sorted({ln.strip() for ln in text.splitlines() if "warning" in ln.lower()})
+    spilled = [k for k, e in out.items() if e["spill_bytes"]]
+    if warnings or spilled or len(out) != 1 + len(bs.KERNEL_DIMS):
+        raise AssertionError(f"K3 kernels: warnings {warnings}, spills {spilled}, entries {sorted(out)}")
     return out
 
 
@@ -341,6 +374,9 @@ def phase_build(state: dict) -> None:
             continue
         if name in ("flash_attention.cu", "flash_attention_bwd.cu"):
             state.setdefault("k5_kernels", {}).update(_k5_kernels(name, text))
+            continue
+        if name == "bits_scan.cu":
+            state["k3_kernels"] = _k3_kernels(text)
             continue
         kept = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines()
                 if "registers" in ln or "smem" in ln or "spill" in ln]
@@ -479,14 +515,21 @@ def phase_kernels(state: dict) -> None:
                             raise AssertionError(f"{name} at {what}, N {n}, D {d}, group_l {g}: repeat differs")
         del corpus, cb, ch, c1, c2, cs
     torch.cuda.empty_cache()
-    for shape in K3_CHECKS:
-        args, kw = _k3_inputs(gen, *shape, dev)
+    plans = 0
+    for *shape, every_tile in [(*c, None) for c in K3_CHECKS] + K3_PLAN_CHECKS:
+        args, kw = _k3_inputs(gen, *shape, dev, every_tile=every_tile)
         kout = _k3_kernel(args, kw)
+        again = _k3_kernel(args, kw)
         torch.cuda.synchronize()
+        if not (torch.equal(again[0], kout[0]) and torch.equal(again[1], kout[1])):
+            raise AssertionError(f"K3 at {shape}: a repeated call differs")
         errs["K3"] = max(errs.get("K3", 0.0), _compare_k3(args, kw, kout, _k3_plain(args, kw)))
         checks += 1
-        del args, kout
+        plans += _check_k3_plan(args[3])
+        del args, kout, again
         torch.cuda.empty_cache()
+    log(f"phase 2: K3 repeats bit-equal on {len(K3_CHECKS) + len(K3_PLAN_CHECKS)} shapes; the kernel's plan "
+        f"equals scan_plan_reference on {plans}")
     with_bad_width = _k3_inputs(gen, 128, 128, 1, 4, 2, 8, 8, dev)
     try:  # a plane width the kernel cannot tile raises; it never takes the plain version
         bad = list(with_bad_width[0])
@@ -531,9 +574,34 @@ K3_CHECKS = [
 ]
 
 
-def _k3_inputs(gen, d, block_n, bpl, nlist, nprobe, q, group_l, dev, empty_frac=0.2):
+# (d, block_n, blocks_per_list, nlist, nprobe, queries, group_l, list every
+# tile probes): list 0 probed by all 32 tiles, more than the plan's group cap,
+# so its blocks are split across items; list 1, all empty, probed by every tile
+K3_PLAN_CHECKS = [
+    (1024, 1024, 2, 20, 8, 256, 8, 0),
+    (384, 256, 3, 24, 6, 128, 1, 0),
+    (384, 1024, 1, 64, 16, 64, 8, 1),
+]
+
+
+def _check_k3_plan(probe_blocks) -> int:
+    """The kernel's plan of these probes (its groups and pair order) against
+    scan_plan_reference, bit for bit; 1 if held, 0 where the pairs exceed one
+    plan (the kernel plans them in rectangles)."""
+    from intool_rag_tpu_torch.ops.bits_scan import scan_plan, scan_plan_reference
+
+    if probe_blocks.numel() > 2048:
+        return 0
+    (kg, ko), (pg, po) = scan_plan(probe_blocks), scan_plan_reference(probe_blocks)
+    if not (torch.equal(kg, pg) and torch.equal(ko, po)):
+        raise AssertionError(f"K3 plan of {tuple(probe_blocks.shape)} probes differs from scan_plan_reference")
+    return 1
+
+
+def _k3_inputs(gen, d, block_n, bpl, nlist, nprobe, q, group_l, dev, empty_frac=0.2, every_tile=None):
     """A random list-major store (a fifth of the slots empty, list 1 all
-    empty and probed by tile 0) with a random probe table, as
+    empty and probed by tile 0, or by every tile where ``every_tile`` is 1)
+    with a random probe table (list ``every_tile`` in every tile's probes), as
     ``(qb, codes, scales, probe_blocks, c_sel)`` and the scan's statics."""
     n_blocks = nlist * bpl
     codes = torch.randint(0, 256, (n_blocks * block_n, d // 8), generator=gen, device=dev,
@@ -542,7 +610,10 @@ def _k3_inputs(gen, d, block_n, bpl, nlist, nprobe, q, group_l, dev, empty_frac=
     empty = torch.rand((n_blocks, block_n), generator=gen, device=dev) < empty_frac
     empty[bpl : 2 * bpl] = True
     scales[:, 0, :] = torch.where(empty, -1.0, scales[:, 0, :])
-    lists = torch.rand((q // 8, nlist), generator=gen, device=dev).argsort(dim=1)[:, :nprobe]
+    draw = torch.rand((q // 8, nlist), generator=gen, device=dev)
+    if every_tile is not None:
+        draw[:, every_tile] = -1.0  # first in every tile's probes
+    lists = draw.argsort(dim=1)[:, :nprobe]
     lists[0, 0] = 1
     probe_blocks = (lists * bpl).to(torch.int32).contiguous()
     c_sel = torch.randn((q, nprobe), generator=gen, device=dev)
@@ -706,12 +777,12 @@ def _no_key_rows(seg: torch.Tensor) -> torch.Tensor:
 def _check_k5(dev) -> dict[str, float]:
     """K5 forward against its plain version on the card: max |diff| per
     dtype, and bf16's largest row-relative diff (``_row_rel_err``). Raises
-    beyond ``K5_ATOL`` or, in bf16, ``K5_FWD_REL_BF16``. Every bf16 check runs each variant
-    (inference, and with the saved residuals) twice, bit-equal, with the
-    kernels' tile counts on: each CTA's count must equal the skip rule's
-    (``computed_tiles`` at the forward's tiles, with ``m`` from that same
-    launch). S 8192 is compared one head at a time, so the plain version's
-    logits stay at 1.1 GB."""
+    beyond ``K5_ATOL`` or, in bf16, ``K5_FWD_REL_BF16``. Every check (bf16
+    and f32) runs each variant (inference, and with the saved residuals)
+    twice, bit-equal, with the kernels' tile counts on: each CTA's count
+    must equal the skip rule's (``computed_tiles`` at the forward's tiles of
+    that dtype, with ``m`` from that same launch). S 8192 is compared one
+    head at a time, so the plain version's logits stay at 1.1 GB."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(5)
@@ -720,7 +791,7 @@ def _check_k5(dev) -> dict[str, float]:
     checks = 0
 
     def run(q, k, v, seg_q, seg_kv):
-        """Both bf16 variants, each twice (bit-equal); returns their outputs."""
+        """Both variants (inference, saved residuals), each twice (bit-equal); returns their outputs."""
         out = fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125)
         saved = fa._forward_cuda(q, k, v, seg_q, seg_kv, 0.125, True)
         again = (fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125),
@@ -744,12 +815,8 @@ def _check_k5(dev) -> dict[str, float]:
         checks += 1
 
     def compare(name, q, k, v, seg_q, seg_kv):
-        if q.dtype == torch.bfloat16:
-            _counted_fwd_tiles_share(q, k, v, seg_q, seg_kv, name)
-            outs = run(q, k, v, seg_q, seg_kv)
-        else:
-            outs = (fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125),)
-            torch.cuda.synchronize()
+        _counted_fwd_tiles_share(q, k, v, seg_q, seg_kv, name)
+        outs = run(q, k, v, seg_q, seg_kv)
         want = fa.flash_attention_plain(q, k, v, seg_q, seg_kv, 0.125)
         for out in outs:
             hold(name, q, out, want)
@@ -772,12 +839,8 @@ def _check_k5(dev) -> dict[str, float]:
             q, k, v = (torch.randn((4, 16, 8192, 64), generator=gen, device=dev).to(getattr(torch, dt))
                        for _ in range(3))
             seg = torch.as_tensor(seg_np[name], device=dev)
-            if dt == "bfloat16":
-                _counted_fwd_tiles_share(q, k, v, seg, seg, f"S 8192 {name}")
-                outs = run(q, k, v, seg, seg)
-            else:
-                outs = (fa.flash_attention_segments(q, k, v, seg, seg, 0.125),)
-                torch.cuda.synchronize()
+            _counted_fwd_tiles_share(q, k, v, seg, seg, f"S 8192 {name}")
+            outs = run(q, k, v, seg, seg)
             for head in (0, 7, 15):
                 hs = slice(head, head + 1)
                 want = fa.flash_attention_plain(q[:, hs], k[:, hs], v[:, hs], seg, seg, 0.125)
@@ -881,21 +944,24 @@ def _counted_tiles_share(q, k, v, seg_q, seg_kv, l, m, do, di, what: str) -> flo
 
 
 def _counted_fwd_tiles_share(q, k, v, seg_q, seg_kv, label: str) -> float:
-    """The bf16 forward with its tile counts on: the launch that saves l and
-    m is held against the skip rule with that launch's own m, and the
-    inference launch must count the same tiles. Returns the share of tiles
-    computed, as the kernel counted them."""
+    """The forward (at q's type: bf16 or f32, each at its own tiles) with its
+    tile counts on: the launch that saves l and m is held against the skip
+    rule with that launch's own m, and the inference launch must count the
+    same tiles. Returns the share of tiles computed, as the kernel counted
+    them."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     b, h, s, _ = q.shape
+    key, rows = fa.tiles_key("fwd", q.dtype), fa.cta_rows("fwd", q.dtype)
+    what = f"K5 forward {'bf16' if q.dtype == torch.bfloat16 else 'f32'} {(b, h, s)} {label!r}"
     saved = {}
     counts = _tile_counts(lambda: saved.update(m=fa._forward_cuda(q, k, v, seg_q, seg_kv, 0.125, True)[2]),
-                          (b, h, s))
-    tiles = fa.computed_tiles(seg_q, seg_kv, saved["m"], *fa.TILES["fwd"])
-    share = _hold_tile_counts(counts, tiles, "fwd", f"K5 forward bf16 {(b, h, s)} {label!r}")
-    inference = _tile_counts(lambda: fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125), (b, h, s))
+                          (b, h, s), rows)
+    tiles = fa.computed_tiles(seg_q, seg_kv, saved["m"], *fa.TILES[key])
+    share = _hold_tile_counts(counts, tiles, key, what)
+    inference = _tile_counts(lambda: fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125), (b, h, s), rows)
     if not torch.equal(inference, counts):
-        raise AssertionError(f"K5 forward bf16 {(b, h, s)} {label!r}: the inference launch counts other tiles")
+        raise AssertionError(f"{what}: the inference launch counts other tiles")
     return share
 
 
@@ -1625,16 +1691,50 @@ def _scan_bound(probe_blocks, bpl, block_n, d, q, n_cand) -> tuple[float, str, d
     bf16 peak). Bytes: every DISTINCT probed block once (codes + scales),
     queries, probe table and centroid dots once, candidates written once.
     Operations: 2 x 8 queries x D for every slot a tile scans."""
+    from intool_rag_tpu_torch.ops.bits_scan import scan_plan_reference
+
     blocks = probe_blocks.long()[:, :, None] + torch.arange(bpl, device=probe_blocks.device)
     distinct = int(torch.unique(blocks).numel())
     scanned = int(blocks.numel())
+    planned = len(scan_plan_reference(probe_blocks)[0]) * bpl  # blocks the kernel reads: one per item
     block_bytes = block_n * (d // 8 + 32)
     nbytes = distinct * block_bytes + q * d * 2 + probe_blocks.numel() * 4 * 2 + q * n_cand * 8
     ops = 2.0 * 8 * d * scanned * block_n
     t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, ops / H100_PEAK["bf16"]
     detail = {"distinct_block_mb": distinct * block_bytes / 1e6,
-              "scanned_block_mb": scanned * block_bytes / 1e6, "candidate_mb": q * n_cand * 8 / 1e6}
+              "scanned_block_mb": scanned * block_bytes / 1e6,
+              "planned_block_mb": planned * block_bytes / 1e6, "candidate_mb": q * n_cand * 8 / 1e6}
     return 1000 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), detail
+
+
+K3_SERVICE_SHAPE = (384, 1024, 1, 1024, 64, 16, 8)  # the phase-3 bits store at batch 16 (as in K3_CHECKS)
+
+
+def _k3_service_shape(gen, dev) -> dict:
+    """K3 at the service shape: device ms by events, bound, the library's
+    product-only time (``torch.bmm`` on the probed blocks decoded to bf16),
+    and the host side and wall time per call of the wrapper."""
+    from intool_rag_tpu_torch.ops.bits_scan import bits_scan, decode_bits_planar
+
+    d, block_n, bpl, nlist, nprobe, q, group_l = K3_SERVICE_SHAPE
+    args, kw = _k3_inputs(gen, *K3_SERVICE_SHAPE, dev)
+    kernel = lambda: bits_scan(*args, **kw)
+    _compare_k3(args, kw, kernel(), _k3_plain(args, kw))
+    n_cand = nprobe * bpl * block_n // group_l
+    bound = _scan_bound(args[3], bpl, block_n, d, q, n_cand)
+    codes3 = args[1].reshape(-1, block_n, d // 8)
+    decoded = torch.stack([
+        decode_bits_planar(codes3[args[3][t].long()].reshape(-1, d // 8),
+                           args[2][args[3][t].long()].permute(0, 2, 1).reshape(-1, 8).abs()).bfloat16()
+        for t in range(q // 8)])
+    q_tiles = args[0].reshape(q // 8, 8, d)
+    ms = cuda_ms(kernel, iters=50, warmup=5)
+    host, wall = host_wall_ms(kernel)
+    return {"service_shape": f"Q {q}, D {d}, block_n {block_n}, nlist {nlist}, nprobe {nprobe}, group_l {group_l}",
+            "service_ms": ms, "service_bound_ms": bound[0], "service_bound_by": bound[1],
+            "service_bound_share": bound[0] / ms, "service_distinct_block_mb": bound[2]["distinct_block_mb"],
+            "service_library_ms": cuda_ms(lambda: torch.bmm(q_tiles, decoded.transpose(1, 2)), iters=20, warmup=2),
+            "service_host_ms": host, "service_wall_ms": wall}
 
 
 def phase_capacity(state: dict) -> None:
@@ -1779,6 +1879,7 @@ def phase_capacity(state: dict) -> None:
         "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
         "bound_ms": bound[0], "bound_by": bound[1], **bound[2],
     }
+    k3_row["bound_share"] = bound[0] / k3_row["ms"]
     # product-only library time: the probed blocks decoded to bf16 once, then
     # one torch.bmm over the 32 tiles
     codes3 = index.codes.reshape(-1, block_n, d // 8)
@@ -1793,6 +1894,7 @@ def phase_capacity(state: dict) -> None:
     k3_row["library_ms"] = cuda_ms(lambda: torch.bmm(q_tiles, decoded.transpose(1, 2)), iters=5, warmup=1)
     del decoded
     torch.cuda.empty_cache()
+    k3_row.update(_k3_service_shape(gen, dev))
     log(f"kernel {json.dumps(k3_row)}")
 
     x = micro_chunk(1, centers, CAP_CHUNK)
@@ -1941,15 +2043,20 @@ def _upload(port: int, project: str, doc_id: str, name: str, data: bytes, mode: 
 def _k5_bound(seg: torch.Tensor, heads: int, elem: int) -> dict:
     """Least time (ms) for K5 on these segment ids: the operations are
     4 x 64 per (query, key) pair of equal id and per head, over the bf16
-    tensor-core rate (f32: the CUDA-core rate); the bytes q, k, v and the
-    output once plus both id arrays. ``dense_ms`` counts every pair."""
+    tensor-core rate (f32: three tf32 products each, 3xTF32, over the tf32
+    rate, with the CUDA-core f32 bound beside as ``fma_bound_ms``); the
+    bytes q, k, v and the output once plus both id arrays. ``dense_ms``
+    counts every pair."""
     b, s = seg.shape
     pairs = sum(int((torch.bincount(row) ** 2).sum()) for row in seg.long())
-    peak = H100_PEAK["bf16" if elem == 2 else "f32"]
+    passes, peak = (1, H100_PEAK["bf16"]) if elem == 2 else (3, H100_PEAK["tf32"])
     t_bytes = (4 * b * heads * s * 64 * elem + 2 * 4 * b * s) / H100_HBM_BYTES_S
-    t_ops = 4.0 * heads * 64 * pairs / peak
-    return {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "dense_bound_ms": 1000 * max(t_bytes, 4.0 * heads * 64 * b * s * s / peak)}
+    t_ops = passes * 4.0 * heads * 64 * pairs / peak
+    out = {"bound_ms": 1000 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "dense_bound_ms": 1000 * max(t_bytes, passes * 4.0 * heads * 64 * b * s * s / peak)}
+    if elem == 4:
+        out["fma_bound_ms"] = 1000 * max(t_bytes, 4.0 * heads * 64 * pairs / H100_PEAK["f32"])
+    return out
 
 
 def _k5_inputs(seg: torch.Tensor, heads: int, dtype, gen):
@@ -2211,6 +2318,7 @@ def _k5_times_and_rows(state: dict, encoder, gen) -> None:
             "name": name, "route": "cuda", "source": "intool_rag_tpu_torch/kernels/flash_attention.cu",
             "replaces": "intool_rag_tpu/models/encoder.py:138",
             # main path: the two ingest runs of this phase; the f32 variant serves f32 encoders only
+            # (phase 7's f32 gradient check fills its count)
             "launches": (packed["k5_launches"] + long["k5_launches"]) if dt == torch.bfloat16 else None,
             "max_abs_err": max(err, state.get("max_abs_err", {}).get(name, 0.0)),
             "ms": cuda_ms(kernel, iters=5, warmup=1), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
@@ -2218,8 +2326,10 @@ def _k5_times_and_rows(state: dict, encoder, gen) -> None:
             "library_ms": cuda_ms(library, iters=5, warmup=1), "max_abs_diff_library": lib_err,
             "max_row_rel_err": max(rel, state.get("k5_row_rel_err", 0.0)) if dt == torch.bfloat16 else rel,
         }
-        if dt == torch.bfloat16:  # the kernel's own count of the tiles it computed; the packed rows' width too
-            row["tiles_computed_share"] = _counted_fwd_tiles_share(q, k, v, seg, seg, "kernel table")
+        # the kernel's own count of the tiles it computed (bf16 and f32, each at its tiles)
+        row["tiles_computed_share"] = _counted_fwd_tiles_share(q, k, v, seg, seg, "kernel table")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if dt == torch.bfloat16:  # the packed rows' width too
             seg2 = (torch.arange(2048, device=dev) // 100 + 1).to(torch.int32).repeat(4, 1)
             q2, k2, v2 = (x.contiguous() for x in _k5_inputs(seg2, 16, dt, gen))
             pair2 = (seg2[:, None, :, None] == seg2[:, None, None, :])
@@ -2711,9 +2821,11 @@ def _k5_backward_times_and_rows(state: dict, dev, gen) -> None:
             log(f"kernel {json.dumps(row)}")
         del q, k, v, do, out, l, m, di
         torch.cuda.empty_cache()
-    for row in state.get("kernels", []):  # the forward's row, where the ingest phase made one
+    for row in state.get("kernels", []):  # the forward's rows, where the ingest phase made them
         if row["name"] == "K5 bf16":
             row["launches_training"] = sum(r["launches"]["K5 bf16"] for r in runs)
+        elif row["name"] == "K5 f32":  # f32 encoders only: this phase's f32 gradient check is its main path
+            row["launches"] = state["train"]["gradient_cosine"]["f32 InfoNCE"]["launches"]["K5 f32"]
     state.setdefault("kernels", []).extend(rows)
 
 

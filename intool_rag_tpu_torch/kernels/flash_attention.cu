@@ -78,9 +78,34 @@
 //    kernel and held against the plain model.
 //  * The accumulator is divided by l once and stored in the [B, S, H, 64]
 //    layout the encoder reads. No atomics: a result repeats bit for bit.
-// f32 variant (CUDA cores, no TF32): one thread per query row, 128 rows per
-// CTA, 32-key tiles broadcast from shared memory, online softmax in chunks of
-// 8 keys; it walks every key tile.
+// The f32 variant runs on the tensor cores as 3xTF32, as the f32 backward
+// kernels do (flash_attention_bwd.cu; the pieces are shared in
+// flash_common.cuh): x = hi + lo, hi = x with its low 13 mantissa bits
+// cleared, every product a_hi.b_hi + a_hi.b_lo + a_lo.b_hi into one f32
+// accumulator (about 2^-20 of |a||b|, where one tf32 product is 2^-11 off).
+// Bound: 2 x 3 x 64 x 2 operations a pair at the tf32 rate.
+//  * tf32 wgmma reads K-major operands only, so the split pre-pass
+//    (split_tf32_kernel) writes q and k as hi / lo row planes and v as hi / lo
+//    transposed planes [B*H, 64, S], the keys of each group of 8 permuted
+//    0, 2, 4, 6, 1, 3, 5, 7 (perm8), into a scratch the wrapper allocates.
+//  * One consumer warpgroup a CTA owns 64 queries; q is register A (hi and
+//    lo, 128 registers, loaded once), s = q.kT reads a streamed k tile as B.
+//    The online softmax is the bf16 forward's (softmax_tile) on a 64 x 32
+//    accumulator; p passes from it as tf32 register A (tf32_frag: values
+//    0, 2, 1, 3 of each 4, which the vT planes' permutation matches), split
+//    into hi and lo in registers, and p.v reads the vT tile as B into an
+//    accumulator of its own that o takes by FMA (o = o * alpha + p.v): o
+//    summed in the tensor core over every tile of a 6,500-key row missed the
+//    2e-5 bar (2.2e-5 on the card).
+//  * 32-key tiles through a 3-stage TMA ring (33 KB a stage), so two CTAs
+//    share an SM and one's products run under the other's softmax; thread 0
+//    refills a stage after the CTA's barrier at the end of the tile that read
+//    it.
+//  * The bf16 forward's tile skip at (64, 32) tiles (TILES["fwd f32"]):
+//    key tiles whose id range cannot meet the CTA's queries are skipped, and
+//    after the live tiles a CTA with a row whose running max is at or below
+//    the mask value (a row no key matches) lists and walks the skipped tiles
+//    too. The counts of count_tiles cover it.
 //
 // Built by kernels/build.py with nvcc for sm_90a into a shared library with a
 // plain C interface (loaded through ctypes); cuTensorMapEncodeTiled comes from
@@ -341,106 +366,150 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
   if (threadIdx.x % 128 == 0) report_tiles(counts, wg, n);
 }
 
-// ---------------------------------------------------------------- f32
+// ---------------------------------------------------------------- f32 (3xTF32 on the tensor cores)
 
-constexpr int FM = 128;  // query rows per CTA, one per thread
-constexpr int FN = 32;   // keys per tile
-constexpr int FC = 8;    // keys per online-softmax step
+// One consumer warpgroup a CTA owns 64 queries (q as register A, hi and lo,
+// loaded once from the split planes) and streams 32-key tiles: k hi / lo row
+// planes and vT hi / lo transposed planes by TMA, with their seg_kv by bulk
+// copy. Three stages of 33 KB, so two CTAs share an SM.
+constexpr int FWD_F32_STAGES = 3;
+constexpr int FWD_F32_STAGE = 4 * F_PLANE + 1024;                    // k hi, k lo, vT hi, vT lo, then seg_kv
+constexpr int FWD_F32_SMEM = FWD_F32_STAGES * FWD_F32_STAGE + 1024;  // 102,400 bytes
+constexpr int FWD_F32_PLANES = 6;  // scratch: q hi, q lo, k hi, k lo (row planes), vT hi, vT lo (transposed)
 
+struct FwdMaps {
+  CUtensorMap k_hi, k_lo;    // row planes, boxes of 32 keys
+  CUtensorMap vt_hi, vt_lo;  // transposed planes
+};
+
+// Lists the tiles of the plan that its live walk skipped in pl.order (warp 0)
+// and returns how many. Ends in __syncthreads.
+__device__ __forceinline__ int list_skipped(TilePlanF32& pl, int n_tiles) {
+  __shared__ int n_skipped;
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    int n = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const bool skipped = t0 + tid < n_tiles && !pl.live[t0 + tid];
+      const uint32_t ballot = __ballot_sync(0xffffffffu, skipped);
+      if (skipped) pl.order[n + __popc(ballot & ((1u << tid) - 1))] = t0 + tid;
+      n += __popc(ballot);
+    }
+    if (tid == 0) n_skipped = n;
+  }
+  __syncthreads();
+  return n_skipped;
+}
+
+// SAVE: also write the row sums l and maxima m ([B, H, S] f32).
 template <bool SAVE>
-__global__ void __launch_bounds__(FM)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_kv, float* __restrict__ o,
-                 float* __restrict__ l_out, float* __restrict__ m_out, int S, Strides sq,
-                 Strides sk, Strides sv, Strides so, float scale_log2) {
-  __shared__ __align__(16) float k_s[FN * DH];
-  __shared__ __align__(16) float v_s[FN * DH];
-  __shared__ int segk_s[FN];
+__global__ void __launch_bounds__(F_THREADS, 2)
+flash_f32_kernel(const __grid_constant__ FwdMaps maps, const float* __restrict__ q_hi, const float* __restrict__ q_lo,
+                 const int* __restrict__ seg_q, const int* __restrict__ seg_kv, float* __restrict__ o,
+                 float* __restrict__ l_out, float* __restrict__ m_out, int S, Strides so, float scale_log2,
+                 int* __restrict__ counts) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align_1024(smem_raw);
+  __shared__ __align__(8) uint64_t full[FWD_F32_STAGES];
+  __shared__ TilePlanF32 plan;
 
-  const int row = blockIdx.x * FM + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
-  float qr[DH], acc[DH];
-  const float4* qp = reinterpret_cast<const float4*>(q + b * sq.b + h * sq.h + (long long)row * sq.s);
-#pragma unroll
-  for (int d = 0; d < DH / 4; ++d) {
-    const float4 x = __ldg(qp + d);
-    qr[4 * d] = x.x;
-    qr[4 * d + 1] = x.y;
-    qr[4 * d + 2] = x.z;
-    qr[4 * d + 3] = x.w;
-  }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  const int my_seg = seg_q[(long long)b * S + row];
-  float m_i = -CUDART_INF_F, l_i = 0.f;
+  const int m0 = blockIdx.x * F_OWN, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = S / F_T, bh = b * gridDim.y + h;
+  const int* sk_b = seg_kv + (long long)b * S;
+  init_f32_ring(full, FWD_F32_STAGES, nullptr);
+  plan_tiles_f32(plan, sk_b, nullptr, seg_q + (long long)b * S + m0, nullptr, n_tiles);
+  const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
 
-  const float* kh = k + b * sk.b + h * sk.h;
-  const float* vh = v + b * sv.b + h * sv.h;
-  const int* sgk = seg_kv + (long long)b * S;
+  uint32_t loaded = 0;  // tiles loaded, over both walks: tile n of the stream sits in stage n % STAGES
+  auto load = [&](int t) {  // thread 0: key tile t into the next stage
+    const int row = t * F_T;
+    uint8_t* st = ring + (loaded % FWD_F32_STAGES) * FWD_F32_STAGE;
+    uint64_t* bar = &full[loaded % FWD_F32_STAGES];
+    mbar_expect_tx(bar, 4 * F_PLANE + F_T * 4);
+    tma_load_4d(st, &maps.k_hi, bar, 0, row, 0, bh);
+    tma_load_4d(st + F_PLANE, &maps.k_lo, bar, 0, row, 0, bh);
+    tma_load_3d(st + 2 * F_PLANE, &maps.vt_hi, bar, row, 0, bh);
+    tma_load_3d(st + 3 * F_PLANE, &maps.vt_lo, bar, row, 0, bh);
+    bulk_load(st + 4 * F_PLANE, sk_b + row, F_T * 4, bar);
+    ++loaded;
+  };
+  int n_walk = plan.n_live;
+  if (tid == 0)
+    for (int j = 0; j < min(FWD_F32_STAGES, n_walk); ++j) load(plan.order[j]);
 
-  for (int n0 = 0; n0 < S; n0 += FN) {
-    for (int c = threadIdx.x; c < FN * (DH / 4); c += FM) {
-      const int r = c >> 4, col = (c & 15) * 4;
-      *reinterpret_cast<float4*>(k_s + r * DH + col) =
-          __ldg(reinterpret_cast<const float4*>(kh + (long long)(n0 + r) * sk.s + col));
-      *reinterpret_cast<float4*>(v_s + r * DH + col) =
-          __ldg(reinterpret_cast<const float4*>(vh + (long long)(n0 + r) * sv.s + col));
+  const int row0 = m0 + (tid / 32) * 16 + lane / 4;  // this thread's queries: row0, row0 + 8
+  const int sgq[2] = {__ldg(seg_q + (long long)b * S + row0), __ldg(seg_q + (long long)b * S + row0 + 8)};
+  uint32_t qa_hi[32], qa_lo[32];  // q as register A
+  load_frags(qa_hi, q_hi, bh, S, m0);
+  load_frags(qa_lo, q_lo, bh, S, m0);
+
+  float o_acc[32], m2[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  uint32_t p_hi[16], p_lo[16];  // p as register A
+  zero_acc(o_acc);
+  uint32_t n = 0;  // tiles walked
+  for (int walk = 0; walk < 2; ++walk) {
+    if (walk == 1) {
+      // After the live tiles: does a row of the CTA lack a key so far (running
+      // max at, or with no tile walked below, the mask value)? Then the CTA
+      // walks the skipped tiles too, so that such a row averages v over every key.
+      if (!__syncthreads_or(m2[0] <= MASK_VALUE || m2[1] <= MASK_VALUE)) break;
+      n_walk = list_skipped(plan, n_tiles);
+      if (tid == 0)
+        for (int j = 0; j < min(FWD_F32_STAGES, n_walk); ++j) load(plan.order[j]);
     }
-    if (threadIdx.x < FN) segk_s[threadIdx.x] = sgk[n0 + threadIdx.x];
-    __syncthreads();
-
-    for (int j0 = 0; j0 < FN; j0 += FC) {
-      float s[FC];
-      float mx = m_i;
+    for (int j = 0; j < n_walk; ++j, ++n) {
+      const int t = plan.order[j];
+      mbar_wait(&full[n % FWD_F32_STAGES], (n / FWD_F32_STAGES) & 1);
+      const uint8_t* st = ring + (n % FWD_F32_STAGES) * FWD_F32_STAGE;
+      // s = q . kT: 64 queries x 32 keys
+      float s[16], alpha[2];
+      wgmma_fence();
+      mma3_rows_ra(s, qa_hi, qa_lo, desc_sw128(st), desc_sw128(st + F_PLANE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (plan.live[t] == 2) softmax_tile<true>(s, alpha, m2, l, sgq, reinterpret_cast<const int*>(st + 4 * F_PLANE), t4, scale_log2);
+      else softmax_tile<false>(s, alpha, m2, l, sgq, reinterpret_cast<const int*>(st + 4 * F_PLANE), t4, scale_log2);
+      // o = o * alpha + p . v: p from the accumulator as tf32 register A (the
+      // vT planes permute each group of 8 keys to match), hi and lo split in
+      // registers; the tile's products in an accumulator of their own, added
+      // to o by FMA, so that o does not take thousands of tensor-core
+      // additions over a long row
+      tf32_frag(p_hi, p_lo, s);
+      float pv[32];
+      zero_acc(pv);
+      wgmma_fence();
+      mma3_ra(pv, p_hi, p_lo, desc_sw128(st + 2 * F_PLANE), desc_sw128(st + 3 * F_PLANE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
 #pragma unroll
-      for (int j = 0; j < FC; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(k_s + (j0 + j) * DH);
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH / 4; ++d) {
-          const float4 x = kr[d];
-          dot = fmaf(qr[4 * d], x.x, dot);
-          dot = fmaf(qr[4 * d + 1], x.y, dot);
-          dot = fmaf(qr[4 * d + 2], x.z, dot);
-          dot = fmaf(qr[4 * d + 3], x.w, dot);
-        }
-        s[j] = my_seg == segk_s[j0 + j] ? dot * scale_log2 : MASK_VALUE;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float alpha = exp2f(m_i - mx);
-      m_i = mx;
-      l_i *= alpha;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < FC; ++j) {
-        const float p = exp2f(s[j] - mx);
-        l_i += p;
-        const float4* vr = reinterpret_cast<const float4*>(v_s + (j0 + j) * DH);
-#pragma unroll
-        for (int d = 0; d < DH / 4; ++d) {
-          const float4 x = vr[d];
-          acc[4 * d] = fmaf(p, x.x, acc[4 * d]);
-          acc[4 * d + 1] = fmaf(p, x.y, acc[4 * d + 1]);
-          acc[4 * d + 2] = fmaf(p, x.z, acc[4 * d + 2]);
-          acc[4 * d + 3] = fmaf(p, x.w, acc[4 * d + 3]);
-        }
-      }
+      for (int v = 0; v < 32; ++v) o_acc[v] = fmaf(o_acc[v], alpha[(v >> 1) & 1], pv[v]);
+      __syncthreads();  // every warp is done with the stage
+      if (tid == 0 && j + FWD_F32_STAGES < n_walk) load(plan.order[j + FWD_F32_STAGES]);
     }
-    __syncthreads();
   }
 
-  if (SAVE) {
-    const long long at = ((long long)b * gridDim.y + h) * S + row;
-    l_out[at] = l_i;
-    m_out[at] = natural_max(m_i);
-  }
-  const float inv = 1.f / l_i;
-  float4* op = reinterpret_cast<float4*>(o + b * so.b + h * so.h + (long long)row * so.s);
 #pragma unroll
-  for (int d = 0; d < DH / 4; ++d)
-    op[d] = make_float4(acc[4 * d] * inv, acc[4 * d + 1] * inv, acc[4 * d + 2] * inv,
-                        acc[4 * d + 3] * inv);
+  for (int hh = 0; hh < 2; ++hh) {  // the four threads of a row hold its sum in shares
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  if (SAVE && t4 == 0) {
+    const long long row = (long long)bh * S + row0;
+    l_out[row] = l[0];
+    l_out[row + 8] = l[1];
+    m_out[row] = natural_max(m2[0]);
+    m_out[row + 8] = natural_max(m2[1]);
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int v = 0; v < 32; ++v) o_acc[v] *= inv[(v >> 1) & 1];
+  store_acc_f32(o + b * so.b + h * so.h + (long long)row0 * so.s, so.s, o_acc, t4);
+  if (tid == 0 || tid == 64) report_tiles(counts, tid / 64, n);  // tiles computed, as two warps walked them
+  if (tid == 0) report_tiles(counts, 2, loaded);
 }
 
 }  // namespace
@@ -449,17 +518,18 @@ extern "C" {
 
 // q, k, v, o: [B, H, S, 64] through (batch, head, row) strides in elements, the
 // 64 values of a head contiguous and 16-byte aligned; bf16 when is_bf16, else
-// f32. seg_q, seg_kv [B, S] i32, contiguous (16-byte aligned for bf16). S a
-// multiple of 128 (bf16: up to 8192, q, k, v strides positive). l_out, m_out:
-// [B, H, S] f32, contiguous, both given (a differentiated call) or both null
-// (inference).
+// f32. seg_q, seg_kv [B, S] i32, contiguous and 16-byte aligned. S a multiple of
+// 128 up to 8192 (bf16: q, k, v strides positive). l_out, m_out: [B, H, S] f32,
+// contiguous, both given (a differentiated call) or both null (inference).
+// scratch: f32 only, flash_attention_f32_planes() x B*H*S*64 f32 for the split
+// planes.
 int flash_attention_segments(const void* q, const void* k, const void* v, const void* seg_q,
                              const void* seg_kv, void* o, void* l_out, void* m_out, int B, int H,
                              int S, int is_bf16,
                              long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                              long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                              long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-                             float sm_scale, void* stream) {
+                             float sm_scale, void* scratch, void* stream) {
   if (bad_shape(B, H, S) || (l_out == nullptr) != (m_out == nullptr)) return (int)cudaErrorInvalidValue;
   const bool save = l_out != nullptr;
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
@@ -476,9 +546,22 @@ int flash_attention_segments(const void* q, const void* k, const void* v, const 
         (float*)m_out, S, so, scale_log2, tile_counts);
   } else {
     auto kernel = save ? flash_f32_kernel<true> : flash_f32_kernel<false>;
-    kernel<<<dim3(S / FM, H, B), FM, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)seg_q, (const int*)seg_kv,
-        (float*)o, (float*)l_out, (float*)m_out, S, sq, sk, sv, so, scale_log2);
+    const cudaError_t err = prepare_f32(kernel, FWD_F32_SMEM, {seg_q, seg_kv}, scratch, B, H, S);
+    if (err != cudaSuccess) return (int)err;
+    // scratch: the hi and lo row planes of q and k, then the transposed planes of v
+    const long long P = (long long)B * H * S * DH;
+    float* w = (float*)scratch;
+    split_tf32(q, sq, B, H, S, w, w + P, nullptr, nullptr, st);
+    split_tf32(k, sk, B, H, S, w + 2 * P, w + 3 * P, nullptr, nullptr, st);
+    split_tf32(v, sv, B, H, S, nullptr, nullptr, w + 4 * P, w + 5 * P, st);
+    FwdMaps maps;
+    const int BH = B * H;
+    if (!(row_plane_map(&maps.k_hi, w + 2 * P, BH, S, F_T) && row_plane_map(&maps.k_lo, w + 3 * P, BH, S, F_T) &&
+          t_plane_map(&maps.vt_hi, w + 4 * P, BH, S) && t_plane_map(&maps.vt_lo, w + 5 * P, BH, S)))
+      return (int)cudaErrorInvalidValue;
+    kernel<<<dim3(S / F_OWN, H, B), F_THREADS, FWD_F32_SMEM, st>>>(
+        maps, w, w + P, (const int*)seg_q, (const int*)seg_kv, (float*)o, (float*)l_out, (float*)m_out, S, so,
+        scale_log2, tile_counts);
   }
   return (int)cudaGetLastError();
 }
@@ -486,10 +569,17 @@ int flash_attention_segments(const void* q, const void* k, const void* v, const 
 // Dynamic shared memory of a bf16 forward CTA (q and the ring).
 int flash_attention_smem() { return FWD_SMEM; }
 
-// Until called with nullptr, every bf16 launch writes, for CTA
-// (b * H + h) * S/128 + x, the key tiles that its consumer warpgroups 0 and 1
-// computed and that its producer loaded into counts[3 * cta .. + 2] (i32 on
-// the device, n values; a launch whose grid does not fit fails).
+// Dynamic shared memory of an f32 forward CTA (the ring).
+int flash_attention_f32_smem() { return FWD_F32_SMEM; }
+
+// Scratch of an f32 forward launch, in planes of B*H*S*64 f32.
+int flash_attention_f32_planes() { return FWD_F32_PLANES; }
+
+// Until called with nullptr, every launch writes, for CTA (b * H + h) * S/R
+// + x, the key tiles that it computed (bf16, R = 128: its consumer
+// warpgroups 0 and 1; f32, R = 64: its warps 0 and 2) and that it loaded into
+// counts[3 * cta .. + 2] (i32 on the device, n values; a launch whose grid
+// does not fit fails).
 int flash_attention_count_tiles(void* counts, long long n) {
   tile_counts = (int*)counts;
   tile_counts_len = counts == nullptr ? 0 : n;

@@ -9,9 +9,12 @@ On the card the scan runs in the hand-written CUDA kernel of
 ``kernels/bits_scan.cu``: codes stream as packed bits and are unpacked to
 ±1 in registers in front of the tensor cores, so the 16×-wider dequantized
 form never exists in device memory; only the ``[Q, n_cand]`` grouped-max
-candidates are written. :func:`bits_scan_reference` is the plain version;
-:func:`bits_scan` takes it only for tensors on the CPU, and launches the
-kernel or raises on CUDA tensors.
+candidates are written. A scan plan groups the (tile, probe) pairs that
+probe the same list (:func:`scan_plan_reference` is its plain model), so
+each probed block is read once for up to :data:`GROUP_CAP` query tiles.
+:func:`bits_scan_reference` is the plain version; :func:`bits_scan` takes
+it only for tensors on the CPU, and launches the kernel or raises on CUDA
+tensors.
 
 Planar packing: byte ``j`` of a row holds bit-plane ``b`` at dim
 ``b·(D/8) + j``, and each plane is one scale group (8 per row). Empty
@@ -36,7 +39,9 @@ N_PLANES = 8  # bit planes per byte == scale groups per row
 _SOURCE = "bits_scan.cu"
 # plane widths W = D/8 the kernel tiles: whole 16-dim MMA steps, unrolled
 KERNEL_DIMS = (128, 256, 384, 1024)
-_SMEM_LIMIT = 227 * 1024
+# query tiles that share one read of a block (the kernel's registers hold at
+# most 4): the plan's group size, the fastest of 1..4 on the card (PERF.md §6)
+GROUP_CAP = 4
 
 
 def encode_bits_planar(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,43 +93,87 @@ def _check_scan(qb, codes, scales, probe_blocks, c_sel, blocks_per_list, block_n
         raise ValueError(f"blocks_per_list={blocks_per_list} must be positive")
 
 
+def _slot_scores(q_tile, cent, ci, sc):
+    """Scores ``[8, n]`` of ``n`` slots for one query tile: ``q_tile [8, D]``
+    (bf16 values), ``cent [8, n]`` each query's centroid dot, ``ci [n, W]``
+    the slots' codes (int32), ``sc [8, n]`` their plane scales. Each plane's
+    products are summed exactly (f64) and rounded to f32 once, so a score does
+    not depend on which other slots share the call; then the plane times its
+    scale is added in f32, planes in order 0..7, and an empty slot is -inf."""
+    w = ci.shape[1]
+    q64 = q_tile.double()
+    scores = cent.float()
+    for b in range(N_PLANES):
+        part = (q64[:, b * w : (b + 1) * w] @ _pm1(ci, b).double().T).float()
+        scores = scores + part * sc[b][None, :]
+    return torch.where(sc[0][None, :] >= 0.0, scores, NEG_INF)
+
+
+def _grouped_max(scores, blk, block_n: int, group_l: int):
+    """``scores [8, nb, block_n]`` of blocks ``blk [nb]`` → the candidates
+    ``(vals, idx) [8, nb·lw]``: per lane the max over g, the smallest
+    maximizing g winning (an all -inf group gives g = 0)."""
+    lw = block_n // group_l
+    s4 = scores.reshape(scores.shape[0], -1, group_l, lw)
+    gmax = s4.amax(dim=2)
+    g_iota = torch.arange(group_l, device=scores.device, dtype=torch.int32)[None, None, :, None]
+    garg = torch.where(s4 == gmax[:, :, None, :], g_iota, group_l).amin(dim=2)
+    lane = torch.arange(lw, device=scores.device, dtype=torch.int32)
+    base = (blk * block_n).to(torch.int32)[None, :, None]
+    return gmax.reshape(scores.shape[0], -1), (base + garg * lw + lane).reshape(scores.shape[0], -1)
+
+
 def bits_scan_reference(
     qb, codes, scales, probe_blocks, c_sel, *, blocks_per_list: int, block_n: int, group_l: int
 ):
     """Plain version of the scan kernel: candidates ``(vals [Q, n_cand] f32,
     slot ids i32)``, one query tile at a time. ``qb`` holds the queries
-    already rounded to bf16; products and the plane sum run in f32, planes
-    in order 0..7, each times its per-slot scale."""
+    already rounded to bf16; each plane's products are summed exactly and
+    rounded to f32, then times its per-slot scale added in f32, planes in
+    order 0..7 (:func:`_slot_scores`)."""
     q, d = qb.shape
     w = d // N_PLANES
     qt_n, nprobe = probe_blocks.shape
-    lw = block_n // group_l
-    n_cand = nprobe * blocks_per_list * lw
+    n_cand = nprobe * blocks_per_list * (block_n // group_l)
     dev = codes.device
     codes3 = codes.reshape(-1, block_n, w)
     offs = torch.arange(blocks_per_list, device=dev)
-    g_iota = torch.arange(group_l, device=dev, dtype=torch.int32)[None, None, :, None]
-    lane = torch.arange(lw, device=dev, dtype=torch.int32)
     vals = torch.empty((q, n_cand), dtype=torch.float32, device=dev)
     idx = torch.empty((q, n_cand), dtype=torch.int32, device=dev)
     for t in range(qt_n):
         blk = (probe_blocks[t].long()[:, None] + offs[None, :]).reshape(-1)  # [P·B]
-        ci = codes3[blk].to(torch.int32)  # [P·B, bn, W]
-        sc = scales[blk].float()  # [P·B, 8, bn]
-        q_tile = qb[8 * t : 8 * t + 8].float()
-        cent = c_sel[8 * t : 8 * t + 8].float().repeat_interleave(blocks_per_list, dim=1)
-        scores = cent[:, :, None].expand(8, blk.shape[0], block_n).clone()
-        for b in range(N_PLANES):
-            part = q_tile[:, b * w : (b + 1) * w] @ _pm1(ci, b).reshape(-1, w).T
-            scores = scores + part.reshape(8, -1, block_n) * sc[None, :, b, :]
-        scores = torch.where((sc[:, 0, :] >= 0.0)[None], scores, NEG_INF)
-        s4 = scores.reshape(8, -1, group_l, lw)
-        gmax = s4.amax(dim=2)
-        garg = torch.where(s4 == gmax[:, :, None, :], g_iota, group_l).amin(dim=2)
-        base = (blk * block_n).to(torch.int32)[None, :, None]
-        vals[8 * t : 8 * t + 8] = gmax.reshape(8, n_cand)
-        idx[8 * t : 8 * t + 8] = (base + garg * lw + lane).reshape(8, n_cand)
+        ci = codes3[blk].to(torch.int32).reshape(-1, w)  # [P·B·bn, W]
+        sc = scales[blk].float().permute(1, 0, 2).reshape(N_PLANES, -1)  # [8, P·B·bn]
+        cent = c_sel[8 * t : 8 * t + 8].float().repeat_interleave(blocks_per_list * block_n, dim=1)
+        scores = _slot_scores(qb[8 * t : 8 * t + 8], cent, ci, sc)
+        vals[8 * t : 8 * t + 8], idx[8 * t : 8 * t + 8] = _grouped_max(
+            scores.reshape(8, -1, block_n), blk, block_n, group_l)
     return vals, idx
+
+
+def scan_plan_reference(probe_blocks: torch.Tensor, group_cap: int = GROUP_CAP):
+    """Plain model of the kernel's scan plan over the (tile, probe) pairs
+    ``i = tile·nprobe + probe`` of ``probe_blocks [T, nprobe]``: ``order
+    [T·nprobe] i32``, the pairs sorted by (first block of the probed list,
+    i), and ``groups [n_groups, 3] i32``, each ``(block, first, count)``: a
+    run of ``count <= group_cap`` pairs of equal block at ``order[first:]``,
+    cut from the start of each run. A work item is (group, bi): block
+    ``block + bi``, read once for the group's query tiles. (The kernel plans
+    rectangles of at most 2,048 pairs at a time.)"""
+    pb = probe_blocks.reshape(-1).long()
+    n = pb.numel()
+    pos = torch.arange(n, device=pb.device)
+    order = torch.argsort(pb * n + pos)  # keys are distinct: a stable, total order
+    blk = pb[order]
+    new_run = torch.ones(n, dtype=torch.bool, device=pb.device)
+    new_run[1:] = blk[1:] != blk[:-1]
+    run_start = torch.cummax(torch.where(new_run, pos, 0), dim=0).values
+    run_id = torch.cumsum(new_run.long(), dim=0) - 1
+    run_end = run_start + torch.bincount(run_id)[run_id]
+    first = ((pos - run_start) % group_cap == 0).nonzero()[:, 0]
+    count = torch.clamp(run_end[first] - first, max=group_cap)
+    groups = torch.stack([blk[first], first, count], dim=1).to(torch.int32)
+    return groups, order.to(torch.int32)
 
 
 def _lib() -> ctypes.CDLL:
@@ -133,8 +182,13 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bits_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
+        lib.bits_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
         lib.bits_scan.restype = ctypes.c_int
+        lib.bits_scan_plan.argtypes = [p, i, i, i, p, p]
+        lib.bits_scan_plan.restype = ctypes.c_int
+        lib.bits_scan_plan_ints.restype = ctypes.c_int
+        lib.bits_scan_smem.argtypes = [i]
+        lib.bits_scan_smem.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -170,13 +224,8 @@ def bits_scan(
         )
     if block_n % 32:
         raise ValueError(f"the scan kernel takes block_n in multiples of 32 slots, got {block_n}")
-    smem = 8 * d * 2 + 8 * (block_n + 4) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"block_n={block_n} at D={d} needs {smem} bytes of shared memory (> {_SMEM_LIMIT})"
-        )
-    if qt_n * nprobe * blocks_per_list >= 2**31:
-        raise ValueError("too many (tile, probe, block) work items for one launch")
+    if qt_n * nprobe * blocks_per_list >= 2**31 or codes.shape[0] >= 2**31 - 1:
+        raise ValueError("too many (tile, probe, block) work items or slots for one launch")
     dev = codes.device
     _kernel_operand(qb, torch.bfloat16, dev, "queries")
     _kernel_operand(codes, torch.uint8, dev, "codes")
@@ -186,10 +235,12 @@ def bits_scan(
     n_cand = nprobe * blocks_per_list * (block_n // group_l)
     vals = torch.empty((q, n_cand), dtype=torch.float32, device=dev)
     idx = torch.empty((q, n_cand), dtype=torch.int32, device=dev)
-    rc = _lib().bits_scan(
+    lib = _lib()
+    plan = torch.empty(lib.bits_scan_plan_ints(), dtype=torch.int32, device=dev)  # the scan plan's scratch
+    rc = lib.bits_scan(
         qb.data_ptr(), codes.data_ptr(), scales.data_ptr(), probe_blocks.data_ptr(),
         c_sel.data_ptr(), q, d, scales.shape[0], block_n, nprobe, blocks_per_list, group_l,
-        vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        GROUP_CAP, vals.data_ptr(), idx.data_ptr(), plan.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     bits_scan.launches.add("K3")
     _check_rc(rc, "bits_scan")
@@ -197,6 +248,23 @@ def bits_scan(
 
 
 bits_scan.launches = LaunchCount()
+
+
+def scan_plan(probe_blocks: torch.Tensor, group_cap: int = GROUP_CAP):
+    """The plan the kernel builds before its scan, as :func:`scan_plan_reference`
+    returns it: ``(groups [n_groups, 3], order [T·nprobe])`` i32 on the card
+    (one rectangle: at most 2,048 pairs). For checks; :func:`bits_scan`
+    builds its own."""
+    qt_n, nprobe = probe_blocks.shape
+    dev = probe_blocks.device
+    _kernel_operand(probe_blocks, torch.int32, dev, "probe_blocks")
+    n = qt_n * nprobe
+    plan = torch.empty(4 + 5 * n, dtype=torch.int32, device=dev)
+    _check_rc(_lib().bits_scan_plan(probe_blocks.data_ptr(), qt_n, nprobe, group_cap, plan.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream), "bits_scan_plan")
+    n_groups = int(plan[0])
+    groups = plan[4 : 4 + 4 * n].reshape(n, 4)[:n_groups, :3]
+    return groups, plan[4 + 4 * n :]
 
 
 def ivf_bits_topk(

@@ -19,9 +19,9 @@ would lose ``log l`` beside the mask value of a row no key matches) and
 whose backward is :func:`flash_attention_backward`: the two kernels of
 ``kernels/flash_attention_bwd.cu`` (dk and dv in one, dq in the other) on
 the card, :func:`flash_attention_backward_plain` for CPU tensors. Neither
-direction ever falls back on a CUDA tensor. The bf16 kernels (forward, dkv
-and dq) and the f32 backward kernels (3xTF32 on the tensor cores) skip the
-(query tile, key tile) pairs whose ids cannot meet; :func:`computed_tiles`
+direction ever falls back on a CUDA tensor. Every kernel (forward, dkv and
+dq; bf16, and f32 as 3xTF32 on the tensor cores) skips the (query tile, key
+tile) pairs whose ids cannot meet; :func:`computed_tiles`
 is the plain model of that rule, at the tiles of :data:`TILES`.
 
 The tensors may be strided views (the encoder passes its ``[B, S, H·64]``
@@ -49,9 +49,11 @@ _SOURCE_BWD = "flash_attention_bwd.cu"
 _DTYPES = (torch.bfloat16, torch.float32)
 # (query tile, key tile) of the kernels that skip tiles. bf16: the forward
 # streams 128-key tiles and dq 64-key tiles past a CTA's 128 queries, dkv
-# 64-query tiles past a CTA's 128 keys. f32 backward: dkv streams 32-query
-# tiles past a CTA's 64 keys, dq 32-key tiles past a CTA's 64 queries.
-TILES = {"fwd": (128, 128), "dkv": (64, 128), "dq": (128, 64), "dkv f32": (32, 64), "dq f32": (64, 32)}
+# 64-query tiles past a CTA's 128 keys. f32 (3xTF32): the forward and dq
+# stream 32-key tiles past a CTA's 64 queries, dkv 32-query tiles past a
+# CTA's 64 keys.
+TILES = {"fwd": (128, 128), "dkv": (64, 128), "dq": (128, 64), "fwd f32": (64, 32), "dkv f32": (32, 64),
+         "dq f32": (64, 32)}
 
 
 def _check(q, k, v, seg_q, seg_kv) -> None:
@@ -108,8 +110,8 @@ def _check_backward(q, l, m, **like_q) -> None:
 
 def tiles_key(what: str, dtype: torch.dtype) -> str:
     """The :data:`TILES` key of kernel ``what`` (``fwd``, ``dkv``, ``dq``)
-    at ``dtype``; the f32 backward kernels have tiles of their own."""
-    return what if dtype == torch.bfloat16 or what == "fwd" else f"{what} f32"
+    at ``dtype``; the f32 kernels have tiles of their own."""
+    return what if dtype == torch.bfloat16 else f"{what} f32"
 
 
 def cta_rows(what: str, dtype: torch.dtype) -> int:
@@ -120,7 +122,7 @@ def cta_rows(what: str, dtype: torch.dtype) -> int:
 
 
 def computed_tiles(seg_q, seg_kv, m, query_tile: int, key_tile: int) -> torch.Tensor:
-    """Plain model of the tile skip of the bf16 kernels and the f32 backward kernels:
+    """Plain model of the tile skip of the kernels (forward, dkv, dq; bf16 and f32):
     ``[B, H, S/query_tile, S/key_tile]`` bool, True where the kernel computes
     the pair (query tile, key tile). A pair is skipped only when the
     ``[min, max]`` ranges of the two tiles' ids are disjoint, so that no
@@ -176,9 +178,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+        lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p, p]
         lib.flash_attention_count_tiles.argtypes = [p, ll]
-        lib.flash_attention_segments.restype = ctypes.c_int
+        lib.flash_attention_segments.restype = lib.flash_attention_f32_planes.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -267,11 +269,16 @@ def _forward_cuda(q, k, v, seg_q, seg_kv, sm_scale: float, save_residuals: bool)
         l = torch.empty((b, h, s), dtype=torch.float32, device=dev)
         m = torch.empty_like(l)
     strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (out, "out")) for x in _strides(t, n)]
-    rc = _lib().flash_attention_segments(
+    lib = _lib()
+    scratch = None  # the f32 kernel's split planes, allocated per call
+    if q.dtype == torch.float32:
+        scratch = torch.empty(lib.flash_attention_f32_planes() * q.numel(), dtype=torch.float32, device=dev)
+    rc = lib.flash_attention_segments(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
         out.data_ptr(), l.data_ptr() if save_residuals else None,
         m.data_ptr() if save_residuals else None, b, h, s, int(q.dtype == torch.bfloat16),
-        *strides, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+        *strides, float(sm_scale), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     flash_attention_segments.launches.add(_variant("K5", q))
     _check_rc(rc, "flash_attention_segments")
@@ -349,15 +356,15 @@ flash_attention_dq.launches = LaunchCount()
 
 
 def count_tiles(counts: torch.Tensor | None) -> None:
-    """Have the kernels that skip tiles (bf16 forward, dkv and dq; f32 dkv
-    and dq) report what their tile skip did: until called with None, each
-    launch writes, per CTA, the streamed tiles that two of its consumers
-    computed (bf16: its two consumer warpgroups; f32: two warps of its one)
-    and that it loaded into ``counts``, int32 CUDA ``[B, H, S/R, 3]`` at
-    that launch's shape, R = :func:`cta_rows` (a larger grid makes the
-    launch fail). A measurement of the kernels, held against
-    :func:`computed_tiles` at :data:`TILES`; the f32 forward skips nothing
-    and writes nothing."""
+    """Have the kernels (forward, dkv and dq; bf16 and f32) report what their
+    tile skip did: until called with None, each launch writes, per CTA, the
+    streamed tiles that two of its consumers computed (bf16: its two
+    consumer warpgroups; f32: two warps of its one) and that it loaded into
+    ``counts``, int32 CUDA ``[B, H, S/R, 3]`` at that launch's shape, R =
+    :func:`cta_rows` (a larger grid makes the launch fail). A measurement of
+    the kernels, held against :func:`computed_tiles` at :data:`TILES`, with
+    ``m`` from the forward's own launch (a CTA holding a row no key matches
+    computes every tile)."""
     if counts is not None and not (counts.is_cuda and counts.dtype == torch.int32 and counts.is_contiguous()):
         raise ValueError(f"counts must be a contiguous int32 CUDA tensor, got {counts.dtype} on {counts.device}")
     ptr, n = (None, 0) if counts is None else (counts.data_ptr(), counts.numel())

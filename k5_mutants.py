@@ -1,29 +1,30 @@
 """Shows that ``chip_smoke.py``'s bars for K5 reject a wrong kernel: the bf16
-forward and the f32 backward (dkv, dq: 3xTF32 on the tensor cores).
+forward, and the f32 forward and backward (dkv, dq; 3xTF32 on the tensor
+cores).
 
 Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``:
 ``python3 k5_mutants.py``. It builds mutants from patched copies of
-``kernels/flash_attention.cu`` (``flash_bf16_kernel``) and
-``kernels/flash_attention_bwd.cu`` (the f32 kernels) in a temporary
-directory (the repository's sources stay as they are), all at once, and
-launches each through the port's wrappers. The forward runs at the kernel
-table's shape (1, 16, 8192; one 6,500-token chunk) and at packed rows
-(4, 16, 2048; 100-token segments): for the shipped kernel and each mutant,
-the max |diff| against the plain version and the largest row-relative diff,
-each beside its bar (``K5_ATOL``, ``K5_FWD_REL_BF16``). The f32 backward
-runs at the table shape and on the "no key in a skipped tile" layout of
-``_skip_layouts`` (1, 16, 2048): the max |diff| of dq, dk and dv against
-``flash_attention_backward_plain`` beside phase 2's ``K5_BWD_ATOL_F32``.
-One JSON object a line. Exits 1 if a shipped kernel fails a bar, a forward
-mutant passes the row-relative one, or a backward mutant passes the f32 bar
-on both inputs.
+``kernels/flash_attention.cu`` (``flash_bf16_kernel``, ``flash_f32_kernel``),
+``kernels/flash_attention_bwd.cu`` (the f32 kernels) and the headers they
+share (``flash_common.cuh``) in a temporary directory (the repository's
+sources stay as they are), all at once, and launches each through the
+port's wrappers. The bf16 forward runs at the kernel table's shape (1, 16,
+8192; one 6,500-token chunk) and at packed rows (4, 16, 2048; 100-token
+segments): for the shipped kernel and each mutant, the max |diff| against
+the plain version and the largest row-relative diff, each beside its bar
+(``K5_ATOL``, ``K5_FWD_REL_BF16``). The f32 forward and backward run at the
+table shape and on the "no key in a skipped tile" layout of
+``_skip_layouts`` (1, 16, 2048): the max |diff| of the output (forward,
+beside ``K5_ATOL["float32"]``) or of dq, dk and dv (backward, beside
+``K5_BWD_ATOL_F32``) against the plain version. One JSON object a line.
+Exits 1 if a shipped kernel fails a bar, a bf16 forward mutant passes the
+row-relative one, or an f32 mutant passes the f32 bar on both inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,19 +77,41 @@ BWD_MUTANTS = {
 }
 
 
+# the f32 forward (flash_attention.cu; its products and the split live in
+# flash_common.cuh, shared with the f32 backward): each product one tf32
+# product, the vT planes unpermuted under p's register-A fragment, no second
+# walk for rows no key matches
+F32_FWD_MUTANTS = {
+    "f32 forward: one tf32 product per pair (lo terms dropped)": [
+        ("    mma_ra_tf32<F_T>(acc, a_hi + 4 * kk, bl, 1);\n    mma_ra_tf32<F_T>(acc, a_lo + 4 * kk, bh, 1);\n", ""),
+        ("    mma_ra_tf32<64>(acc, x_hi + 4 * c, b_lo + 2 * c, 1);\n"
+         "    mma_ra_tf32<64>(acc, x_lo + 4 * c, b_hi + 2 * c, 1);\n", ""),
+    ],
+    "f32 forward: register A without the row permutation": [
+        ("return f < 4 ? 2 * f : 2 * f - 7;", "return f;"),
+    ],
+    "f32 forward: skip ignores rows no key matches": [
+        ("if (!__syncthreads_or(m2[0] <= MASK_VALUE || m2[1] <= MASK_VALUE)) break;",
+         "if (!__syncthreads_or(0)) break;"),
+    ],
+}
+
+
 def _build_mutant(work: Path, source: str, name: str, edits) -> ctypes.CDLL:
-    """Patches a copy of ``source`` (and the headers) in the new directory
-    ``work`` and builds it with the port's nvcc flags; returns the loaded
-    library, its argument types set."""
-    src = (build.KERNEL_DIR / source).read_text()
+    """Patches copies of ``source`` and the headers in the new directory
+    ``work`` (each edit where its text is found: the source, else a header)
+    and builds it with the port's nvcc flags; returns the loaded library,
+    its argument types set."""
+    files = {source: (build.KERNEL_DIR / source).read_text()}
+    files.update({h.name: h.read_text() for h in sorted(build.KERNEL_DIR.glob("*.cuh"))})
     for old, new in edits:
-        if old not in src:
-            raise ValueError(f"mutant {name!r}: {old!r} is not in {source}")
-        src = src.replace(old, new)
+        where = next((f for f, text in files.items() if old in text), None)
+        if where is None:
+            raise ValueError(f"mutant {name!r}: {old!r} is not in {source} or its headers")
+        files[where] = files[where].replace(old, new)
     work.mkdir()
-    for header in build.KERNEL_DIR.glob("*.cuh"):
-        shutil.copy(header, work)
-    (work / source).write_text(src)
+    for f, text in files.items():
+        (work / f).write_text(text)
     lib_path = work / "lib.so"
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(work / source)],
                           capture_output=True, text=True)
@@ -98,18 +121,51 @@ def _build_mutant(work: Path, source: str, name: str, edits) -> ctypes.CDLL:
     if source == "flash_attention_bwd.cu":
         return fa.bind_bwd(lib)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+    lib.flash_attention_segments.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [ctypes.c_float, p, p]
     lib.flash_attention_segments.restype = ctypes.c_int
     return lib
+
+
+def _no_key_layout(dev):
+    return [torch.as_tensor(x, device=dev) for x in cs._skip_layouts(1, 2048)["no key in a skipped tile"]]
+
+
+def _forward_f32(dev, gen, libs: dict) -> list[str]:
+    """The f32 forward, shipped and mutants, against the plain forward;
+    returns what the bar misjudged."""
+    seg = (torch.arange(8192, device=dev)[None] < 6500).to(torch.int32)
+    inputs = {"(1, 16, 8192), one 6,500-token chunk": (seg, seg),
+              "(1, 16, 2048), no key in a skipped tile": tuple(_no_key_layout(dev))}
+    lib_of_module, failed, wrong = fa._lib, {name: False for name in libs}, []
+    try:
+        for shape, (seg_q, seg_kv) in inputs.items():
+            q, k, v = (x.contiguous() for x in cs._k5_inputs(seg_q, 16, torch.float32, gen))
+            want = fa.flash_attention_plain(q, k, v, seg_q, seg_kv, 0.125)
+            for name, lib in {"shipped": lib_of_module(), **libs}.items():
+                fa._lib = lambda lib=lib: lib
+                got = fa.flash_attention_segments(q, k, v, seg_q, seg_kv, 0.125)
+                err = (got - want).abs().max().item()
+                passes = err <= cs.K5_ATOL["float32"] and bool(torch.isfinite(got).all())
+                print(json.dumps({"shape": shape, "kernel": name, "max_abs": err, "atol": cs.K5_ATOL["float32"]}),
+                      flush=True)
+                if name == "shipped" and not passes:
+                    wrong.append(f"{shape} | shipped f32 forward")
+                elif name != "shipped":
+                    failed[name] |= not passes
+                del got
+            del q, k, v, want
+            torch.cuda.empty_cache()
+    finally:
+        fa._lib = lib_of_module
+    return wrong + [f"{name} passed on every input" for name, f in failed.items() if not f]
 
 
 def _backward(dev, gen, libs: dict) -> list[str]:
     """The f32 backward, shipped and mutants, against the plain backward;
     returns what the bar misjudged."""
     seg = (torch.arange(8192, device=dev)[None] < 6500).to(torch.int32)
-    no_key = [torch.as_tensor(x, device=dev) for x in cs._skip_layouts(1, 2048)["no key in a skipped tile"]]
     inputs = {"(1, 16, 8192), one 6,500-token chunk": (seg, seg),
-              "(1, 16, 2048), no key in a skipped tile": tuple(no_key)}
+              "(1, 16, 2048), no key in a skipped tile": tuple(_no_key_layout(dev))}
     lib_of_module, failed, wrong = fa._lib_bwd, {name: False for name in libs}, []
     try:
         for shape, (seg_q, seg_kv) in inputs.items():
@@ -143,12 +199,16 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
     mutants = [("flash_attention.cu", name, edits) for name, edits in FWD_MUTANTS.items()]
+    mutants += [("flash_attention.cu", name, edits) for name, edits in F32_FWD_MUTANTS.items()]
     mutants += [("flash_attention_bwd.cu", name, edits) for name, edits in BWD_MUTANTS.items()]
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(mutants)) as pool:  # one nvcc a mutant, all at once
-            built = list(pool.map(lambda i_m: _build_mutant(Path(tmp) / str(i_m[0]), *i_m[1]), enumerate(mutants)))
-        libs = {name: lib for (source, name, _), lib in zip(mutants, built) if source == "flash_attention.cu"}
-        bwd_libs = {name: lib for (source, name, _), lib in zip(mutants, built) if source != "flash_attention.cu"}
+            built = dict(zip((name for _, name, _ in mutants),
+                             pool.map(lambda i_m: _build_mutant(Path(tmp) / str(i_m[0]), *i_m[1]),
+                                      enumerate(mutants))))
+        libs = {name: built[name] for name in FWD_MUTANTS}
+        f32_fwd_libs = {name: built[name] for name in F32_FWD_MUTANTS}
+        bwd_libs = {name: built[name] for name in BWD_MUTANTS}
         lib_of_module, shipped = fa._lib, fa._lib()
         gen = torch.Generator(device=dev).manual_seed(11)
         shapes = {
@@ -178,12 +238,13 @@ def main() -> int:
         finally:
             fa._lib = lib_of_module
         torch.cuda.empty_cache()
+        wrong += _forward_f32(dev, gen, f32_fwd_libs)
         wrong += _backward(dev, gen, bwd_libs)
     if wrong:
         print(f"bars misjudged: {wrong}", file=sys.stderr)
         return 1
-    print("every forward mutant fails the row-relative bar and every f32 backward mutant the f32 bar; "
-          "the shipped kernels pass")
+    print("every bf16 forward mutant fails the row-relative bar and every f32 forward and backward mutant the "
+          "f32 bar; the shipped kernels pass")
     return 0
 
 

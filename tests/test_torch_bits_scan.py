@@ -180,9 +180,138 @@ def test_shape_and_layout_errors_raise_as_in_jax():
                          block_n=block_n, group_l=4, tail="approx")
 
 
+def _plan_items(groups, order, nprobe, bpl):
+    """The plan's work items: (block, [(tile, probe, bi), ...])."""
+    items = []
+    for blk, first, count in groups.tolist():
+        pairs = order[first : first + count].tolist()
+        for bi in range(bpl):
+            items.append((blk + bi, [(i // nprobe, i % nprobe, bi) for i in pairs]))
+    return items
+
+
+def _shared_probes(rng, t, nlist, nprobe, bpl, popular=1):
+    """Probe table [t, nprobe] (list starts) where list ``popular`` is probed
+    by every tile, so its run is longer than any group cap."""
+    lists = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(t)]).astype(np.int64)
+    for row in lists:
+        if popular not in row:
+            row[rng.integers(nprobe)] = popular
+    return torch.from_numpy(lists * bpl).to(torch.int32)
+
+
+@pytest.mark.parametrize("group_cap", [1, 2, 4])
+@pytest.mark.parametrize("t,nlist,nprobe,bpl", [(1, 6, 3, 2), (7, 12, 5, 1), (32, 40, 16, 3)])
+def test_scan_plan_covers_every_pair_once_and_caps_groups(group_cap, t, nlist, nprobe, bpl):
+    rng = np.random.default_rng(100 * group_cap + t)
+    pb = _shared_probes(rng, t, nlist, nprobe, bpl)
+    groups, order = tb.scan_plan_reference(pb, group_cap)
+    assert groups.dtype == order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(t * nprobe))
+    counts = groups[:, 2]
+    assert (counts >= 1).all() and (counts <= group_cap).all()
+    items = _plan_items(groups, order, nprobe, bpl)
+    covered = [x for _, pairs in items for x in pairs]
+    want = [(ti, p, bi) for ti in range(t) for p in range(nprobe) for bi in range(bpl)]
+    assert sorted(covered) == want  # every (tile, probe, block) exactly once
+    for blk, pairs in items:  # every pair of an item probes its block
+        assert all(int(pb[ti, p]) + bi == blk for ti, p, bi in pairs)
+    # runs are cut from their start: only a run's last group is short
+    keys = groups[:, 0].tolist()
+    for i in range(len(keys) - 1):
+        if keys[i] == keys[i + 1]:
+            assert int(counts[i]) == group_cap
+    assert keys == sorted(keys)
+    # the popular list (probed by every tile) is split into ceil(t / cap) items per block
+    assert keys.count(bpl) == -(-t // group_cap)
+
+
+def test_scan_plan_on_tile_probes_reads_each_distinct_block_once():
+    """On probes from tile_probes (cluster-coherent tiles) the plan's blocks
+    are the distinct probed blocks; with a cap above every run, each one
+    appears in exactly one item."""
+    from intool_rag_tpu_torch.index.bits_index import tile_probes
+
+    rng = np.random.default_rng(11)
+    nlist, d, bpl, nprobe = 64, 32, 3, 8
+    cent = torch.from_numpy(rng.standard_normal((nlist, d)).astype(np.float32))
+    queries = cent[torch.from_numpy(rng.integers(0, nlist, 96))] + 0.3 * torch.randn(
+        96, d, generator=torch.Generator().manual_seed(0))
+    _, _, probes, _ = tile_probes(queries, cent, nprobe)
+    pb = (probes * bpl).to(torch.int32)
+    distinct = torch.unique((pb.long()[:, :, None] + torch.arange(bpl)).reshape(-1)).tolist()
+    for cap in (1, 4, pb.shape[0]):
+        groups, order = tb.scan_plan_reference(pb, cap)
+        blocks = [blk for blk, _ in _plan_items(groups, order, nprobe, bpl)]
+        assert sorted(set(blocks)) == distinct
+        if cap == pb.shape[0]:
+            assert sorted(blocks) == distinct
+    assert len(groups) * bpl == len(distinct) < pb.numel() * bpl  # tiles share lists
+
+
+def _planned_scan(qb, codes, scales, pb, c_sel, *, blocks_per_list, block_n, group_l, group_cap):
+    """A plain scan that walks the plan's items: each block once, scored for
+    every query tile of its item."""
+    q, d = qb.shape
+    w = d // 8
+    nprobe = pb.shape[1]
+    lw = block_n // group_l
+    codes3 = codes.reshape(-1, block_n, w)
+    vals = torch.full((q, nprobe * blocks_per_list * lw), float("nan"))
+    idx = torch.full(vals.shape, -7, dtype=torch.int32)
+    groups, order = tb.scan_plan_reference(pb, group_cap)
+    for blk, pairs in _plan_items(groups, order, nprobe, blocks_per_list):
+        ci = codes3[blk].to(torch.int32)
+        for tile, p, bi in pairs:
+            rows = slice(8 * tile, 8 * tile + 8)
+            cent = c_sel[rows, p : p + 1].expand(8, block_n)
+            s = tb._slot_scores(qb[rows], cent, ci, scales[blk].float())
+            col = (p * blocks_per_list + bi) * lw
+            vals[rows, col : col + lw], idx[rows, col : col + lw] = tb._grouped_max(
+                s[:, None, :], torch.tensor([blk]), block_n, group_l)
+    return vals, idx
+
+
+@pytest.mark.parametrize("group_cap", [1, 4])
+@pytest.mark.parametrize("group_l", [1, 8])
+def test_planned_scan_equals_reference_bit_for_bit_and_pallas(group_cap, group_l):
+    """The scan restructured as the kernel walks it (items of the plan, a
+    popular list split across items) gives the plain version's candidates
+    bit for bit, and through the tail the JAX kernel's top-k at this file's
+    tolerances."""
+    rng = np.random.default_rng(20 + group_cap + group_l)
+    d, nlist, bpl, block_n, nprobe, k, q = 128, 8, 2, 64, 3, 12, 48
+    codes, sc_bm = _store(rng, d, nlist, bpl, block_n, empty_frac=0.2, empty_lists=(2,))
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    pb = _shared_probes(rng, q // 8, nlist, nprobe, bpl)
+    pb[0, 0] = 2 * bpl  # the all-empty list is probed
+    c_sel = rng.standard_normal((q, nprobe)).astype(np.float32)
+    qb = torch.from_numpy(queries).bfloat16()
+    args = (qb, torch.from_numpy(codes), torch.from_numpy(sc_bm), pb, torch.from_numpy(c_sel))
+    kw = dict(blocks_per_list=bpl, block_n=block_n, group_l=group_l)
+    pv, pi = tb.bits_scan_reference(*args, **kw)
+    wv, wi = _planned_scan(*args, **kw, group_cap=group_cap)
+    assert torch.equal(wv, pv) and torch.equal(wi, pi)
+    tv, ti = tb._candidates_topk(wv, wi, k, tail="exact")
+    jv, ji = jb.ivf_bits_topk_pallas(
+        jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(sc_bm), jnp.asarray(pb.numpy()),
+        jnp.asarray(c_sel), k, blocks_per_list=bpl, block_n=block_n, group_l=group_l,
+        interpret=True, tail="blocked",
+    )
+    jv, ji, tv, ti = np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
+    np.testing.assert_allclose(tv, jv, rtol=2e-5, atol=1e-5)
+    gaps = np.abs(np.diff(jv, axis=1))
+    clear = np.ones_like(ji, bool)
+    clear[:, 1:] &= gaps > 1e-5
+    clear[:, :-1] &= gaps > 1e-5
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(ti[clear], ji[clear])
+
+
 def test_scan_kernel_on_card():
-    """Card-only: the CUDA kernel against its plain version (chip_smoke.py
-    phase 2 runs the full set of shapes)."""
+    """Card-only: the CUDA kernel against its plain version, a repeat bit
+    for bit, and the kernel's scan plan against ``scan_plan_reference``
+    (chip_smoke.py phase 2 runs the full set of shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the scan kernel is CUDA-only")
     rng = np.random.default_rng(6)
@@ -196,6 +325,11 @@ def test_scan_kernel_on_card():
     before = tb.bits_scan.launches.count
     kv, ki = tb.bits_scan(*(a.cuda() for a in args), **kw)
     assert tb.bits_scan.launches.count == before + 1
+    again = tb.bits_scan(*(a.cuda() for a in args), **kw)
+    assert torch.equal(again[0], kv) and torch.equal(again[1], ki)  # no atomics: repeats are bit-equal
+    groups, order = tb.scan_plan(args[3].cuda())
+    want_groups, want_order = tb.scan_plan_reference(args[3])
+    assert torch.equal(groups.cpu(), want_groups) and torch.equal(order.cpu(), want_order)
     pv, pi = tb.bits_scan_reference(*args, **kw)
     finite = torch.isfinite(pv)
     assert torch.equal(torch.isfinite(kv.cpu()), finite)

@@ -328,7 +328,7 @@ def test_backward_restricted_to_computed_tiles_is_bit_equal(layout, dtype):
         assert torch.equal(a, r), name
 
 
-@pytest.mark.parametrize("what", ["fwd", "dkv", "dq", "dkv f32", "dq f32"])
+@pytest.mark.parametrize("what", ["fwd", "dkv", "dq", "fwd f32", "dkv f32", "dq f32"])
 def test_skip_rule_skips_nothing_on_one_segment_and_some_tiles_of_packed_rows(what):
     b, h, s = 2, 2, 1024
     tq, tk = tflash.TILES[what]

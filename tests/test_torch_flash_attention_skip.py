@@ -1,6 +1,7 @@
-"""K5 forward's tile skip: the key tiles the bf16 kernel walks
+"""K5 forward's tile skip: the key tiles the kernels walk
 (:func:`computed_tiles` at the forward's tiles, ``TILES["fwd"]``: 128
-queries x 128 keys, with the forward's own row max ``m``) hold every pair that changes the result.
+queries x 128 keys in bf16, ``TILES["fwd f32"]``: 64 x 32 in f32, with the
+forward's own row max ``m``) hold every pair that changes the result.
 
 The plain forward restricted to those tiles, kept in this file, must equal
 the full plain forward bit for bit, on the encoder's layouts and on the
@@ -21,7 +22,8 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jflash
 
 from intool_rag_tpu_torch.ops import flash_attention as tflash
-from test_torch_flash_attention import ATOL, SKIP_LAYOUTS, _inputs, _skip_layouts
+from test_torch_flash_attention import ATOL, LAYOUTS, SKIP_LAYOUTS, _inputs, _segments, _skip_layouts
+from test_torch_flash_attention_bwd import _mm_tf32
 
 torch.set_num_threads(2)
 
@@ -29,11 +31,11 @@ SCALE = 0.125
 
 
 def _restricted_forward(q, k, v, seg_q, seg_kv, m):
-    """The plain forward with every pair outside the computed tiles left out
-    of the softmax (its logit -inf, so it adds an exact 0 to the row's sum and
-    never sets its max); every other step as ``flash_attention_plain`` takes
-    it."""
-    tq, tk = tflash.TILES["fwd"]
+    """The plain forward with every pair outside the tiles that the kernel of
+    q's type computes left out of the softmax (its logit -inf, so it adds an
+    exact 0 to the row's sum and never sets its max); every other step as
+    ``flash_attention_plain`` takes it."""
+    tq, tk = tflash.TILES[tflash.tiles_key("fwd", q.dtype)]
     keep = tflash.computed_tiles(seg_q, seg_kv, m, tq, tk).repeat_interleave(tq, dim=2).repeat_interleave(tk, dim=3)
     logits = (q.float() @ k.float().transpose(-1, -2)) * SCALE
     logits = logits.masked_fill(seg_q[:, None, :, None] != seg_kv[:, None, None, :], tflash.MASK_VALUE)
@@ -103,3 +105,52 @@ def test_forward_skip_rule_on_a_hand_made_layout():
     m[0, 0, 300] = tflash.MASK_VALUE
     want[300 // tq] = True
     assert torch.equal(tflash.computed_tiles(seg, seg, m, tq, tk)[0, 0], want)
+
+
+# ---------------------------------------------------------------- 3xTF32
+
+
+def _tf32_forward(q, k, v, seg_q, seg_kv, passes: int):
+    """``flash_attention_plain`` (f32) with q.kT and p.v taken by
+    ``_mm_tf32``: a model of the f32 forward kernel's arithmetic."""
+    logits = _mm_tf32(q, k.transpose(-1, -2), passes) * SCALE
+    logits = logits.masked_fill(seg_q[:, None, :, None] != seg_kv[:, None, None, :], tflash.MASK_VALUE)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return _mm_tf32(p, v, passes) / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("layout", [*LAYOUTS, "no key in a skipped tile"])
+def test_tf32x3_forward_model_holds_the_f32_bar_and_one_tf32_product_does_not(layout):
+    """The f32 forward kernel's 3xTF32 arithmetic, modelled in torch, against
+    the library's kernel in interpret mode: within the bar that
+    ``chip_smoke.py`` holds the kernel to (``K5_ATOL["float32"]``, 2e-5). A
+    single tf32 product per pair misses that bar."""
+    b, h, s = 1, 2, 512
+    rng, q, k, v = _inputs(43, b, h, s, "float32")
+    if layout in LAYOUTS:
+        seg_q = seg_kv = _segments(rng, layout, b, s)
+    else:
+        seg_q, seg_kv = _skip_layouts(rng, b, s)[layout]
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflash.flash_attention(
+            *(jnp.asarray(x) for x in (q, k, v)),
+            segment_ids=jflash.SegmentIds(q=jnp.asarray(seg_q), kv=jnp.asarray(seg_kv)), sm_scale=SCALE,
+        ))
+    args = _torch_inputs(q, k, v, seg_q, seg_kv, "float32")
+    np.testing.assert_allclose(_tf32_forward(*args, passes=3).numpy(), want, atol=2e-5, rtol=0)
+    assert np.abs(_tf32_forward(*args, passes=1).numpy() - want).max() > 2e-5
+
+
+def test_f32_forward_bound_counts_three_tf32_products():
+    """``chip_smoke.py``'s bound for the f32 forward: three tf32 products a
+    pair at the tf32 peak, the f32-FMA bound beside it; bf16 has no FMA
+    bound. At (1, 16, 8192) with one 6,500-token chunk: 1.121 ms, 2.758 at
+    the f32 rate."""
+    import chip_smoke as cs
+
+    seg = (torch.arange(8192)[None] < 6500).to(torch.int32)
+    bound = cs._k5_bound(seg, 16, 4)
+    assert bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(1.1206, rel=1e-3)
+    assert bound["fma_bound_ms"] == pytest.approx(2.7580, rel=1e-3)
+    assert "fma_bound_ms" not in cs._k5_bound(seg, 16, 2)
