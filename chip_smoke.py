@@ -2,7 +2,8 @@
 
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
-``1,2,6`` for ingest alone, ``1,2,7`` for training alone). Phases:
+``1,2,6`` for ingest alone, ``1,2,7`` for training alone, ``1,8`` for
+``/query`` alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -132,6 +133,35 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    plain backward and ``torch.autograd`` through the library's attention,
    with the share of tiles each kernel computes; f32 with its 3xTF32 bound
    and its f32-FMA bound beside) follow.
+
+8. ``/query`` at full width: the port's HTTP service on a fresh
+   ``STORAGE_DIR`` and ``CACHE_DIR`` with ``encoder_mid`` ingests phase 6's
+   packed documents through ``POST /ingest`` (BM25 weight 0.7, as in phase
+   6: the pseudo-words lie outside the encoder's training text). With
+   ``LLM_PROVIDER=fake``: 16 concurrent ``/query`` requests, each quoting a
+   sentence that names its chunk, must answer with that sentence and cite
+   its document and page first; K1 bf16 precise (the store's kernel) must
+   launch and no plain version run; the same request again is a cache hit
+   with an equal body; ``stream: true`` over HTTP gives ``sources``, then
+   ``token`` events, then ``done``. With ``LLM_PROVIDER=cuda`` (the
+   factory's choice is checked) the service answers 8 concurrent requests
+   with ``CudaLLM(DecoderConfig.tinyllama())`` (22 x 2048, 32 heads over 4
+   KV heads, 5,632, vocabulary 32,000, 2,048 positions, bf16, seeded random
+   weights, byte tokenizer, temperature 0, 64 new tokens; the context cut
+   to 600 characters so that the prompt fits the 1,024 bucket), its
+   parameters and every cache on the card; one question twice gives one
+   answer. Off the main path: cached decode against a full forward on a
+   2-layer f32 copy (1e-4) and on the bf16 model (``BF16_CACHE_*``), both
+   on random ids and on one served request's own inputs (its left-padded
+   1,024-token prompt, then the tokens it decoded), and the tiny f32
+   config's greedy tokens on the card against the CPU's. It
+   prints prefill ms at 512, 1,024 and 2,048 tokens, decode ms per token at
+   batch 1 after a 1,024-token prompt and tokens/s, the weight-read bound
+   (bf16 weight bytes over 3.35 TB/s) and the share of it reached,
+   ``/query`` p50 split into retrieve and generate, peak device memory,
+   and, after the last phase, the device's busy share of a decode step and
+   its launches per token from ``torch.profiler``; each beside the card's
+   name and power limit. The kernel table's rows gain ``launches_query``.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -287,7 +317,7 @@ def _k5_kernels(name: str, text: str) -> dict:
     ignored setmaxnreg shows as one). ptxas reports a wgmma pipeline it
     serialized as an info line, with its reason: that fails the forward and
     the f32 backward (dkv, dq), and is printed for the bf16 backward (dkv
-    bf16 is serialized: ROADMAP.md Queue B item 3)."""
+    bf16 is serialized: ROADMAP.md Queue B items 1-2)."""
     from intool_rag_tpu_torch.ops import flash_attention as fa
 
     if name == "flash_attention.cu":
@@ -1249,7 +1279,8 @@ def phase_service(state: dict) -> None:
         _write_storage(Path(tmp), texts, provider)
         # encoder_mid was trained without a query instruction; the JAX
         # package's own quality tests for it also set it empty
-        base = {"STORAGE_DIR": tmp, "INDEX_DTYPE": "bfloat16", "USE_PALLAS": "1",
+        base = {"STORAGE_DIR": tmp, "CACHE_DIR": os.path.join(tmp, "cache"), "INDEX_DTYPE": "bfloat16",
+                "USE_PALLAS": "1",
                 "EMBEDDING_QUERY_INSTRUCTION": "", "INDEX_KIND": "flat", "IVF_REFINE_K": "0"}
         runs = [
             _serve_and_query(label, {**base, **env}, variant, provider, questions, expected)
@@ -1285,7 +1316,8 @@ def _ingest_default_config(provider, texts: list[str]) -> dict:
         os.environ.pop(name, None)
     pages = ["\n\n".join(texts[i : i + 6]) for i in range(0, len(texts), 6)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_default_") as tmp:
-        os.environ.update({"STORAGE_DIR": tmp, "INDEX_KIND": "flat", "INDEX_DTYPE": "bfloat16", "DENSE_INT8": "0",
+        os.environ.update({"STORAGE_DIR": tmp, "CACHE_DIR": os.path.join(tmp, "cache"), "INDEX_KIND": "flat",
+                           "INDEX_DTYPE": "bfloat16", "DENSE_INT8": "0",
                            "DENSE_INT8_RESIDUAL": "0", "IVF_REFINE_K": "0"})
         config.reset_config()
         factory.reset_semantic_analyzer()
@@ -2012,6 +2044,25 @@ def _text_pdf(page_texts: list[str]) -> bytes:
     return bytes(out)
 
 
+def _ingest_documents() -> tuple[list, list]:
+    """Phase 6's uploads, ``(project, doc_id, file name, bytes, mode)``:
+    eight paginated text files and one text PDF (the packed run), and the
+    long-context text files."""
+    rng = np.random.default_rng(INGEST_SEED)
+    vocab = _ingest_vocab(rng)
+    packed_uploads = [
+        (f"project{d % 2}", f"text{d:02d}", f"text{d:02d}.txt",
+         _paged_text(rng, vocab, PACKED_PAGES, f"Report {d}").encode(), "async" if d == 2 else "sync")
+        for d in range(PACKED_DOCS)
+    ]
+    pdf_pages = [f"{p + 1}. Invoice part {p + 1}\n" + "\n".join(
+        _sentences(rng, vocab, int(rng.integers(60, 120))) for _ in range(4)) for p in range(PDF_PAGES)]
+    packed_uploads.append(("project0", "pdf00", "invoice.pdf", _text_pdf(pdf_pages), "sync"))
+    long_uploads = [(f"project{i % 2}", name, f"{name}.txt", _long_text(rng, vocab, pages).encode(),
+                     "async" if i == 1 else "sync") for i, (name, pages) in enumerate(LONG_DOCS.items())]
+    return packed_uploads, long_uploads
+
+
 def _http(port: int, method: str, path: str, body: bytes | None = None, ctype: str | None = None) -> dict:
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method=method,
                                  headers={"Content-Type": ctype} if ctype else {})
@@ -2081,7 +2132,8 @@ def _ingest_run(label: str, env: dict, encoder, uploads: list, forwards: list) -
     from intool_rag_tpu_torch.service.http import ServiceServer
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
-        os.environ.update({"STORAGE_DIR": tmp, "INDEX_DTYPE": "bfloat16", "INDEX_KIND": "flat",
+        os.environ.update({"STORAGE_DIR": tmp, "CACHE_DIR": os.path.join(tmp, "cache"), "INDEX_DTYPE": "bfloat16",
+                           "INDEX_KIND": "flat",
                            "IVF_REFINE_K": "0", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0",
                            "USE_PALLAS": "1", "LLM_PROVIDER": "heuristic",
                            # the encoder's weights are random, so its CLS vectors lie within rounding
@@ -2211,19 +2263,7 @@ def phase_ingest(state: dict) -> None:
     encoder = TextEncoder(cfg, device=dev).init_random(gen).eval()
     forwards: list[tuple[int, int]] = []
     encoder.register_forward_pre_hook(lambda _m, args: forwards.append(tuple(args[0].shape)))
-
-    rng = np.random.default_rng(INGEST_SEED)
-    vocab = _ingest_vocab(rng)
-    packed_uploads = [
-        (f"project{d % 2}", f"text{d:02d}", f"text{d:02d}.txt",
-         _paged_text(rng, vocab, PACKED_PAGES, f"Report {d}").encode(), "async" if d == 2 else "sync")
-        for d in range(PACKED_DOCS)
-    ]
-    pdf_pages = [f"{p + 1}. Invoice part {p + 1}\n" + "\n".join(
-        _sentences(rng, vocab, int(rng.integers(60, 120))) for _ in range(4)) for p in range(PDF_PAGES)]
-    packed_uploads.append(("project0", "pdf00", "invoice.pdf", _text_pdf(pdf_pages), "sync"))
-    long_uploads = [(f"project{i % 2}", name, f"{name}.txt", _long_text(rng, vocab, pages).encode(),
-                     "async" if i == 1 else "sync") for i, (name, pages) in enumerate(LONG_DOCS.items())]
+    packed_uploads, long_uploads = _ingest_documents()
 
     packed = _ingest_run("packed ingest", {"EMBED_PACKED": "1", "EMBED_PACK_WIDTH": str(PACK_WIDTH)},
                          encoder, packed_uploads, forwards)
@@ -2842,13 +2882,470 @@ def phase_train(state: dict) -> None:
     _k5_backward_times_and_rows(state, dev, gen)
 
 
+# ------------------------------------------------------------------ phase 8
+
+QUERY_SEED = 8
+N_QUERY_FAKE, N_QUERY_DECODER = 16, 8
+DECODER_MAX_TOKENS = 64
+# the decoder's requests cut the context so that the prompt's bytes fit the
+# 1,024 bucket: with 2,048 positions the bucket of a longer prompt leaves
+# room for one new token (the JAX provider's budget rule)
+DECODER_CONTEXT_CHARS = 600
+PREFILL_BUCKETS = (512, 1024, 2048)
+DECODE_PROMPT, DECODE_STEPS = 1024, 64
+# cached decode against a full forward on the bf16 TinyLlama-width model:
+# every product's output is rounded to bf16 (2^-8 relative) and a single-row
+# step runs other GEMM kernels than a 64-row prefill, so the two routes round
+# differently in each of 22 layers; bar: max |diff| within 5 % of the largest
+# |logit| and cosine >= 0.999 per position (the f32 copy is held to 1e-4)
+BF16_CACHE_REL, BF16_CACHE_COS = 0.05, 0.999
+# BM25 carries the quotes: Zipf pseudo-words lie outside encoder_mid's training
+# text, and at the default 0.3 / 0.7 a quoted chunk missing from the dense
+# candidates keeps only the BM25 share and can drop out of the fused list
+# (``quotes_first_at_default_weights`` reads how often); phase 6 does the same
+QUERY_WEIGHTS = {"BM25_WEIGHT": "0.7", "VECTOR_WEIGHT": "0.3"}
+_QUERY_ENV_DEFAULTS = ("CHUNK_MAX_CHARS", "CHUNK_TARGET_CHARS", "CHUNK_MIN_CHARS", "CHUNK_OVERLAP_CHARS",
+                       "BM25_WEIGHT", "VECTOR_WEIGHT", "EMBED_PACK_WIDTH", "GEMINI_API_KEY", "LLM_MODEL_PATH",
+                       "LLM_CONTINUOUS_SLOTS", "LLM_SPECULATIVE_GAMMA", "MAX_CONTEXT_LENGTH", "TOP_PAGES")
+
+
+def _query(port: int, body: dict) -> tuple[float, dict]:
+    t0 = time.perf_counter()
+    out = _http(port, "POST", "/query", json.dumps(body).encode(), "application/json")
+    return time.perf_counter() - t0, out
+
+
+def _query_sse(port: int, body: dict) -> list[tuple[str, object]]:
+    """``POST /query`` with ``stream: true``: the server-sent events in order."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/query", data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not resp.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError(f"stream: true answered {resp.headers['Content-Type']}")
+        text = resp.read().decode()
+    events = []
+    for block in text.strip().split("\n\n"):
+        name, data = block.split("\n", 1)
+        events.append((name.removeprefix("event: "), json.loads(data.removeprefix("data: "))))
+    return events
+
+
+def _quoted_sentences(store, names: dict[str, str], rng, n: int) -> list[tuple[str, str, int]]:
+    """``n`` quotes from distinct chunks, ``(sentence, file name, 1-based
+    page)``: sentences of 8+ words, each in exactly one chunk, that name
+    their chunk: at least 4 distinct terms that occur in at most 3 chunks.
+    (Zipf pseudo-word sentences made of the corpus's commonest words match
+    dozens of chunks alike; no ranking can tell their source.)"""
+    from intool_rag_tpu_torch.index.analyzer import tokenize
+
+    split = re.compile(r"(?<=[.!?])\s+")
+    counts: dict[str, int] = {}
+    df: dict[str, int] = {}
+    for text in store.texts:
+        for sent in split.split(text):
+            counts[sent.strip()] = counts.get(sent.strip(), 0) + 1
+        for term in set(tokenize(text)):
+            df[term] = df.get(term, 0) + 1
+
+    def names_its_chunk(sent: str) -> bool:
+        return (len(sent.split()) >= 8 and sent.endswith(".") and counts[sent] == 1
+                and sum(df.get(t, 0) <= 3 for t in set(tokenize(sent))) >= 4)
+
+    out = []
+    for row in rng.permutation(len(store)):
+        sents = [x.strip() for x in split.split(store.texts[row]) if names_its_chunk(x.strip())]
+        if sents:
+            out.append((sents[int(rng.integers(len(sents)))], names[store.doc_ids[row]], int(store.pages[row]) + 1))
+        if len(out) == n:
+            return out
+    raise AssertionError(f"phase 8: only {len(out)} quotable sentences in the corpus")
+
+
+def _counting(module, name: str):
+    """Replace ``module.name`` by a wrapper that counts its calls; returns
+    the count box and the original."""
+    original = getattr(module, name)
+    box = {"calls": 0}
+
+    def counted(*args, **kwargs):
+        box["calls"] += 1
+        return original(*args, **kwargs)
+
+    setattr(module, name, counted)
+    return box, original
+
+
+def _query_fake(provider, uploads, tmp: str) -> dict:
+    """``LLM_PROVIDER=fake``: ingest phase 6's documents through
+    ``POST /ingest``, then 16 concurrent quoting ``/query`` requests (the
+    main path: counts set to 0 just before, read just after), a cache hit
+    and one streamed answer over HTTP."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.llm import factory
+    from intool_rag_tpu_torch.llm.semantic import factory as semantic
+    from intool_rag_tpu_torch.ops import flat_fused
+    from intool_rag_tpu_torch.providers.fake import FakeLLM
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    config.reset_config()
+    factory.reset_llm()
+    semantic.reset_semantic_analyzer()
+    service = RAGService(provider, device=DEVICE)
+    server = ServiceServer(service, host="127.0.0.1", port=0)
+    server.start_background()
+    plain_k1, orig_k1 = _counting(flat_fused, "partial_topk_reference")
+    plain_k2, orig_k2 = _counting(flat_fused, "partial_topk_int8_reference")
+    try:
+        for project, doc_id, name, data, mode in uploads:
+            _upload(server.port, project, doc_id, name, data, mode)
+        store = service.registry.store
+        names = {doc_id: name for _, doc_id, name, _, _ in uploads}
+        quotes = _quoted_sentences(store, names, np.random.default_rng(QUERY_SEED), N_QUERY_FAKE)
+        _query(server.port, {"question": "warm up the query path"})
+        if not isinstance(service.llm, FakeLLM):
+            raise AssertionError(f"LLM_PROVIDER=fake served {type(service.llm).__name__}")
+        service.query_timings.clear()
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_launches()
+        plain_k1["calls"] = plain_k2["calls"] = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=N_QUERY_FAKE) as pool:
+            results = list(pool.map(lambda q: _query(server.port, {"question": q[0]}), quotes))
+        wall = time.perf_counter() - t0
+        launches, plain_calls = _launches(), plain_k1["calls"] + plain_k2["calls"]
+        hits = service.query_cache.hits
+        _, again = _query(server.port, {"question": quotes[0][0]})
+        cache_hit = service.query_cache.hits == hits + 1 and again == results[0][1]
+        events = _query_sse(server.port, {"question": quotes[1][0]})
+        timings = list(service.query_timings)
+        # a reading, not the main path: the quoted chunk first at the default weights
+        os.environ.update({"BM25_WEIGHT": "0.3", "VECTOR_WEIGHT": "0.7"})
+        config.reset_config()
+        first_at_default = sum(
+            any(sentence in c.text for c in service.retriever.retrieve_chunks(sentence)[:1]) for sentence, _, _ in quotes)
+        os.environ.update(QUERY_WEIGHTS)
+        config.reset_config()
+    finally:
+        flat_fused.partial_topk_reference, flat_fused.partial_topk_int8_reference = orig_k1, orig_k2
+        server.shutdown()
+        service.tasks.shutdown()
+    if set(launches) != {"K1 bf16 precise"} or plain_calls:
+        raise AssertionError(f"phase 8 fake: /query launched {launches}, plain versions called {plain_calls} times")
+    for (sentence, name, page), (_, body) in zip(quotes, results):
+        first = body["sources"][0] if body["sources"] else {}
+        if sentence not in body["answer"] or (first.get("source_file"), first.get("page")) != (name, page):
+            raise AssertionError(f"phase 8 fake: quote from {name} p{page} answered {body['answer'][:120]!r}, "
+                                 f"first source {first}")
+    if not cache_hit:
+        raise AssertionError("phase 8 fake: the repeated /query was not a cache hit with an equal body")
+    kinds = [k for k, _ in events]
+    if kinds[0] != "sources" or kinds[-1] != "done" or "token" not in kinds or "error" in kinds:
+        raise AssertionError(f"phase 8 fake: stream events {kinds}")
+    lat = sorted(r[0] for r in results)
+    out = {
+        "requests": len(results), "documents": len(uploads), "chunks": len(store), "wall_s": wall,
+        "p50_ms": 1000 * float(np.median(lat)), "max_ms": 1000 * lat[-1], "qps": len(results) / wall,
+        "retrieve_p50_ms": 1000 * float(np.median([t["retrieve"] for t in timings])),
+        "generate_p50_ms": 1000 * float(np.median([t["generate"] for t in timings])),
+        "launches": launches, "plain_calls": plain_calls, "cache_hit": cache_hit,
+        "quotes_first_at_default_weights": first_at_default,
+        "stream_events": {k: kinds.count(k) for k in dict.fromkeys(kinds)}, "card": card_line(),
+    }
+    log(f"phase 8 /query, fake LLM: {json.dumps(out)}")
+    return {**out, "quotes": quotes}
+
+
+def _cache_vs_full(model, ids: torch.Tensor, prefill: int, positions: torch.Tensor | None = None,
+                   valid: torch.Tensor | None = None) -> tuple[float, float, float]:
+    """``(max |diff|, max |logit|, min cosine over positions)`` between one
+    full forward and a prefill of ``prefill`` tokens followed by single-token
+    steps through the cache. ``positions`` and ``valid`` default to
+    ``0..S-1`` and all valid; given a served request's (left padding at
+    position 0, masked), the padding's logits are left out."""
+    from intool_rag_tpu_torch.models.decoder import init_cache
+
+    b, s = ids.shape
+    pos = torch.arange(s, device=ids.device).expand(b, s) if positions is None else positions
+    valid = torch.ones_like(ids, dtype=torch.bool) if valid is None else valid.bool()
+    with torch.no_grad():
+        full = model(ids, pos, init_cache(model.config, b, ids.device), valid)
+        cache = init_cache(model.config, b, ids.device)
+        parts = [model(ids[:, :prefill], pos[:, :prefill], cache, valid[:, :prefill])]
+        for t in range(prefill, s):
+            parts.append(model(ids[:, t : t + 1], pos[:, t : t + 1], cache, valid[:, t : t + 1]))
+    step, full = torch.cat(parts, dim=1)[valid], full[valid]
+    cos = torch.nn.functional.cosine_similarity(step, full, dim=-1).min()
+    return float((step - full).abs().max()), float(full.abs().max()), float(cos)
+
+
+def _served_replay(calls: list) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """One served request's decoder inputs, as the forward hook saw them:
+    ``(ids, positions, valid [1, S + n], prefill S)``, its left-padded prompt
+    followed by the ``n`` tokens fed to its decode steps."""
+    if len(calls) < 2 or calls[0][0][1] == 1 or any(shape[1] != 1 for shape, *_ in calls[1:]):
+        raise AssertionError(f"phase 8: one request's forwards are {[shape for shape, *_ in calls]}")
+    ids = torch.cat([c[2] for c in calls], dim=1)
+    pos = torch.cat([c[3] for c in calls], dim=1)
+    valid = torch.cat([c[4] if c[4] is not None else torch.ones_like(c[2], dtype=torch.bool) for c in calls], dim=1)
+    return ids, pos, valid.bool(), calls[0][0][1]
+
+
+def _decoder_checks(llm, dev, served: tuple) -> dict:
+    """Not the main path: cached decode against a full forward on a 2-layer
+    f32 copy of the TinyLlama width (1e-4), and on the bf16 model (the
+    ``BF16_CACHE_*`` bars) both at prefill 64 and on a served request's own
+    inputs (:func:`_served_replay`: the padded 1,024 bucket, positions from
+    the mask's running count, then the tokens it decoded), and the tiny f32
+    config's greedy tokens on the card against the CPU's."""
+    import dataclasses
+
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM, generate, init_decoder_params
+
+    gen = torch.Generator(device=dev).manual_seed(QUERY_SEED)
+    cfg2 = dataclasses.replace(DecoderConfig.tinyllama(), num_layers=2, dtype="float32")
+    small = DecoderLM(cfg2, device=dev).init_random(gen).eval()
+    ids = torch.randint(3, cfg2.vocab_size, (2, 80), generator=gen, device=dev)
+    f32_err, f32_max, f32_cos = _cache_vs_full(small, ids, 64)
+    del small
+    bf_err, bf_max, bf_cos = _cache_vs_full(llm.model, ids[:1], 64)
+    s_ids, s_pos, s_valid, s_prefill = served
+    sv_err, sv_max, sv_cos = _cache_vs_full(llm.model, s_ids, s_prefill, s_pos, s_valid)
+    pad_slots = int((~s_valid[:, :s_prefill]).sum())
+    tiny = DecoderConfig.tiny()
+    state = init_decoder_params(tiny, torch.Generator().manual_seed(QUERY_SEED))
+    cpu, card = DecoderLM(tiny, device="cpu").eval(), DecoderLM(tiny, device=dev).eval()
+    cpu.load_state_dict(state)
+    card.load_state_dict(state)
+    rng = np.random.default_rng(QUERY_SEED)
+    t_ids = torch.as_tensor(rng.integers(3, tiny.vocab_size, (4, 16)))
+    t_mask = torch.ones((4, 16), dtype=torch.int32)
+    for row, pad in enumerate((0, 5, 9, 2)):
+        t_mask[row, :pad] = 0
+        t_ids[row, :pad] = 0
+    want = generate(cpu, t_ids, t_mask, max_new_tokens=24)
+    got = generate(card, t_ids.to(dev), t_mask.to(dev), max_new_tokens=24).cpu()
+    out = {"f32_2_layers_max_abs": f32_err, "f32_max_logit": f32_max, "f32_min_cosine": f32_cos,
+           "bf16_max_abs": bf_err, "bf16_max_logit": bf_max, "bf16_rel": bf_err / bf_max, "bf16_min_cosine": bf_cos,
+           "served_prompt": s_prefill, "served_pad_slots": pad_slots, "served_steps": s_ids.shape[1] - s_prefill,
+           "served_max_abs": sv_err, "served_max_logit": sv_max, "served_rel": sv_err / sv_max,
+           "served_min_cosine": sv_cos, "tiny_greedy_card_equals_cpu": bool(torch.equal(got, want))}
+    log(f"phase 8 decoder checks on the card: {json.dumps(out)}")
+    if f32_err > 1e-4 or bf_err > BF16_CACHE_REL * bf_max or bf_cos < BF16_CACHE_COS or not torch.equal(got, want) \
+            or sv_err > BF16_CACHE_REL * sv_max or sv_cos < BF16_CACHE_COS or pad_slots == 0:
+        raise AssertionError(f"phase 8: decoder checks failed: {out}")
+    return out
+
+
+def _decoder_timings(llm, dev) -> dict:
+    """Prefill ms at each bucket (CUDA events, a preallocated cache), decode
+    ms per token at batch 1 after a 1,024-token prompt (wall clock through
+    ``generate``: 65 new tokens less 1), and the weight-read bound."""
+    from intool_rag_tpu_torch.models.decoder import generate, init_cache
+
+    model, cfg = llm.model, llm.config
+    gen = torch.Generator(device=dev).manual_seed(QUERY_SEED + 1)
+    prefill = {}
+    with torch.no_grad():
+        for s in PREFILL_BUCKETS:
+            ids = torch.randint(3, 259, (1, s), generator=gen, device=dev)
+            pos = torch.arange(s, device=dev)[None]
+            cache = init_cache(cfg, 1, dev)
+
+            def run(ids=ids, pos=pos, cache=cache):
+                cache.length = 0
+                model(ids, pos, cache)
+
+            prefill[s] = cuda_ms(run, iters=5, warmup=2)
+    ids = torch.randint(3, 259, (1, DECODE_PROMPT), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+
+    def wall(n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, ids, mask, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t0)
+
+    wall(DECODE_STEPS + 1)
+    one = float(np.median([wall(1) for _ in range(3)]))
+    full = float(np.median([wall(DECODE_STEPS + 1) for _ in range(3)]))
+    ms_per_token = (full - one) / DECODE_STEPS
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = 1000 * weight_bytes / H100_HBM_BYTES_S
+    return {
+        "prefill_ms": {str(s): ms for s, ms in prefill.items()},
+        "decode_prompt": DECODE_PROMPT, "decode_steps": DECODE_STEPS,
+        "generate_1_token_ms": one, f"generate_{DECODE_STEPS + 1}_tokens_ms": full,
+        "decode_ms_per_token": ms_per_token, "tokens_per_s": 1000 / ms_per_token,
+        "weight_bytes": weight_bytes, "weight_read_bound_ms": bound_ms, "bound_share": bound_ms / ms_per_token,
+    }
+
+
+def _query_decoder(provider, quotes, tmp: str, dev) -> tuple[dict, object]:
+    """``LLM_PROVIDER=cuda`` at TinyLlama width: the factory's choice is
+    checked, then the service answers 8 concurrent ``/query`` requests with
+    ``CudaLLM(DecoderConfig.tinyllama())`` (seeded random weights, byte
+    tokenizer, temperature 0, 64 new tokens) over the store the fake run
+    ingested, the query cache off; the same question twice answers alike."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.llm import factory
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig
+    from intool_rag_tpu_torch.providers.cuda_llm import CudaLLM
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    os.environ.update({"LLM_PROVIDER": "cuda", "LLM_TEMPERATURE": "0", "LLM_MAX_TOKENS": str(DECODER_MAX_TOKENS),
+                       "CACHE_DIR": os.path.join(tmp, "cache-decoder"), "CACHE_QUERY_RESULTS": "0"})
+    config.reset_config()
+    factory.reset_llm()
+    chosen = factory.get_llm(DEVICE)
+    if not isinstance(chosen, CudaLLM) or chosen.device.type != dev.type:
+        raise AssertionError(f"LLM_PROVIDER=cuda built {type(chosen).__name__} on {getattr(chosen, 'device', None)}")
+    factory.reset_llm()
+    del chosen
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = CudaLLM(config=DecoderConfig.tinyllama(), device=DEVICE)
+    build_s = time.perf_counter() - t0
+    params = list(llm.model.parameters())
+    if any(p.device.type != dev.type or p.dtype != torch.bfloat16 for p in params):
+        raise AssertionError("phase 8: the decoder's parameters are not bf16 on the card")
+    # (input shape, cache device, ids, positions, valid mask or None): a
+    # decode step's ids are the token generated before it
+    calls: list[tuple] = []
+    hook = llm.model.register_forward_pre_hook(lambda _m, args: calls.append(
+        (tuple(args[0].shape), args[2].k.device, args[0].clone(), args[1].clone(),
+         args[3].clone() if len(args) > 3 else None)))
+
+    def fed_tokens() -> list[int]:
+        return torch.cat([c[2].flatten() for c in calls if c[0][1] == 1]).tolist()
+
+    service = RAGService(provider, device=DEVICE, llm=llm)
+    server = ServiceServer(service, host="127.0.0.1", port=0)
+    server.start_background()
+    body = lambda q: {"question": q, "max_context_length": DECODER_CONTEXT_CHARS}  # noqa: E731
+    try:
+        _query(server.port, body("warm up the decoder"))
+        service.query_timings.clear()
+        calls.clear()
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
+            results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        timings = list(service.query_timings)
+        forwards = list(calls)
+        twice, twice_tokens = [], []
+        for _ in range(2):  # the query cache is off: both go through the decoder
+            calls.clear()
+            twice.append(_query(server.port, body(quotes[0][0]))[1]["answer"])
+            twice_tokens.append(fed_tokens())
+        served = _served_replay(calls)
+    finally:
+        server.shutdown()
+        service.tasks.shutdown()
+        hook.remove()
+    prefills = [c[0] for c in forwards if c[0][1] > 1]
+    steps = sum(1 for c in forwards if c[0][1] == 1)
+    if "K1 bf16 precise" not in launches or any(c[1].type != dev.type for c in forwards):
+        raise AssertionError(f"phase 8 decoder: launches {launches}, cache devices "
+                             f"{sorted({str(c[1]) for c in forwards})}")
+    if len(prefills) != N_QUERY_DECODER or any(not isinstance(b["answer"], str) or not b["sources"]
+                                               for _, b in results):
+        raise AssertionError(f"phase 8 decoder: {len(prefills)} prefills for {N_QUERY_DECODER} requests")
+    if twice[0] != twice[1] or twice[0] != results[0][1]["answer"] or twice_tokens[0] != twice_tokens[1] \
+            or len(twice_tokens[0]) < 1:
+        raise AssertionError(f"phase 8 decoder: one question, answers {twice} / {results[0][1]['answer']!r}, "
+                             f"tokens {[t[:8] for t in twice_tokens]}")
+    lat = sorted(r[0] for r in results)
+    out = {
+        "config": "tinyllama (22 x 2048, 32 heads over 4 KV heads, 5632, vocab 32000, 2048 positions, bf16)",
+        "build_s": build_s, "parameters": sum(p.numel() for p in params), "requests": len(results),
+        "wall_s": wall, "p50_ms": 1000 * float(np.median(lat)), "max_ms": 1000 * lat[-1],
+        "retrieve_p50_ms": 1000 * float(np.median([t["retrieve"] for t in timings])),
+        "generate_p50_ms": 1000 * float(np.median([t["generate"] for t in timings])),
+        "prefill_shapes": sorted(set(prefills)), "tokens_per_request": 1 + steps / len(prefills),
+        "answer_chars": [len(b["answer"]) for _, b in results], "launches": launches,
+        # random weights over 32,000 ids: few fall in the byte tokenizer's 3-258, so answers are mostly empty
+        "same_question_tokens": twice_tokens[0][:16],
+    }
+    out.update(_decoder_timings(llm, dev))
+    out["checks"] = _decoder_checks(llm, dev, served)
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    out["card"] = card_line()
+    log(f"phase 8 /query, TinyLlama-width decoder: {json.dumps(out)}")
+    return out, llm
+
+
+def phase_query(state: dict) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+
+    for name in _QUERY_ENV_DEFAULTS:
+        os.environ.pop(name, None)
+    packed_uploads, _ = _ingest_documents()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_query_") as tmp:
+        # a fresh store and query cache: an earlier run's answers must not serve this one
+        os.environ.update({"STORAGE_DIR": os.path.join(tmp, "storage"), "CACHE_DIR": os.path.join(tmp, "cache-fake"),
+                           "CACHE_QUERY_RESULTS": "1", "CACHE_EMBEDDINGS": "1", "LLM_PROVIDER": "fake",
+                           "INDEX_DTYPE": "bfloat16", "INDEX_KIND": "flat", "IVF_REFINE_K": "0", "DENSE_INT8": "0",
+                           "DENSE_INT8_RESIDUAL": "0", "USE_PALLAS": "1", "EMBED_PACKED": "0",
+                           "EMBEDDING_QUERY_INSTRUCTION": "", **QUERY_WEIGHTS})
+        provider = CudaEmbeddingProvider(checkpoint=str(ENCODER_MID), device=DEVICE)
+        fake = _query_fake(provider, packed_uploads, tmp)
+        decoder, llm = _query_decoder(provider, fake.pop("quotes"), tmp, torch.device(DEVICE))
+    launches = {name: fake["launches"].get(name, 0) + decoder["launches"].get(name, 0)
+                for name in {*fake["launches"], *decoder["launches"]}}
+    for row in state.get("kernels", []):
+        row["launches_query"] = launches.get(row["name"], 0)
+    state["query"] = {"fake": fake, "decoder": decoder, "launches": launches}
+    state["decode_llm"] = llm  # its busy share is profiled after the last phase
+
+
+def decode_busy_share(state: dict) -> None:
+    """The device's busy share of a decode step and the launches per token,
+    from ``torch.profiler`` over ``generate`` with 1 and 65 new tokens (the
+    difference is 64 decode steps), against the unprofiled ms per token."""
+    from intool_rag_tpu_torch.models.decoder import generate
+
+    llm = state.pop("decode_llm")
+    dev = llm.device
+    ids = torch.randint(3, 259, (1, DECODE_PROMPT), generator=torch.Generator(device=dev).manual_seed(QUERY_SEED),
+                        device=dev)
+    mask = torch.ones_like(ids)
+    one = _profiled_kernels(lambda: generate(llm.model, ids, mask, max_new_tokens=1))
+    full = _profiled_kernels(lambda: generate(llm.model, ids, mask, max_new_tokens=DECODE_STEPS + 1))
+    dec = state["query"]["decoder"]
+    if not full:
+        dec["decode_profile"] = "not measured: torch.profiler reported no device time"
+    else:
+        busy = (sum(ms for _, ms, _ in full) - sum(ms for _, ms, _ in one)) / DECODE_STEPS
+        launches = (sum(c for _, _, c in full) - sum(c for _, _, c in one)) / DECODE_STEPS
+        top = sorted(full, key=lambda k: -k[1])[:8]
+        dec["decode_profile"] = {
+            "device_busy_ms_per_token": busy, "launches_per_token": launches,
+            "ms_per_token": dec["decode_ms_per_token"], "device_busy_share": busy / dec["decode_ms_per_token"],
+            "top_kernels_65_tokens": [{"name": n[:48], "ms": ms, "calls": c} for n, ms, c in top],
+            "card": card_line(),
+        }
+    log(f"phase 8 decode step under torch.profiler: {json.dumps(dec['decode_profile'])}")
+    del llm
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
-          6: phase_ingest, 7: phase_train}
+          6: phase_ingest, 7: phase_train, 8: phase_query}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2859,8 +3356,11 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         PHASES[p](state)
         log(f"phase {p} done in {time.perf_counter() - t0:.1f} s")
-    if "scale_batch" in state:  # a torch.profiler window: last, see scale_busy_share
+    # torch.profiler windows come last: they slow later host work (see scale_busy_share)
+    if "scale_batch" in state:
         scale_busy_share(state)
+    if "decode_llm" in state:
+        decode_busy_share(state)
     if "kernels" in state:
         print(json.dumps({"kernels": state["kernels"]}))
     print(state.get("card") or card_line())

@@ -62,12 +62,24 @@ class Config:
         lambda: _env_str("EMBEDDING_PASSAGE_INSTRUCTION", "")
     )
 
-    # --- LLM (semantic analysis at ingest) ---
+    # --- LLM (semantic analysis at ingest, answers of /query) ---
+    # "fake", "cuda" (the JAX package's "tpu"; both names work), "gemini",
+    # "ollama"; left empty: Gemini with a key, else Ollama, else the fake LLM
     LLM_PROVIDER: str = _field(lambda: _env_str("LLM_PROVIDER", ""))
     LLM_MODEL: str = _field(lambda: _env_str("LLM_MODEL", "qwen2.5:7b-instruct-q4_K_M"))
     LLM_TEMPERATURE: float = _field(lambda: _env_float("LLM_TEMPERATURE", 0.3))
     LLM_MAX_TOKENS: int = _field(lambda: _env_int("LLM_MAX_TOKENS", 512))
     LLM_BASE_URL: str = _field(lambda: _env_str("LLM_BASE_URL", "http://localhost:11434"))
+    # local HF Llama checkpoint directory for the in-process decoder
+    # (providers/cuda_llm.py); empty: a small random-weight model
+    LLM_MODEL_PATH: str = _field(lambda: _env_str("LLM_MODEL_PATH", ""))
+    # sampling controls of the in-process decoder (0 / 1.0 = off)
+    LLM_TOP_K: int = _field(lambda: _env_int("LLM_TOP_K", 0))
+    LLM_TOP_P: float = _field(lambda: _env_float("LLM_TOP_P", 1.0))
+    # continuous batching and prompt-lookup speculation of the JAX decoder;
+    # not ported: the in-process decoder raises unless both are 0
+    LLM_CONTINUOUS_SLOTS: int = _field(lambda: _env_int("LLM_CONTINUOUS_SLOTS", 0))
+    LLM_SPECULATIVE_GAMMA: int = _field(lambda: _env_int("LLM_SPECULATIVE_GAMMA", 0))
 
     # --- HTTP to providers (providers/http_utils.py) ---
     HTTP_MAX_RETRIES: int = _field(lambda: _env_int("HTTP_MAX_RETRIES", 3))
@@ -104,6 +116,15 @@ class Config:
     TABLE_BOOST_MULTIPLIER: float = _field(lambda: _env_float("TABLE_BOOST_MULTIPLIER", 1.5))
     TABLE_CONTEXT_PRIORITY: bool = _field(lambda: _env_bool("TABLE_CONTEXT_PRIORITY", True))
 
+    # --- Context assembly (query/response.py) ---
+    CONTEXT_MAX_RESULTS: int = _field(lambda: _env_int("CONTEXT_MAX_RESULTS", 3))
+    MAX_CONTEXT_LENGTH: int = _field(lambda: _env_int("MAX_CONTEXT_LENGTH", 8000))
+
+    # --- Caches (storage/cache.py) ---
+    CACHE_EMBEDDINGS: bool = _field(lambda: _env_bool("CACHE_EMBEDDINGS", True))
+    CACHE_QUERY_RESULTS: bool = _field(lambda: _env_bool("CACHE_QUERY_RESULTS", True))
+    CACHE_DIR: Path = _field(lambda: Path(_env_str("CACHE_DIR", "./storages/cache")))
+
     # --- Storage ---
     STORAGE_DIR: Path = _field(lambda: Path(_env_str("STORAGE_DIR", "./storages")))
 
@@ -139,7 +160,7 @@ class Config:
 
     def ensure_dirs(self) -> None:
         """Create the storage directories (explicit, not at import)."""
-        for d in (self.STORAGE_DIR, self.UPLOAD_DIR):
+        for d in (self.STORAGE_DIR, self.UPLOAD_DIR, self.CACHE_DIR):
             d.mkdir(parents=True, exist_ok=True)
 
 

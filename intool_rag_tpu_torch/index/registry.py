@@ -186,3 +186,25 @@ class CorpusRegistry:
             "chunks": len(self.store) if self.store else 0,
             "bm25_vocab": len(self.bm25.vocab) if self.bm25 else 0,
         }
+
+
+_registry: CorpusRegistry | None = None
+_registry_lock = threading.Lock()
+
+
+def get_registry(device: str | torch.device | None = None) -> CorpusRegistry:
+    """The process's registry over ``STORAGE_DIR``, loaded on the first
+    call (on ``device``, default CUDA)."""
+    global _registry
+    if _registry is None:
+        with _registry_lock:
+            if _registry is None:
+                registry = CorpusRegistry(device=device)
+                registry.load_all()
+                _registry = registry
+    return _registry
+
+
+def reset_registry() -> None:
+    global _registry
+    _registry = None

@@ -1,8 +1,10 @@
 """Ingestion pipeline: load → normalize → tree → chunk → embed → persist
 (port of ``intool_rag_tpu/ingest/pipeline.py``; same four phases and the
 same result contract, plus ``timings``: the seconds by stage, host =
-load…chunk, embed, persist). The embedding provider is an argument: the
-port has no provider factory and no embedding cache yet."""
+load…chunk, embed, persist). The embedding provider is an argument; left
+out, the pipeline builds its own from the embedding factory on first use,
+behind the disk embedding cache (``storage/cache.py``) when
+``CACHE_EMBEDDINGS`` is set, as the JAX pipeline does."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..config import get_config
 from ..exceptions import IngestError
@@ -27,11 +30,13 @@ logger = logging.getLogger(__name__)
 class IngestionPipeline:
     def __init__(
         self,
-        embedding_provider,
+        embedding_provider=None,
         storage: FileStorageManager | None = None,
+        device: str | torch.device | None = None,
     ) -> None:
         self.storage = storage or FileStorageManager()
-        self.provider = embedding_provider
+        self._provider = embedding_provider
+        self._device = device
         self.loader = PageBasedLoader()
         self.normalizer = PageNormalizer()
         self.tree_builder = SemanticTreeBuilder()
@@ -44,6 +49,19 @@ class IngestionPipeline:
                 overlap_chars=cfg.CHUNK_OVERLAP_CHARS,
             )
         )
+
+    @property
+    def provider(self):
+        if self._provider is None:
+            from ..llm.embeddings.factory import get_embedding_provider
+
+            provider = get_embedding_provider(self._device)
+            if get_config().CACHE_EMBEDDINGS:
+                from ..storage.cache import CachingEmbeddingProvider
+
+                provider = CachingEmbeddingProvider(provider)
+            self._provider = provider
+        return self._provider
 
     def ingest_file(
         self,

@@ -97,6 +97,21 @@ class PageIndex:
             return None
         return self.get_node(node.parent_id)
 
+    def get_children(self, node_id: str) -> list[SemanticNode]:
+        node = self.get_node(node_id)
+        if node is None:
+            return []
+        return [c for cid in node.children if (c := self.get_node(cid)) is not None]
+
+    def get_siblings(self, node_id: str) -> list[SemanticNode]:
+        node = self.get_node(node_id)
+        if node is None:
+            return []
+        parent = self.get_parent(node_id)
+        if parent is None:
+            return [n for n in self.nodes if n.parent_id is None and n is not node]
+        return [c for c in self.get_children(parent.node_id) if c.node_id != node_id]
+
     def nodes_for_page(self, page: int) -> list[SemanticNode]:
         return [n for n in self.nodes if n.page_index == page]
 

@@ -1,17 +1,28 @@
-"""Hashing tokenizer for the encoder path (port of ``SimpleTokenizer`` in
-``intool_rag_tpu/models/tokenizer.py``; the HF tokenizer waits).
+"""Tokenization for the encoder path (port of
+``intool_rag_tpu/models/tokenizer.py``).
 
-ids: 0 = CLS, 1 = PAD, 2 = SEP, 3 = UNK; words from the BM25 analyzer hash
-(md5, stable across processes) into [4, vocab_size).
+:func:`get_tokenizer` prefers an HF fast tokenizer
+(``transformers.AutoTokenizer``, local files only: a cached hub name or a
+directory) and falls back to :class:`SimpleTokenizer` on any failure, a
+missing ``transformers`` package included, as the JAX package does. It
+also falls back when the HF vocabulary has more ids than the encoder has
+embedding rows: the JAX package keeps such a tokenizer (its ids past the
+table embed as NaN there), but here they would raise a device-side assert
+in ``nn.functional.embedding`` on CUDA.
+:class:`SimpleTokenizer` ids: 0 = CLS, 1 = PAD, 2 = SEP, 3 = UNK; words from
+the BM25 analyzer hash (md5, stable across processes) into [4, vocab_size).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 
 import numpy as np
 
 from ..index.analyzer import tokenize as analyze
+
+logger = logging.getLogger(__name__)
 
 
 class SimpleTokenizer:
@@ -53,3 +64,34 @@ class SimpleTokenizer:
             ids[i, : len(t)] = t
             mask[i, : len(t)] = 1
         return ids, mask
+
+
+class HFTokenizer:
+    """``transformers.AutoTokenizer`` over local files only; ``transformers``
+    is imported here, on first use, since it is optional."""
+
+    def __init__(self, model_name: str, max_length: int = 8192) -> None:
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(model_name, local_files_only=True)
+        self.max_length = max_length
+        self.pad_id = self.tok.pad_token_id
+
+    def encode_batch(self, texts: list[str], max_length: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+        out = self.tok(texts, padding=True, truncation=True, max_length=max_length or self.max_length,
+                       return_tensors="np")
+        return out["input_ids"].astype(np.int32), out["attention_mask"].astype(np.int32)
+
+
+def get_tokenizer(model_name: str, vocab_size: int, max_length: int):
+    """The HF tokenizer if its files are local and its ids fit in
+    ``vocab_size`` embedding rows, else the hashing tokenizer."""
+    try:
+        tok = HFTokenizer(model_name, max_length)
+    except Exception:  # no transformers, no local files, or no usable tokenizer there
+        return SimpleTokenizer(vocab_size=vocab_size, max_length=max_length)
+    if len(tok.tok) > vocab_size:
+        logger.warning("tokenizer %s has %d ids but the encoder %d rows: using the hashing tokenizer",
+                       model_name, len(tok.tok), vocab_size)
+        return SimpleTokenizer(vocab_size=vocab_size, max_length=max_length)
+    return tok

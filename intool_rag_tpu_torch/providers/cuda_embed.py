@@ -10,7 +10,9 @@ Weights: an encoder passed in, else the checkpoint named by the
 ``checkpoint`` argument or ``EMBEDDING_CHECKPOINT`` (a path that does not
 exist raises), else, as in the JAX package, random weights of the
 ``EMBEDDING_PRESET`` size, drawn from a seeded ``torch.Generator`` on the
-encoder's device, with a warning.
+encoder's device, with a warning. Tokens: a tokenizer passed in, else
+``get_tokenizer(EMBEDDING_MODEL)``, the HF tokenizer when its files are
+local and the hashing tokenizer otherwise, as in the JAX provider.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..config import get_config
 from ..device import resolve_device
 from ..models.encoder import EncoderConfig, TextEncoder, load_encoder
 from ..models.packing import build_packed_arrays, pack_bins, shrink_width
-from ..models.tokenizer import SimpleTokenizer
+from ..models.tokenizer import get_tokenizer
 from .base import instruction_prefix
 
 logger = logging.getLogger(__name__)
@@ -87,7 +89,8 @@ class CudaEmbeddingProvider:
         self.encoder = encoder.eval()
         self.encoder_config = encoder.config
         self.device = next(encoder.parameters()).device
-        self.tokenizer = tokenizer or SimpleTokenizer(
+        self.tokenizer = tokenizer or get_tokenizer(
+            self.model_name,
             vocab_size=self.encoder_config.vocab_size,
             max_length=min(self.encoder_config.max_position - 2, 8192),
         )

@@ -6,7 +6,8 @@ of them, reordered by the cross-encoder and cut to the limit, score =
 sigmoid of the relevance logit) → group by
 (doc, page) → page score = avg(chunk scores) + min(0.05·n_chunks, 0.15),
 times ``TABLE_BOOST_MULTIPLIER`` for pages with tables → top-N pages with
-citation metadata.
+citation metadata. ``retrieve_and_rank_pages`` runs the whole flow for
+one query, ``retrieve_and_rank_pages_batch`` for a batch.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ class PageRanking:
     section: str | None = None
     subsection: str | None = None
     title: str | None = None
+
+    @property
+    def context_text(self) -> str:
+        ordered = sorted(self.chunks, key=lambda c: c.chunk_id)
+        return "\n\n".join(c.text for c in ordered)
 
 
 def _chunks(hits: list[dict]) -> list[RetrievedChunk]:
@@ -166,3 +172,30 @@ class PageLevelRetriever:
                 ranking.section = ancestor.title
             elif ancestor.level is NodeLevel.SUBSECTION:
                 ranking.subsection = ancestor.title
+
+    def retrieve_and_rank_pages_batch(
+        self, queries: list[str], projects: list[str | None], *, top_pages: int | None = None
+    ) -> list[list[PageRanking]]:
+        chunk_lists = self.retrieve_chunks_batch(queries, projects)
+        return [self.rank_pages(chunks, top_pages) if chunks else [] for chunks in chunk_lists]
+
+    def retrieve_and_rank_pages(
+        self, query: str, *, project: str | None = None, top_pages: int | None = None
+    ) -> list[PageRanking]:
+        chunks = self.retrieve_chunks(query, project=project)
+        if not chunks:
+            return []
+        return self.rank_pages(chunks, top_pages)
+
+
+def retrieve_and_rank_pages(
+    query: str, *, project: str | None = None, top_pages: int | None = None
+) -> list[PageRanking]:
+    """One query over the process's registry and embedding provider
+    (``index/registry.py::get_registry``, the embedding factory)."""
+    from ..index.registry import get_registry
+    from ..llm.embeddings.factory import get_embedding_provider
+
+    return PageLevelRetriever(get_registry(), get_embedding_provider()).retrieve_and_rank_pages(
+        query, project=project, top_pages=top_pages
+    )

@@ -1,14 +1,17 @@
 """Framework-free router for the served subset (port of
-``intool_rag_tpu/service/app.py``): ``POST /search``, ``POST /ingest``
-(sync and ``mode=async``), ``GET /jobs``, ``GET /jobs/{id}``,
-``GET /documents``, ``GET`` and ``DELETE /documents/{id}`` and
-``GET /health``. Directly callable in tests; served over HTTP by
-service/http.py. ``/query``, ``/agent/query``, ``/metrics`` and
-``/debug/trace`` are not ported yet."""
+``intool_rag_tpu/service/app.py``): ``POST /query`` (a cited answer from
+the LLM; ``stream: true`` answers as server-sent events), ``POST /search``,
+``POST /ingest`` (sync and ``mode=async``), ``GET /jobs``,
+``GET /jobs/{id}``, ``GET /documents``, ``GET`` and
+``DELETE /documents/{id}`` and ``GET /health``. Directly callable in
+tests; served over HTTP by service/http.py. ``/agent/query``,
+``/metrics`` and ``/debug/trace`` are not ported yet."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 import logging
 import re
 import time
@@ -23,11 +26,16 @@ from ..config import get_config
 from ..exceptions import IndexNotFoundError, RAGError
 from ..index.registry import CorpusRegistry
 from ..ingest.pipeline import IngestionPipeline
+from ..llm.factory import get_llm
 from ..llm.reranker_factory import get_reranker
+from ..query.response import build_rag_prompt, create_page_aware_response
 from ..query.retriever import PageLevelRetriever
+from ..storage.cache import QueryResultCache
 from ..tasks import TaskQueue
 from .batcher import QueryBatcher
-from .models import DocumentInfo, HealthResponse, IngestResponse, QueryRequest
+from .models import (
+    DocumentInfo, HealthResponse, IngestResponse, QueryRequest, QueryResponse, SourceReference,
+)
 from .multipart import parse_multipart
 
 logger = logging.getLogger(__name__)
@@ -41,27 +49,50 @@ class HTTPError(Exception):
         self.detail = detail
 
 
-class RAGService:
-    """Routes requests to the ingest and retrieval paths. ``provider``
-    embeds chunks and queries (a
-    :class:`..providers.cuda_embed.CudaEmbeddingProvider`). ``reranker``
-    reorders ``/search`` hits when ``RERANKER_ENABLED``; left out, it comes
-    from ``llm/reranker_factory.py`` (None without local weights)."""
+NOT_FOUND_ANSWER = "I could not find relevant information to answer your question."
 
-    def __init__(self, provider, registry: CorpusRegistry | None = None,
-                 device: str | torch.device | None = None, reranker=None) -> None:
+
+class RAGService:
+    """Routes requests to the ingest, retrieval and answer paths.
+    ``provider`` embeds chunks and queries (a
+    :class:`..providers.cuda_embed.CudaEmbeddingProvider`); left out, the
+    embedding factory's, which ingest reads through the disk embedding
+    cache when ``CACHE_EMBEDDINGS`` is set. ``reranker`` reorders hits when
+    ``RERANKER_ENABLED``; left out, it comes from
+    ``llm/reranker_factory.py`` (None without local weights). ``llm``
+    answers ``/query``; left out, the LLM factory's, built on the first
+    query. With ``CACHE_QUERY_RESULTS``, answers are cached on disk under
+    ``CACHE_DIR``, keyed by question, project, parameters and corpus
+    version."""
+
+    def __init__(self, provider=None, registry: CorpusRegistry | None = None,
+                 device: str | torch.device | None = None, reranker=None, llm=None) -> None:
         self.registry = registry or CorpusRegistry(device=device)
         self.registry.load_all()
-        self.pipeline = IngestionPipeline(provider, storage=self.registry.storage)
+        self.pipeline = IngestionPipeline(provider, storage=self.registry.storage, device=self.registry.device)
+        if provider is None:
+            from ..llm.embeddings.factory import get_embedding_provider
+
+            provider = get_embedding_provider(self.registry.device)
         if reranker is None:
             reranker = get_reranker(self.registry.device)
         self.retriever = PageLevelRetriever(self.registry, provider, reranker=reranker)
+        self._llm = llm
         self.tasks = TaskQueue(workers=1)
         self.last_ingest_timings: dict[str, float] = {}
+        # seconds by stage of recent answered (not cached) queries: retrieve, generate
+        self.query_timings: collections.deque[dict[str, float]] = collections.deque(maxlen=1024)
         cfg = get_config()
+        self.query_cache = QueryResultCache() if cfg.CACHE_QUERY_RESULTS else None
         self.batcher = (
             QueryBatcher(self.retriever.retrieve_chunks_batch) if cfg.QUERY_MAX_BATCH > 1 else None
         )
+
+    @property
+    def llm(self):
+        if self._llm is None:
+            self._llm = get_llm(self.registry.device)
+        return self._llm
 
     def handle(self, method: str, path: str, body: bytes = b"", content_type: str = "") -> tuple[int, dict]:
         parsed = urlparse(path)
@@ -70,6 +101,8 @@ class RAGService:
         try:
             if method == "POST" and route == "/ingest":
                 return 200, self.ingest(params, body, content_type)
+            if method == "POST" and route == "/query":
+                return 200, self.query(body)
             if method == "POST" and route == "/search":
                 return 200, self.search(body)
             if method == "GET" and route == "/documents":
@@ -150,6 +183,66 @@ class RAGService:
         if job is None:
             raise HTTPError(404, f"job {job_id} not found")
         return job.to_dict()
+
+    def query(self, body: bytes) -> dict:
+        """Retrieve and rank pages, build the cited prompt, answer with the
+        LLM. A cached answer comes back as it was; ``stream: true`` returns
+        ``{"__stream__": events}`` for the HTTP layer and is not cached."""
+        try:
+            request = QueryRequest.from_json(body)
+        except (ValueError, TypeError) as exc:
+            raise HTTPError(400, f"invalid query request: {exc}") from exc
+        cache_params = f"{request.top_pages}|{request.max_context_length}"
+        if self.query_cache is not None and not request.stream:
+            cached = self.query_cache.get(request.question, request.project or "", cache_params,
+                                          self.registry.version)
+            if cached is not None:
+                return cached
+        start = time.perf_counter()
+        if self.batcher is not None:
+            chunks = self.batcher.submit(request.question, request.project)
+            ranked = self.retriever.rank_pages(chunks, request.top_pages) if chunks else []
+        else:
+            ranked = self.retriever.retrieve_and_rank_pages(
+                request.question, project=request.project, top_pages=request.top_pages)
+        retrieved = time.perf_counter()
+        if not ranked:
+            return dataclasses.asdict(QueryResponse(answer=NOT_FOUND_ANSWER, sources=[], confidence="low"))
+        prompt = build_rag_prompt(request.question, ranked, request.max_context_length)
+        if request.stream:
+            return {"__stream__": self._stream_answer(prompt, ranked)}
+        answer = self.llm.generate(prompt)
+        self.query_timings.append({"retrieve": retrieved - start, "generate": time.perf_counter() - retrieved})
+        response = create_page_aware_response(answer, ranked)
+        result = dataclasses.asdict(QueryResponse(
+            answer=answer,
+            sources=[SourceReference(**src) for src in response["sources"]["primary_sources"]],
+            confidence=response["confidence"],
+        ))
+        if self.query_cache is not None:
+            self.query_cache.put(request.question, request.project or "", cache_params,
+                                 self.registry.version, result)
+        return result
+
+    def _stream_answer(self, prompt: str, ranked):
+        """Server-sent events: ``sources`` first, then ``token`` deltas of
+        the LLM's stream, then ``done`` with the confidence, or ``error``."""
+        sources = create_page_aware_response("", ranked)["sources"]["primary_sources"]
+
+        def events():
+            yield "event: sources\ndata: " + json.dumps(sources) + "\n\n"
+            parts = []
+            try:
+                for chunk in self.llm.generate_stream(prompt):
+                    parts.append(chunk)
+                    yield "event: token\ndata: " + json.dumps({"text": chunk}) + "\n\n"
+            except Exception as exc:  # the stream has started: report in band, as the JAX service does
+                yield "event: error\ndata: " + json.dumps({"detail": str(exc)}) + "\n\n"
+                return
+            final = create_page_aware_response("".join(parts), ranked)
+            yield "event: done\ndata: " + json.dumps({"confidence": final["confidence"]}) + "\n\n"
+
+        return events()
 
     def search(self, body: bytes) -> dict:
         """Raw retrieval (no LLM): hybrid top-k chunks with scores and

@@ -6,6 +6,9 @@ Run: ``python -m intool_rag_tpu_torch.service [--checkpoint <encoder.npz>]
 ``STORAGE_DIR``. The embedding provider comes from the embedding factory
 (``EMBEDDING_PROVIDER``, ``llm/embeddings/factory.py``), as in the JAX
 service; ``--checkpoint`` sets ``EMBEDDING_CHECKPOINT`` for the encoder.
+``/query`` answers with the LLM factory's choice (``LLM_PROVIDER``,
+``llm/factory.py``); a ``stream: true`` query is answered as server-sent
+events.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ def make_handler(service: RAGService):
             status, payload = service.handle(
                 method, self.path, body, self.headers.get("Content-Type", "")
             )
+            if isinstance(payload, dict) and "__stream__" in payload:
+                self._respond_sse(status, payload["__stream__"])
+                return
             data = json.dumps(payload, ensure_ascii=False).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json; charset=utf-8")
@@ -38,6 +44,21 @@ def make_handler(service: RAGService):
             self.send_header("Access-Control-Allow-Origin", "*")  # reference enables CORS
             self.end_headers()
             self.wfile.write(data)
+
+        def _respond_sse(self, status: int, events) -> None:
+            self.send_response(status)
+            self.send_header("Content-Type", "text/event-stream; charset=utf-8")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            try:
+                for event in events:
+                    self.wfile.write(event.encode())
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client hung up mid-stream
+            self.close_connection = True
 
         def do_GET(self) -> None:  # noqa: N802
             self._respond("GET")

@@ -1,6 +1,6 @@
-"""Request/response models (port of ``intool_rag_tpu/service/models.py``
-for the served subset): dataclasses with the same JSON field names as the
-JAX package's pydantic models."""
+"""Request/response models (port of ``intool_rag_tpu/service/models.py``):
+dataclasses with the same JSON field names as the JAX package's pydantic
+models; ``dataclasses.asdict`` gives their JSON bodies."""
 
 from __future__ import annotations
 
@@ -35,6 +35,24 @@ class QueryRequest:
         if "stream" in data and not isinstance(data["stream"], bool):
             raise ValueError("field 'stream' must be a boolean")
         return cls(**data)
+
+
+@dataclasses.dataclass
+class SourceReference:
+    page: int
+    chapter: str | None = None
+    section: str | None = None
+    subsection: str | None = None
+    title: str | None = None
+    source_file: str | None = None
+    relevance_score: float = 0.0
+
+
+@dataclasses.dataclass
+class QueryResponse:
+    answer: str
+    sources: list[SourceReference]
+    confidence: str  # "high" | "medium" | "low"
 
 
 @dataclasses.dataclass
