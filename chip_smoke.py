@@ -3,7 +3,7 @@
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
 ``1,2,6`` for ingest alone, ``1,2,7`` for training alone, ``1,8`` for
-``/query`` alone). Phases:
+``/query`` alone, ``1,9`` for the rest of the served surface alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -162,6 +162,30 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    and, after the last phase, the device's busy share of a decode step and
    its launches per token from ``torch.profiler``; each beside the card's
    name and power limit. The kernel table's rows gain ``launches_query``.
+9. the rest of the served surface, over a store like phase 8's (its
+   uploads, ``encoder_mid``, bf16, BM25 weight 0.7) behind the port's HTTP
+   service. The agent: 16 concurrent ``POST /agent/query`` with the fake
+   LLM (the main path); every quote that ``/query`` answers with its page
+   first must come back with that page among the agent's sources and the
+   quote in its answer; K1 bf16 precise must launch and no plain version
+   run; the gate's refusals are printed; ``GET /agent/health`` answers and
+   ``GET /metrics`` counts every request the phase sent and holds
+   ``agent.query``. Then ``CudaLLM(DecoderConfig.tinyllama())`` (phase 8's
+   seeded weights, temperature 0, 64 new tokens, phase 8's 8 prompts, the
+   query cache off) behind ``/query``, 8 requests at once, three ways:
+   ``LLM_CONTINUOUS_SLOTS=8`` (wall, generate p50, waves and compactions
+   beside phase 8's queued numbers), ``LLM_SPECULATIVE_GAMMA=4`` one stream,
+   and both (speculative waves over 8 slots). Each request's tokens are
+   held to the static ``generate`` of its prompt up to the static path's
+   first top-2 margin below ``BF16_CACHE_REL`` of its largest logit (bf16
+   sums differ with batch width), with the share of tokens equal printed.
+   The 2-layer f32 copy through the scheduler (4 slots, 192 positions, at
+   least one compaction) must give the static tokens outright. On a prompt
+   that repeats its context: ms a token plain, speculative and in waves,
+   and ``llm.accepted_per_wave``. Last of the whole run, after every
+   timing: ``POST /debug/trace`` (0.5 s) while ``/agent/query`` requests
+   run must write one Chrome trace holding CUDA kernel events. The kernel
+   table's rows gain ``launches_served``.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -3339,13 +3363,374 @@ def decode_busy_share(state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 9
+
+SERVED_SLOTS, SERVED_GAMMA = 8, 4
+N_SERVED_SEARCH = 4
+# the 2-layer f32 copy's run: prompts cut to their last 56 tokens (bucket 64),
+# 64 new tokens, 4 slots for 8 requests and a cache of 192 positions, so
+# that the refilled second wave compacts once (a history bucket of 128)
+F32_PROMPT_TOKENS, F32_SLOTS, F32_MAX_POSITION = 56, 4, 192
+# a prompt that repeats its context: drafts can be found in it
+REPEAT_PROMPT = "Context:\n" + "The warranty covers parts and labour for two years from delivery. " * 12 + \
+    "\n\nQuestion: What does the warranty cover?\n\nAnswer: The warranty covers"
+
+
+def _agent(port: int, question: str) -> tuple[float, dict]:
+    t0 = time.perf_counter()
+    out = _http(port, "POST", "/agent/query", json.dumps({"question": question}).encode(), "application/json")
+    return time.perf_counter() - t0, out
+
+
+def _first_near_tie(model, ids: list[int], toks: list[int]) -> int:
+    """The first generated position where the static path's top-2 logit
+    margin is below ``BF16_CACHE_REL`` of its largest |logit| (one full
+    forward over the prompt and the tokens, batch 1); ``len(toks)`` if none."""
+    if not toks:
+        return 0
+    dev = model.embed.weight.device
+    seq = torch.as_tensor([ids + toks[:-1]], device=dev)
+    pos = torch.arange(seq.shape[1], device=dev)[None]
+    from intool_rag_tpu_torch.models.decoder import init_cache
+
+    with torch.no_grad():
+        logits = model(seq, pos, init_cache(model.config, 1, dev, positions=seq.shape[1]))[0, len(ids) - 1:]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < BF16_CACHE_REL * logits.abs().max(dim=-1).values
+    return int(torch.nonzero(near)[0, 0]) if bool(near.any()) else len(toks)
+
+
+def _static_tokens(model, ids: list[int], max_new: int, eos: int) -> list[int]:
+    """``generate`` on one prompt alone, left-padded into its power-of-two
+    bucket as the scheduler pads it, cut at EOS."""
+    from intool_rag_tpu_torch.models.decoder import generate
+
+    dev = model.embed.weight.device
+    bucket = 1 << max(3, (len(ids) - 1).bit_length())
+    arr = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    mask = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    arr[0, bucket - len(ids):] = torch.as_tensor(ids, device=dev)
+    mask[0, bucket - len(ids):] = 1
+    toks = generate(model, arr, mask, max_new_tokens=max_new, eos_id=eos)[0].tolist()
+    return toks[: toks.index(eos)] if eos in toks else toks
+
+
+def _held_to_greedy(model, runs: list[tuple[list[int], list[int], list[int]]], what: str) -> dict:
+    """Each ``(prompt ids, served tokens, static tokens)`` equal up to the
+    static path's first near-tie; the share of positions equal overall."""
+    checked = equal = total = 0
+    prefixes = []
+    for ids, got, want in runs:
+        k = min(_first_near_tie(model, ids, want), len(want))
+        if got[:k] != want[:k]:
+            raise AssertionError(f"phase 9 {what}: tokens {got[:k + 2]} != static {want[:k + 2]} before the first "
+                                 f"near-tie at {k}")
+        prefixes.append(k)
+        checked += k
+        equal += sum(a == b for a, b in zip(got, want))
+        total += max(len(got), len(want))
+    return {"requests": len(runs), "checked_prefix": prefixes, "tokens_checked": checked,
+            "share_equal": equal / max(total, 1)}
+
+
+def _recording(llm, name: str, calls: list):
+    """Wrap ``llm.<name>`` so that each call's arguments and result are kept."""
+    original = getattr(llm, name)
+
+    def recorded(*args):
+        out = original(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(llm, name, recorded)
+
+
+def _served_decoder(service, server, quotes, dev, phase8: dict | None) -> dict:
+    """``LLM_CONTINUOUS_SLOTS=8`` then ``LLM_SPECULATIVE_GAMMA=4`` (one
+    stream, then with the slots) at TinyLlama width behind ``/query``: 8
+    concurrent requests each, every request's tokens held to the static
+    ``generate`` of its prompt; the 2-layer f32 copy through the scheduler
+    across a compaction, its tokens equal outright; ms a token on a prompt
+    that repeats its context."""
+    import dataclasses
+
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM, generate
+    from intool_rag_tpu_torch.models.scheduler import ContinuousGenerator
+    from intool_rag_tpu_torch.observability import get_metrics
+    from intool_rag_tpu_torch.providers.cuda_llm import CudaLLM
+
+    body = lambda q: {"question": q, "max_context_length": DECODER_CONTEXT_CHARS}  # noqa: E731
+    cached, service.query_cache = service.query_cache, None  # every request goes through the decoder
+    out: dict = {"card": card_line()}
+
+    def build(slots: int, gamma: int) -> CudaLLM:
+        os.environ.update({"LLM_CONTINUOUS_SLOTS": str(slots), "LLM_SPECULATIVE_GAMMA": str(gamma),
+                           "LLM_TEMPERATURE": "0", "LLM_MAX_TOKENS": str(DECODER_MAX_TOKENS)})
+        config.reset_config()
+        llm = CudaLLM(config=DecoderConfig.tinyllama(), device=DEVICE)  # phase 8's seeded weights
+        if (llm._waves is not None) != (slots > 0) or \
+                (model is not None and not torch.equal(llm.model.lm_head.weight, model.lm_head.weight)):
+            raise AssertionError(f"phase 9: slots {slots}, gamma {gamma}: another wave server or other weights")
+        return llm
+
+    def serve(llm, label: str) -> dict:
+        service._llm = llm
+        _query(server.port, body("warm up the decoder"))
+        service.query_timings.clear()
+        before = get_metrics().snapshot()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
+            results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        after = get_metrics().snapshot()
+        if "K1 bf16 precise" not in launches or any(not b["sources"] for _, b in results):
+            raise AssertionError(f"phase 9 {label}: launches {launches}, "
+                                 f"sources {[len(b['sources']) for _, b in results]}")
+        delta = {k: after["counters"].get(k, 0) - before["counters"].get(k, 0)
+                 for k in ("llm_waves", "llm_wave_requests", "llm_wave_tokens", "llm_compactions", "llm_wave_errors")}
+        timings = list(service.query_timings)
+        row = {"wall_s": wall, "p50_ms": 1000 * float(np.median([r[0] for r in results])),
+               "generate_p50_ms": 1000 * float(np.median([t["generate"] for t in timings])),
+               "retrieve_p50_ms": 1000 * float(np.median([t["retrieve"] for t in timings])), "launches": launches}
+        if llm._waves is not None:
+            if delta["llm_wave_errors"] or delta["llm_wave_requests"] != N_QUERY_DECODER:
+                raise AssertionError(f"phase 9 {label}: wave counters {delta}")
+            row.update(waves=delta["llm_waves"], compactions=delta["llm_compactions"],
+                       wave_tokens=delta["llm_wave_tokens"])
+            acc = after["latency_s"].get("llm.accepted_per_wave")
+            if acc is not None:
+                row["accepted_per_wave_p50"] = acc["p50"]
+        return row
+
+    eos = 2  # the byte tokenizer's
+    model = None
+    # ---- continuous batching: 8 slots, plain waves
+    llm = build(SERVED_SLOTS, 0)
+    submits: list = []
+    _recording(llm._waves, "submit", submits)
+    out["slots"] = serve(llm, "slots")
+    runs = [(list(a[0]), out_toks, _static_tokens(llm.model, list(a[0]), a[1], eos))
+            for a, out_toks in submits[-N_QUERY_DECODER:]]
+    out["slots"]["parity"] = _held_to_greedy(llm.model, runs, "slots")
+    out["slots"]["prompt_tokens"] = sorted({len(r[0]) for r in runs})
+    statics = {tuple(r[0]): r[2] for r in runs}
+    model = llm.model
+    llm.close()
+    # ---- one stream with prompt-lookup speculation
+    llm = build(0, SERVED_GAMMA)
+    spec_calls: list = []
+    _recording(llm, "_speculative_ids", spec_calls)
+    out["speculative_single"] = serve(llm, "speculative single stream")
+    runs = []
+    for (ids, mask, _), toks in spec_calls[-N_QUERY_DECODER:]:
+        want = generate(llm.model, *_encoded_tensors(ids, mask, dev), max_new_tokens=len(toks), eos_id=eos)[0].tolist()
+        runs.append(([int(t) for t, m in zip(ids[0], mask[0]) if m], toks[: toks.index(eos)] if eos in toks else toks,
+                     want[: want.index(eos)] if eos in want else want))
+    out["speculative_single"]["parity"] = _held_to_greedy(llm.model, runs, "speculative single stream")
+    single = llm
+    # ---- speculative waves over 8 slots
+    llm = build(SERVED_SLOTS, SERVED_GAMMA)
+    submits = []
+    _recording(llm._waves, "submit", submits)
+    out["speculative_slots"] = serve(llm, "speculative slots")
+    runs = [(list(a[0]), toks, statics.get(tuple(a[0])) or _static_tokens(llm.model, list(a[0]), a[1], eos))
+            for a, toks in submits[-N_QUERY_DECODER:]]
+    out["speculative_slots"]["parity"] = _held_to_greedy(llm.model, runs, "speculative slots")
+    f32_prompts = [ids[-F32_PROMPT_TOKENS:] for ids, _, _ in runs]
+    # ---- a prompt that repeats its context: ms a token, plain against speculative
+    rep: dict = {}
+    encoded = single._encode_prompt(REPEAT_PROMPT)
+    for label, fn in (("plain", lambda: generate(model, *_encoded_tensors(*encoded, dev),
+                                                  max_new_tokens=DECODER_MAX_TOKENS)[0].tolist()),
+                      ("speculative_single", lambda: single._speculative_ids(*encoded, SERVED_GAMMA)),
+                      ("speculative_slots", lambda: llm._waves.submit(
+                          llm.tokenizer.encode(REPEAT_PROMPT)[-512:], DECODER_MAX_TOKENS))):
+        fn()
+        before = get_metrics().snapshot()["latency_s"].get("llm.accepted_per_wave", {}).get("count", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = fn()
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        rep[label] = {"ms": ms, "tokens": len(toks), "ms_per_token": ms / max(len(toks), 1)}
+        if label == "speculative_slots":
+            acc = get_metrics().snapshot()["latency_s"]["llm.accepted_per_wave"]
+            rep[label]["accepted_per_wave_p50"] = acc["p50"]
+            rep[label]["server_waves"] = acc["count"] - before
+    if phase8 is not None:
+        rep["phase8_decode_ms_per_token"] = phase8.get("decode_ms_per_token")
+    out["repeating_prompt"] = rep
+    llm.close()
+    single.close()
+    del llm, single
+    # ---- the 2-layer f32 copy across a compaction: tokens equal outright
+    cfg2 = dataclasses.replace(DecoderConfig.tinyllama(), num_layers=2, dtype="float32", max_position=F32_MAX_POSITION)
+    small = DecoderLM(cfg2, device=dev).init_random(torch.Generator(device=dev).manual_seed(QUERY_SEED)).eval()
+    got, stats = ContinuousGenerator(small, n_slots=F32_SLOTS, eos_id=eos).generate_many(f32_prompts,
+                                                                                        DECODER_MAX_TOKENS)
+    want = [_static_tokens(small, p, DECODER_MAX_TOKENS, eos) for p in f32_prompts]
+    out["f32_2_layers"] = {"requests": len(f32_prompts), "slots": F32_SLOTS, "max_position": F32_MAX_POSITION,
+                           "compactions": stats["compactions"], "equal": got == want,
+                           "tokens": stats["total_tokens"]}
+    if stats["compactions"] < 1 or got != want:
+        raise AssertionError(f"phase 9 f32: compactions {stats['compactions']}, equal {got == want}")
+    del small, model
+    service.query_cache = cached
+    service._llm = None
+    torch.cuda.empty_cache()
+    return out
+
+
+def _encoded_tensors(ids: np.ndarray, mask: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """``CudaLLM._encode_prompt``'s arrays as the tensors ``generate`` takes."""
+    return torch.as_tensor(ids, dtype=torch.long, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def phase_served(state: dict) -> None:
+    """Phase 9: the agent, continuous batching, speculation, ``/metrics``;
+    the trace is taken after the last phase's timings (:func:`served_trace`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.llm import factory
+    from intool_rag_tpu_torch.llm.semantic import factory as semantic
+    from intool_rag_tpu_torch.ops import flat_fused
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.providers.fake import FakeLLM
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    for name in _QUERY_ENV_DEFAULTS:
+        os.environ.pop(name, None)
+    packed_uploads, _ = _ingest_documents()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_served_")
+    os.environ.update({"STORAGE_DIR": os.path.join(tmp.name, "storage"), "CACHE_DIR": os.path.join(tmp.name, "cache"),
+                       "CACHE_QUERY_RESULTS": "1", "CACHE_EMBEDDINGS": "1", "LLM_PROVIDER": "fake",
+                       "INDEX_DTYPE": "bfloat16", "INDEX_KIND": "flat", "IVF_REFINE_K": "0", "DENSE_INT8": "0",
+                       "DENSE_INT8_RESIDUAL": "0", "USE_PALLAS": "1", "EMBED_PACKED": "0",
+                       "EMBEDDING_QUERY_INSTRUCTION": "", **QUERY_WEIGHTS})
+    config.reset_config()
+    factory.reset_llm()
+    semantic.reset_semantic_analyzer()
+    provider = CudaEmbeddingProvider(checkpoint=str(ENCODER_MID), device=DEVICE)
+    service = RAGService(provider, device=DEVICE)
+    server = ServiceServer(service, host="127.0.0.1", port=0)
+    server.start_background()
+    state["served_trace"] = (service, server, tmp)  # taken after every timing of the run
+    plain_k1, orig_k1 = _counting(flat_fused, "partial_topk_reference")
+    plain_k2, orig_k2 = _counting(flat_fused, "partial_topk_int8_reference")
+    try:
+        for project, doc_id, name, data, mode in packed_uploads:
+            _upload(server.port, project, doc_id, name, data, mode)
+        names = {doc_id: name for _, doc_id, name, _, _ in packed_uploads}
+        quotes = _quoted_sentences(service.registry.store, names, np.random.default_rng(QUERY_SEED), N_QUERY_FAKE)
+        if not isinstance(service.llm, FakeLLM):
+            raise AssertionError(f"LLM_PROVIDER=fake served {type(service.llm).__name__}")
+        _query(server.port, {"question": "warm up the query path"})
+        _agent(server.port, "warm up the agent")
+        with ThreadPoolExecutor(max_workers=N_QUERY_FAKE) as pool:
+            answered = list(pool.map(lambda q: _query(server.port, {"question": q[0]}), quotes))
+        first = [bool(b["sources"]) and (b["sources"][0].get("source_file"), b["sources"][0].get("page")) == (n, p)
+                 and s in b["answer"] for (s, n, p), (_, b) in zip(quotes, answered)]
+        for q in quotes[:N_SERVED_SEARCH]:
+            _http(server.port, "POST", "/search", json.dumps({"question": q[0]}).encode(), "application/json")
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_launches()
+        plain_k1["calls"] = plain_k2["calls"] = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=N_QUERY_FAKE) as pool:
+            results = list(pool.map(lambda q: _agent(server.port, q[0]), quotes))
+        wall = time.perf_counter() - t0
+        launches, plain_calls = _launches(), plain_k1["calls"] + plain_k2["calls"]
+        health = _http(server.port, "GET", "/agent/health")
+        metrics = _http(server.port, "GET", "/metrics")
+    finally:
+        flat_fused.partial_topk_reference, flat_fused.partial_topk_int8_reference = orig_k1, orig_k2
+    if set(launches) != {"K1 bf16 precise"} or plain_calls:
+        raise AssertionError(f"phase 9 agent: launched {launches}, plain versions called {plain_calls} times")
+    gated = 0
+    for (sentence, name, page), ok, (_, body) in zip(quotes, first, results):
+        gated += "gate:rejected" in body["state"]["steps"]
+        pages = [(s["source_file"], s["page"]) for s in body["all_sources"]]
+        if ok and ((name, page) not in pages or sentence not in body["answer"]):
+            raise AssertionError(f"phase 9 agent: quote from {name} p{page} answered {body['answer'][:120]!r}, "
+                                 f"sources {pages}")
+    counters = metrics["counters"]
+    sent = {"agent_requests": 1 + N_QUERY_FAKE, "query_requests": 1 + N_QUERY_FAKE, "search_requests": N_SERVED_SEARCH}
+    if health != {"status": "ok", "pipeline": "page-aware-agent"} or \
+            any(counters.get(k) != v for k, v in sent.items()) or \
+            metrics["latency_s"].get("agent.query", {}).get("count") != 1 + N_QUERY_FAKE:
+        raise AssertionError(f"phase 9: /agent/health {health}, /metrics {json.dumps(metrics)[:600]}")
+    lat = sorted(r[0] for r in results)
+    agent = {"requests": len(results), "wall_s": wall, "p50_ms": 1000 * float(np.median(lat)),
+             "max_ms": 1000 * lat[-1], "query_page_first": sum(first), "gated": gated, "launches": launches,
+             "plain_calls": plain_calls, "agent_query_p50_s": metrics["latency_s"]["agent.query"]["p50"],
+             "intents": sorted({b["intent"] for _, b in results}), "card": card_line()}
+    log(f"phase 9 /agent/query, fake LLM: {json.dumps(agent)}")
+    phase8 = state.get("query", {}).get("decoder")
+    decoder = _served_decoder(service, server, quotes, torch.device(DEVICE), phase8)
+    if phase8 is not None:
+        decoder["phase8_queued"] = {k: phase8.get(k) for k in ("wall_s", "p50_ms", "generate_p50_ms")}
+    log(f"phase 9 decoder, continuous batching and speculation: {json.dumps(decoder)}")
+    launches = dict(agent["launches"])
+    for run in ("slots", "speculative_single", "speculative_slots"):
+        for name, n in decoder[run]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    for row in state.get("kernels", []):
+        row["launches_served"] = launches.get(row["name"], 0)
+    state["served"] = {"agent": agent, "decoder": decoder, "launches": launches}
+
+
+def served_trace(state: dict) -> None:
+    """``POST /debug/trace`` (0.5 s) while ``/agent/query`` requests run:
+    the trace file must exist and hold CUDA kernel events. After every
+    timing of the run: a profiler window slows later host work."""
+    import glob
+    import threading
+
+    service, server, tmp = state.pop("served_trace")
+    stop = threading.Event()
+    answered = []
+
+    def agent_loop():
+        while not stop.is_set():
+            answered.append(_agent(server.port, "what does the invoice part say about the report")[1])
+
+    worker = threading.Thread(target=agent_loop)
+    try:
+        worker.start()
+        time.sleep(0.2)
+        out = _http(server.port, "POST", "/debug/trace", json.dumps({"seconds": 0.5}).encode(), "application/json")
+        stop.set()
+        worker.join()
+        files = glob.glob(os.path.join(out["trace_dir"], "*.json"))
+        events = json.loads(Path(files[0]).read_text())["traceEvents"] if len(files) == 1 else []
+    finally:
+        stop.set()
+        server.shutdown()
+        service.tasks.shutdown()
+        tmp.cleanup()
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    phases = sum(1 for e in events if e.get("name") == "agent.query")
+    trace = {"seconds": out["seconds"], "files": len(files), "events": len(events), "cuda_kernel_events": kernels,
+             "agent_query_ranges": phases, "agent_answers": len(answered), "card": card_line()}
+    log(f"phase 9 /debug/trace: {json.dumps(trace)}")
+    if len(files) != 1 or kernels == 0 or not answered:
+        raise AssertionError(f"phase 9 trace: {trace}")
+    state.setdefault("served", {})["trace"] = trace
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
-          6: phase_ingest, 7: phase_train, 8: phase_query}
+          6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3361,6 +3746,8 @@ def main(argv: list[str] | None = None) -> int:
         scale_busy_share(state)
     if "decode_llm" in state:
         decode_busy_share(state)
+    if "served_trace" in state:
+        served_trace(state)
     if "kernels" in state:
         print(json.dumps({"kernels": state["kernels"]}))
     print(state.get("card") or card_line())

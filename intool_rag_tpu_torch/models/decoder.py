@@ -1,6 +1,5 @@
 """Decoder-only generative LM, Llama-family architecture, with a KV cache
-(port of ``intool_rag_tpu/models/decoder.py``; its prompt-lookup
-speculation, ``make_lookup_speculative_fn``, is not ported).
+(port of ``intool_rag_tpu/models/decoder.py``).
 
 The architecture is HF ``LlamaForCausalLM``'s, so checkpoints load
 through :func:`load_hf_llama`:
@@ -22,7 +21,10 @@ layers (it has no Pallas kernel here).
 over the left-padded prompt, then a host loop of single-token steps that
 write into a cache allocated once per call. The JAX package compiles
 prefill and decode into one XLA program; here each step launches its
-kernels from the host.
+kernels from the host. :func:`generate_lookup_speculative` is the
+counterpart of ``make_lookup_speculative_fn``: greedy, one stream, each
+step verifying a draft looked up in the prompt. Batched serving
+(continuous batching, speculative waves) is ``models/scheduler.py``.
 """
 
 from __future__ import annotations
@@ -86,13 +88,17 @@ class KVCache:
     length: int = 0
 
 
-def init_cache(config: DecoderConfig, batch: int, device: str | torch.device | None = None) -> KVCache:
+def init_cache(config: DecoderConfig, batch: int, device: str | torch.device | None = None,
+               positions: int | None = None) -> KVCache:
+    """An empty cache of ``positions`` slots a row (default
+    ``config.max_position``)."""
     dev = resolve_device(device)
-    shape = (config.num_layers, batch, config.max_position, config.num_kv_heads, config.head_dim)
+    positions = positions or config.max_position
+    shape = (config.num_layers, batch, positions, config.num_kv_heads, config.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=config.torch_dtype, device=dev),
         v=torch.zeros(shape, dtype=config.torch_dtype, device=dev),
-        valid=torch.zeros((batch, config.max_position), dtype=torch.bool, device=dev),
+        valid=torch.zeros((batch, positions), dtype=torch.bool, device=dev),
     )
 
 
@@ -372,3 +378,82 @@ def generate(
         out[:, t] = nxt
         tok, pos = nxt, pos + 1
     return out
+
+
+@torch.no_grad()
+def generate_lookup_speculative(
+    model: DecoderLM,
+    prompt_ids: torch.Tensor,
+    prompt_mask: torch.Tensor,
+    *,
+    max_new_tokens: int,
+    gamma: int = 4,
+    eos_id: int | None = None,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """Greedy generation with prompt-lookup speculation, one stream
+    (counterpart of the JAX ``make_lookup_speculative_fn``).
+
+    ``prompt_ids [1, S]`` left-padded (``prompt_mask`` 0 on padding) →
+    ``[max_new_tokens]`` tokens. Each wave drafts ``gamma - 1`` tokens: those
+    after the last place in the prompt where the last two emitted tokens
+    occur, found on the device. One forward of ``gamma`` tokens verifies
+    the draft; the accepted prefix and the model's own next token are
+    emitted. Every emitted token is the model's argmax after the same
+    prefix, so the tokens are :func:`generate`'s at temperature 0, up to
+    the rounding of a ``gamma``-token forward against a one-token one.
+
+    The cache cursor advances ``gamma`` a wave whatever was accepted; the
+    rejected slots are marked invalid, never attended to. So the cache is
+    allocated with ``S + gamma * max_new_tokens`` slots (a wave emits at
+    least one token), and the host reads the device once every 8 waves to
+    stop. As with the JAX function, tokens after an EOS inside one wave's
+    accepted prefix stay in the output: callers cut at the first EOS.
+    """
+    b, s = prompt_ids.shape
+    if b != 1:
+        raise ValueError("prompt-lookup speculation is single-stream")
+    if gamma < 1:
+        raise ValueError("gamma must be at least 1 (1: no draft, plain greedy steps)")
+    dev = prompt_ids.device
+    cache = init_cache(model.config, 1, dev, positions=s + gamma * max_new_tokens)
+    positions = torch.clamp(torch.cumsum(prompt_mask.long(), dim=1) - 1, min=0)
+    logits = model(prompt_ids, positions, cache, prompt_mask.bool())
+    last = torch.argmax(logits[0, -1])
+    n_real = positions[0, -1] + 1
+    pi, pm = prompt_ids[0].long(), prompt_mask[0].bool()
+    pi_ext = torch.cat([pi, torch.full((gamma,), pad_id, dtype=torch.long, device=dev)])
+    pm_ext = torch.cat([pm, torch.zeros(gamma, dtype=torch.bool, device=dev)])
+    bigram_ok = pm[:-1] & pm[1:]
+    idx = torch.arange(s - 1, device=dev)
+    jj = torch.arange(gamma, device=dev)
+    eos = -1 if eos_id is None else eos_id
+    out = torch.full((max_new_tokens + gamma,), pad_id, dtype=torch.long, device=dev)
+    out[0] = last
+    prev = pi[-1]
+    n_emitted = torch.ones((), dtype=torch.long, device=dev)
+    done = last == eos
+    for wave in range(max_new_tokens):
+        running = (n_emitted < max_new_tokens) & ~done
+        if wave % 8 == 0 and not bool(running):  # one host sync every 8 waves
+            break
+        hit = (pi[:-1] == prev) & (pi[1:] == last) & bigram_ok
+        match = torch.where(hit, idx, -1).max()
+        start = torch.clamp(match + 2, 0, s)
+        draft = torch.where(pm_ext[start + jj[:-1]] & (match >= 0), pi_ext[start + jj[:-1]], -1)
+        feed = torch.cat([last[None], torch.clamp(draft, min=0)])
+        base = cache.length
+        lg = model(feed[None], (n_real - 1 + n_emitted + jj)[None], cache)
+        o = torch.argmax(lg[0], dim=-1)
+        m = torch.cumprod((o[:-1] == draft).long(), dim=0).sum()  # accepted draft tokens
+        emitted = m + 1
+        # this wave's slots past the accepted prefix are never attended to
+        cache.valid[0, base : base + gamma] &= jj < emitted
+        slots = torch.clamp(n_emitted, max=max_new_tokens) + jj
+        out.index_copy_(0, slots, torch.where(running & (jj < emitted), o, out[slots]))
+        done = done | (running & ((jj <= m) & (o == eos)).any())
+        at = o.gather(0, torch.stack([torch.clamp(m - 1, min=0), m]))  # no host sync, unlike o[m]
+        prev = torch.where(running, torch.where(m > 0, at[0], last), prev)
+        last = torch.where(running, at[1], last)
+        n_emitted = torch.where(running, n_emitted + emitted, n_emitted)
+    return out[:max_new_tokens]

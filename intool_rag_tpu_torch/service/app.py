@@ -3,9 +3,11 @@
 the LLM; ``stream: true`` answers as server-sent events), ``POST /search``,
 ``POST /ingest`` (sync and ``mode=async``), ``GET /jobs``,
 ``GET /jobs/{id}``, ``GET /documents``, ``GET`` and
-``DELETE /documents/{id}`` and ``GET /health``. Directly callable in
-tests; served over HTTP by service/http.py. ``/agent/query``,
-``/metrics`` and ``/debug/trace`` are not ported yet."""
+``DELETE /documents/{id}``, ``GET /health``, ``POST /agent/query`` and
+``GET /agent/health`` (the page-aware agent), ``GET /metrics`` (counters
+and latency windows) and ``POST /debug/trace`` (a ``torch.profiler``
+window written under ``STORAGE_DIR/traces``). Directly callable in tests;
+served over HTTP by service/http.py."""
 
 from __future__ import annotations
 
@@ -22,12 +24,14 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from .. import __version__
+from ..backend import ensure_backend
 from ..config import get_config
 from ..exceptions import IndexNotFoundError, RAGError
 from ..index.registry import CorpusRegistry
 from ..ingest.pipeline import IngestionPipeline
 from ..llm.factory import get_llm
 from ..llm.reranker_factory import get_reranker
+from ..observability import Metrics, get_metrics, start_device_trace, stop_device_trace, trace_phase
 from ..query.response import build_rag_prompt, create_page_aware_response
 from ..query.retriever import PageLevelRetriever
 from ..storage.cache import QueryResultCache
@@ -63,10 +67,13 @@ class RAGService:
     answers ``/query``; left out, the LLM factory's, built on the first
     query. With ``CACHE_QUERY_RESULTS``, answers are cached on disk under
     ``CACHE_DIR``, keyed by question, project, parameters and corpus
-    version."""
+    version. The service's own :class:`..observability.Metrics` count its
+    requests and time its phases; ``GET /metrics`` adds the process-global
+    ones (the LLM's wave server reports there)."""
 
     def __init__(self, provider=None, registry: CorpusRegistry | None = None,
                  device: str | torch.device | None = None, reranker=None, llm=None) -> None:
+        logger.info("compute backend: %s", ensure_backend(registry.device if registry is not None else device))
         self.registry = registry or CorpusRegistry(device=device)
         self.registry.load_all()
         self.pipeline = IngestionPipeline(provider, storage=self.registry.storage, device=self.registry.device)
@@ -78,6 +85,8 @@ class RAGService:
             reranker = get_reranker(self.registry.device)
         self.retriever = PageLevelRetriever(self.registry, provider, reranker=reranker)
         self._llm = llm
+        self._agent = None
+        self.metrics = Metrics()  # this service's, not the process-global ones
         self.tasks = TaskQueue(workers=1)
         self.last_ingest_timings: dict[str, float] = {}
         # seconds by stage of recent answered (not cached) queries: retrieve, generate
@@ -111,8 +120,16 @@ class RAGService:
                 return 200, self.document_detail(route.split("/", 2)[2])
             if method == "GET" and route == "/health":
                 return 200, self.health()
+            if method == "GET" and route == "/metrics":
+                return 200, self.metrics_snapshot()
+            if method == "POST" and route == "/agent/query":
+                return 200, self.agent_query(body)
+            if method == "GET" and route == "/agent/health":
+                return 200, {"status": "ok", "pipeline": "page-aware-agent"}
             if method == "GET" and route == "/jobs":
                 return 200, {"jobs": self.tasks.list_jobs()}
+            if method == "POST" and route == "/debug/trace":
+                return 200, self.debug_trace(body)
             if method == "GET" and route.startswith("/jobs/"):
                 return 200, self.job_detail(route.split("/", 2)[2])
             if method == "DELETE" and route.startswith("/documents/"):
@@ -151,6 +168,7 @@ class RAGService:
         # the client's file name is kept as a label; only its last component names the copy on disk
         filepath = cfg.UPLOAD_DIR / f"{doc_id}_{Path(upload.filename).name}"
         filepath.write_bytes(upload.data)
+        self.metrics.inc("ingest_requests")
 
         if params.get("mode") == "async":
             job = self.tasks.submit(
@@ -159,7 +177,8 @@ class RAGService:
             return {"job_id": job.job_id, "status": job.status, "doc_id": doc_id}
 
         start = time.time()
-        result = self._do_ingest(filepath, project, doc_id, upload.filename, language)
+        with trace_phase("ingest", self.metrics):
+            result = self._do_ingest(filepath, project, doc_id, upload.filename, language)
         return dataclasses.asdict(IngestResponse(
             success=result["success"], doc_id=doc_id, source_file=upload.filename, project=project,
             total_pages=result["page_count"], total_chunks=result["chunk_count"],
@@ -192,26 +211,30 @@ class RAGService:
             request = QueryRequest.from_json(body)
         except (ValueError, TypeError) as exc:
             raise HTTPError(400, f"invalid query request: {exc}") from exc
+        self.metrics.inc("query_requests")
         cache_params = f"{request.top_pages}|{request.max_context_length}"
         if self.query_cache is not None and not request.stream:
             cached = self.query_cache.get(request.question, request.project or "", cache_params,
                                           self.registry.version)
             if cached is not None:
+                self.metrics.inc("query_cache_hits")
                 return cached
         start = time.perf_counter()
-        if self.batcher is not None:
-            chunks = self.batcher.submit(request.question, request.project)
-            ranked = self.retriever.rank_pages(chunks, request.top_pages) if chunks else []
-        else:
-            ranked = self.retriever.retrieve_and_rank_pages(
-                request.question, project=request.project, top_pages=request.top_pages)
+        with trace_phase("query.retrieve", self.metrics):
+            if self.batcher is not None:
+                chunks = self.batcher.submit(request.question, request.project)
+                ranked = self.retriever.rank_pages(chunks, request.top_pages) if chunks else []
+            else:
+                ranked = self.retriever.retrieve_and_rank_pages(
+                    request.question, project=request.project, top_pages=request.top_pages)
         retrieved = time.perf_counter()
         if not ranked:
             return dataclasses.asdict(QueryResponse(answer=NOT_FOUND_ANSWER, sources=[], confidence="low"))
         prompt = build_rag_prompt(request.question, ranked, request.max_context_length)
         if request.stream:
             return {"__stream__": self._stream_answer(prompt, ranked)}
-        answer = self.llm.generate(prompt)
+        with trace_phase("query.generate", self.metrics):
+            answer = self.llm.generate(prompt)
         self.query_timings.append({"retrieve": retrieved - start, "generate": time.perf_counter() - retrieved})
         response = create_page_aware_response(answer, ranked)
         result = dataclasses.asdict(QueryResponse(
@@ -251,10 +274,12 @@ class RAGService:
             request = QueryRequest.from_json(body)
         except (ValueError, TypeError) as exc:
             raise HTTPError(400, f"invalid search request: {exc}") from exc
-        if self.batcher is not None:
-            chunks = self.batcher.submit(request.question, request.project)
-        else:
-            chunks = self.retriever.retrieve_chunks(request.question, project=request.project)
+        self.metrics.inc("search_requests")
+        with trace_phase("search", self.metrics):
+            if self.batcher is not None:
+                chunks = self.batcher.submit(request.question, request.project)
+            else:
+                chunks = self.retriever.retrieve_chunks(request.question, project=request.project)
         return {
             "hits": [
                 {
@@ -268,6 +293,53 @@ class RAGService:
             ],
             "total": len(chunks),
         }
+
+    def agent_query(self, body: bytes) -> dict:
+        """The 11-step agent (``agent/orchestrator.py``) over this service's
+        registry, LLM and embedding provider, built on the first call."""
+        try:
+            request = QueryRequest.from_json(body)
+        except (ValueError, TypeError) as exc:
+            raise HTTPError(400, f"invalid agent query: {exc}") from exc
+        if self._agent is None:
+            from ..agent import PageAwareAgent
+
+            self._agent = PageAwareAgent(self.registry, llm=self.llm, provider=self.retriever.provider)
+        self.metrics.inc("agent_requests")
+        with trace_phase("agent.query", self.metrics):
+            return self._agent.query(request.question, project=request.project)
+
+    def debug_trace(self, body: bytes) -> dict:
+        """A ``torch.profiler`` window of ``seconds`` (clamped to [0.5, 60])
+        over every thread's work, CUDA kernels included on the card, written
+        as a Chrome trace JSON under ``STORAGE_DIR/traces``."""
+        try:
+            seconds = float(json.loads(body or b"{}").get("seconds", 3))
+        except Exception as exc:  # any malformed body is the client's error
+            raise HTTPError(400, f"invalid trace request: {exc}") from exc
+        seconds = min(max(seconds, 0.5), 60.0)
+        trace_dir = str(get_config().STORAGE_DIR / "traces")
+        start_device_trace(trace_dir, cuda=self.registry.device.type == "cuda")
+        try:
+            time.sleep(seconds)
+        finally:
+            stop_device_trace()
+        return {"trace_dir": trace_dir, "seconds": seconds}
+
+    def metrics_snapshot(self) -> dict:
+        """This service's counters and latency windows, the corpus, the query
+        cache and the batcher; ``process`` holds the process-global metrics
+        when they hold anything."""
+        snap = self.metrics.snapshot()
+        snap["corpus"] = self.registry.stats()
+        if self.query_cache is not None:
+            snap["query_cache"] = {"hits": self.query_cache.hits, "misses": self.query_cache.misses}
+        if self.batcher is not None:
+            snap["batcher"] = {"batches_run": self.batcher.batches_run, "requests_served": self.batcher.requests_served}
+        process = get_metrics().snapshot()
+        if process["counters"] or process["latency_s"]:
+            snap["process"] = process
+        return snap
 
     def list_documents(self) -> dict:
         docs = [dataclasses.asdict(DocumentInfo(**info)) for info in self.registry.list_documents()]

@@ -241,6 +241,47 @@ def test_load_hf_llama_matches_load_torch_llama():
     np.testing.assert_allclose(got, hf_logits, atol=ATOL, rtol=0)
 
 
+def _cut(toks, eos):
+    toks = [int(t) for t in toks]
+    return toks[: toks.index(eos)] if eos in toks else toks
+
+
+@pytest.mark.parametrize("gamma", [1, 2, 4])
+@pytest.mark.parametrize("case", ["repeating", "random", "eos"])
+def test_lookup_speculative_equals_greedy_and_jax(jax_params, gamma, case):
+    """Single-stream prompt-lookup speculation: the static greedy tokens and
+    those of the JAX ``make_lookup_speculative_fn`` (f32; equal, cut at the
+    first EOS as both providers do). The prompt is left-padded; "repeating"
+    repeats a block so that drafts are found, "eos" stops at a token the
+    greedy stream emits."""
+    model = _port_model(jax_params)
+    rng = np.random.default_rng(11)
+    block = rng.integers(3, JCFG.vocab_size, 6)
+    body = np.concatenate([block, block, block[:3]]) if case == "repeating" else rng.integers(3, JCFG.vocab_size, 15)
+    ids = np.zeros((1, 24), np.int32)
+    mask = np.zeros((1, 24), np.int32)
+    ids[0, -len(body):], mask[0, -len(body):] = body, 1
+    n = 20
+    plain = tdec.generate(model, _t(ids), torch.as_tensor(mask), max_new_tokens=n)[0].tolist()
+    eos = plain[5] if case == "eos" else None
+    want = tdec.generate(model, _t(ids), torch.as_tensor(mask), max_new_tokens=n, eos_id=eos)[0].tolist()
+    got = tdec.generate_lookup_speculative(model, _t(ids), torch.as_tensor(mask), max_new_tokens=n, gamma=gamma,
+                                           eos_id=eos).tolist()
+    jax_toks = np.asarray(jdec.make_lookup_speculative_fn(JCFG, max_new_tokens=n, gamma=gamma, eos_id=eos)(
+        jax_params, jnp.asarray(ids), jnp.asarray(mask)))
+    assert len(got) == n
+    assert _cut(got, eos) == _cut(want, eos) == _cut(jax_toks, eos)
+    if eos is None:
+        assert got == want
+
+
+def test_lookup_speculative_refuses_a_batch(jax_params):
+    model = _port_model(jax_params)
+    with pytest.raises(ValueError, match="single-stream"):
+        tdec.generate_lookup_speculative(model, torch.ones((2, 8), dtype=torch.long), torch.ones((2, 8)),
+                                         max_new_tokens=4)
+
+
 def test_greedy_tokens_on_card_equal_cpu(jax_params):
     """Card-only twin: the tiny f32 model's greedy tokens on the card equal
     its tokens on the CPU."""

@@ -56,7 +56,8 @@ def test_new_modules_are_covered():
             "eval/metrics.py", "eval/harness.py", "eval/synthetic.py", "llm/reranker_factory.py",
             "models/decoder.py", "providers/cuda_llm.py", "providers/fake.py", "llm/factory.py",
             "core/container.py", "storage/cache.py", "query/context.py", "query/prompts.py",
-            "query/response.py"} <= names
+            "query/response.py", "observability.py", "backend.py", "agent/__init__.py", "agent/state.py",
+            "agent/steps.py", "agent/orchestrator.py", "models/scheduler.py"} <= names
     kernel_dir = ROOT / "intool_rag_tpu_torch" / "kernels"
     kernels = {p.name for p in kernel_dir.glob("*.cu")}
     assert {"flash_attention.cu", "flash_attention_bwd.cu"} <= kernels

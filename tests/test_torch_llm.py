@@ -118,13 +118,41 @@ def test_default_model_without_a_path(env):
 
 
 @pytest.mark.parametrize("var", ["LLM_CONTINUOUS_SLOTS", "LLM_SPECULATIVE_GAMMA"])
-def test_slots_or_gamma_raise(env, monkeypatch, var):
+def test_slots_or_gamma_generate_like_the_static_path_and_jax(env, monkeypatch, var):
+    """``LLM_CONTINUOUS_SLOTS`` (the wave server over the continuous-batching
+    scheduler) or ``LLM_SPECULATIVE_GAMMA`` (single-stream prompt-lookup
+    speculation) at 4, temperature 0: the same text as ``TPULLM`` with the
+    same setting, and as the static path wherever the wave server's prompt
+    cap (128 tokens at 1,024 positions) keeps the whole prompt. With
+    sampling the wave server's text repeats (each wave draws from seed 0)."""
+    from intool_rag_tpu.providers.tpu_llm import TPULLM
     from intool_rag_tpu_torch.providers.cuda_llm import CudaLLM
 
+    jcfg, tcfg = dataclasses.replace(JCFG, max_position=1024), dataclasses.replace(TCFG, max_position=1024)
+    params = jdec.init_decoder_params(jcfg, seed=1)
+    state = tdec.decoder_state_from_flax(jax.tree.map(np.asarray, params))
+    greedy = dict(max_new_tokens=24, temperature=0.0)
+    static = CudaLLM(config=tcfg, params=state, device="cpu", **greedy)
     monkeypatch.setenv(var, "4")
     env()
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        CudaLLM(config=TCFG, device="cpu")
+    jllm = TPULLM(config=jcfg, params=params, **greedy)
+    tllm = CudaLLM(config=tcfg, params=state, device="cpu", **greedy)
+    try:
+        assert (tllm._waves is not None) == (var == "LLM_CONTINUOUS_SLOTS")
+        for prompt in PROMPTS:
+            got = tllm.generate(prompt)
+            assert got == jllm.generate(prompt)
+            if len(prompt.encode()) < 128:
+                assert got == static.generate(prompt)
+    finally:
+        tllm.close()
+    if var == "LLM_CONTINUOUS_SLOTS":
+        sampled = CudaLLM(config=tcfg, params=state, device="cpu", max_new_tokens=16, temperature=0.3)
+        try:
+            assert sampled._waves.gen.gamma == 0 and sampled._waves.gen.temperature == 0.3
+            assert sampled.generate(PROMPTS[0]) == sampled.generate(PROMPTS[0])
+        finally:
+            sampled.close()
 
 
 def test_hf_checkpoint_loads_like_jax(env, monkeypatch, tmp_path):
@@ -213,3 +241,49 @@ def test_factory_decoder_choice_raises_without_cuda(env, monkeypatch, choice):
     with pytest.raises(RuntimeError, match="CUDA"):
         get_llm()
     assert isinstance(get_llm("cpu"), CudaLLM)
+
+
+class _Gen:
+    """A stand-in scheduler for the wave server: echoes, raises, or kills its worker."""
+
+    segment_advance = 16
+
+    def __init__(self, fail: BaseException | None = None) -> None:
+        self.fail = fail
+        self.waves: list[int] = []
+
+    def generate_many(self, prompts, limits):
+        if self.fail is not None:
+            raise self.fail
+        self.waves.append(len(prompts))
+        return [list(p)[: n] for p, n in zip(prompts, limits)], {"total_tokens": sum(limits), "compactions": 0}
+
+
+def test_wave_server_serves_waves_and_surfaces_failures():
+    """Concurrent submits are served in waves with their own results; a
+    wave's exception reaches every waiter and the server keeps serving; a
+    worker that dies fails every later submit at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from intool_rag_tpu_torch.observability import get_metrics
+    from intool_rag_tpu_torch.providers.cuda_llm import _WaveServer
+
+    gen = _Gen()
+    server = _WaveServer(gen)
+    before = get_metrics().snapshot()["counters"].get("llm_wave_requests", 0)
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        got = list(pool.map(lambda i: server.submit([i, i + 1, i + 2], 2), range(6)))
+    assert got == [[i, i + 1] for i in range(6)] and sum(gen.waves) == 6
+    assert get_metrics().snapshot()["counters"]["llm_wave_requests"] == before + 6
+    gen.fail = ValueError("the card fell over")
+    with pytest.raises(ValueError, match="fell over"):
+        server.submit([1], 1)
+    gen.fail = None
+    assert server.submit([5, 6], 1) == [5]
+    server.close()
+
+    dying = _WaveServer(_Gen(fail=SystemExit("worker gone")))
+    with pytest.raises(RuntimeError, match="died|dead"):
+        dying.submit([1], 1)
+    with pytest.raises(RuntimeError, match="dead"):
+        dying.submit([1], 1)
