@@ -3,7 +3,8 @@
 Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
 ``1,2,6`` for ingest alone, ``1,2,7`` for training alone, ``1,8`` for
-``/query`` alone, ``1,9`` for the rest of the served surface alone). Phases:
+``/query`` alone, ``1,9`` for the rest of the served surface alone,
+``1,10`` for the OCR fallback alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -186,6 +187,26 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    timing: ``POST /debug/trace`` (0.5 s) while ``/agent/query`` requests
    run must write one Chrome trace holding CUDA kernel events. The kernel
    table's rows gain ``launches_served``.
+10. scanned ingest: the committed scanned fixture
+   (``intool_rag_tpu_torch/ocr/fixtures/scanned_invoices.pdf``: 8 US Letter
+   pages at 144 DPI, 1,224 x 1,584 px, 20-27 ground-truth lines each, one
+   FlateDecode grayscale image a page). ``OCREngine`` on the shipped
+   det / cls / rec weights on the card, at ``det_limit`` 1280 (the JAX
+   invoice eval's engine) and 640 (the one the service builds), float32
+   with cuDNN's TF32 off: per page the wall s, ``elapse``, the CUDA-event
+   span of the model forwards, the host time besides and the forwards;
+   exact and fuzzy rates as ``evaluate_on_invoices`` scores them. The same
+   pages through the port on the CPU must give the same texts, page by
+   page. One page's forwards timed with TF32 on as well (a reading, not
+   used). Then ``POST /ingest`` of the PDF through the port's HTTP service
+   on the default configuration (``OCR_ENABLED`` unset, every setting of an
+   earlier phase removed) over an ``encoder_mid`` store: every page must
+   come back with ``has_ocr`` and non-empty text, and ``/search`` for one
+   recognised line of each page (its longest line no other page holds)
+   must find that page in the top 5, with K1 launched and no plain version
+   called; the ingest wall s and s per page. After the last phase, one
+   page under ``torch.profiler`` gives the device's busy share. The kernel
+   table's rows gain ``launches_scanned``.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -3724,19 +3745,246 @@ def served_trace(state: dict) -> None:
     state.setdefault("served", {})["trace"] = trace
 
 
+# ------------------------------------------------------------------ phase 10
+
+# the JAX invoice eval's engine (tests/test_ocr_invoices.py), then the one
+# the service's PDFOCRBridge builds (OCREngine's default det_limit)
+SCAN_DET_LIMITS = (1280, 640)
+
+
+def _scan_pages() -> tuple[bytes, list[list[str]], list[np.ndarray]]:
+    from intool_rag_tpu_torch.ocr.pdf_ocr import extract_page_images
+    from intool_rag_tpu_torch.ocr.synth import load_scanned_fixture
+
+    pdf, truth = load_scanned_fixture()
+    return pdf, truth, [extract_page_images(pdf, i)[0] for i in range(len(truth))]
+
+
+def _timed_forwards(engine) -> list:
+    """Wrap ``engine._forward``: each model forward appends (its model's
+    name, its CUDA-event span in ms) to the returned list."""
+    forward, spans = engine._forward, []
+    names = {id(engine.bundle.det): "det", id(engine.bundle.cls): "cls", id(engine.bundle.rec): "rec"}
+
+    def timed(model, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(model, batch)
+        end.record()
+        end.synchronize()
+        spans.append((names[id(model)], start.elapsed_time(end)))
+        return out
+
+    engine._forward = timed
+    return spans
+
+
+def _ocr_card_and_cpu(state: dict, images, truth, det_limit: int) -> dict:
+    """The shipped weights on the card and on the CPU over every page: per
+    page wall s, ``elapse``, the forwards' CUDA-event span, the host time
+    besides and the forwards; exact and fuzzy rates as
+    ``evaluate_on_invoices`` scores them; the card's texts must equal the
+    CPU's page by page."""
+    from intool_rag_tpu_torch.ocr.eval import score_page
+    from intool_rag_tpu_torch.ocr.models import OCRModelBundle
+    from intool_rag_tpu_torch.ocr.pipeline import DEFAULT_WEIGHTS, OCREngine
+
+    card = OCREngine(OCRModelBundle.load(DEFAULT_WEIGHTS), device=DEVICE, det_limit=det_limit)
+    cpu = OCREngine(OCRModelBundle.load(DEFAULT_WEIGHTS), device="cpu", det_limit=det_limit)
+    card(images[0])  # first call: cuDNN set-up, the bigram LM and the lexicon tables
+    spans = _timed_forwards(card)
+    pages, scores, mismatched = [], [], []
+    for i, (img, gt) in enumerate(zip(images, truth)):
+        del spans[:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(img)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = cpu(img)
+        cpu_s = time.perf_counter() - t0
+        span = sum(ms for _, ms in spans)
+        forwards = {m: sum(1 for n, _ in spans if n == m) for m in ("det", "cls", "rec")}
+        pages.append({"page": i, "s": wall, "elapse": got.elapse, "forward_span_ms": span,
+                      "host_ms": 1000 * wall - span, "forwards": forwards, "lines": len(got.lines),
+                      "cpu_s": cpu_s})
+        scores.append(score_page(got.lines, gt))
+        if [ln.text for ln in got.lines] != [ln.text for ln in want.lines]:
+            mismatched.append(i)
+            log(f"phase 10 det_limit {det_limit} page {i}: the card's lines differ from the CPU's\n"
+                f"  card: {[ln.text for ln in got.lines]}\n  cpu:  {[ln.text for ln in want.lines]}")
+    total = sum(sc["lines"] for sc in scores)
+    wall = [p["s"] for p in pages]
+    out = {
+        "det_limit": det_limit, "pages": pages, "s_per_page": float(np.mean(wall)),
+        "forward_span_share": sum(p["forward_span_ms"] for p in pages) / (1000 * sum(wall)),
+        "exact_rate": sum(sc["exact"] for sc in scores) / total,
+        "fuzzy_rate": sum(sc["fuzzy_sum"] for sc in scores) / total,
+        "spurious_rate": sum(sc["spurious"] for sc in scores) / max(1, sum(sc["emitted"] for sc in scores)),
+        "gt_lines": total, "pages_equal_to_cpu": len(images) - len(mismatched),
+        "cudnn_allow_tf32_process": torch.backends.cudnn.allow_tf32, "card": card_line(),
+    }
+    log(f"phase 10 OCR on the card, det_limit {det_limit}: {json.dumps(out)}")
+    if mismatched:
+        raise AssertionError(f"phase 10 det_limit {det_limit}: pages {mismatched} read differently on the card")
+    state.setdefault("scan_engines", {})[det_limit] = card
+    return out
+
+
+def _tf32_reading(engine, image) -> dict:
+    """One page's forwards timed with cuDNN's TF32 off (the engine's
+    setting) and on: a reading for later work, not used."""
+    batches = []
+    forward = engine._forward
+
+    def recording(model, batch):
+        batches.append((model, torch.from_numpy(batch).to(DEVICE)))
+        return forward(model, batch)
+
+    engine._forward = recording
+    engine(image)
+    engine._forward = forward
+    out = {"forwards": len(batches)}
+    for tf32 in (False, True):
+        def run():
+            with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                for model, x in batches:
+                    model(x)
+        out["tf32" if tf32 else "f32"] = cuda_ms(run, iters=5)
+    return out
+
+
+def _scanned_ingest(state: dict, pdf: bytes, n_pages: int) -> dict:
+    """``POST /ingest`` of the scanned PDF on the default configuration
+    (``OCR_ENABLED`` unset) over an ``encoder_mid`` store; every page must
+    come back OCR'd and non-empty, then ``/search`` for one recognised line
+    of each page must find that page in the top 5 through K1."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.ingest import loader
+    from intool_rag_tpu_torch.llm.semantic import factory as semantic
+    from intool_rag_tpu_torch.ocr.pdf_ocr import PDFOCRBridge
+    from intool_rag_tpu_torch.ops import flat_fused
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    saved = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(state["environ"])  # the default configuration: no setting of an earlier phase
+    os.environ.pop("OCR_ENABLED", None)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scan_")
+    os.environ.update({"STORAGE_DIR": os.path.join(tmp.name, "storage"), "CACHE_DIR": os.path.join(tmp.name, "cache"),
+                       "EMBEDDING_QUERY_INSTRUCTION": ""})  # encoder_mid was trained without one
+    config.reset_config()
+    semantic.reset_semantic_analyzer()
+    provider = CudaEmbeddingProvider(checkpoint=str(ENCODER_MID), device=DEVICE)
+    service = RAGService(provider, device=DEVICE)
+    if not config.get_config().OCR_ENABLED or not isinstance(loader._ocr_engine, PDFOCRBridge):
+        raise AssertionError("phase 10: the default configuration did not register the OCR fallback")
+    pages: list = []
+    load = service.pipeline.loader.load
+
+    def recording(path):
+        out = load(path)
+        pages.extend(out)
+        return out
+
+    service.pipeline.loader.load = recording
+    server = ServiceServer(service, host="127.0.0.1", port=0)
+    server.start_background()
+    plain_k1, orig_k1 = _counting(flat_fused, "partial_topk_reference")
+    plain_k2, orig_k2 = _counting(flat_fused, "partial_topk_int8_reference")
+    try:
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_launches()
+        t0 = time.perf_counter()
+        ingest = _upload(server.port, "scans", "scan", "scanned_invoices.pdf", pdf)
+        ingest_s = time.perf_counter() - t0
+        empty = [p.page for p in pages if not (p.has_ocr and p.raw_content.strip())]
+        if ingest["total_pages"] != n_pages or len(pages) != n_pages or empty:
+            raise AssertionError(f"phase 10: /ingest gave {ingest}; pages without OCR text: {empty}")
+        texts = [p.raw_content for p in pages]
+        found, queries = [], []
+        for p in pages:  # each page's longest line that no other page holds
+            lines = [ln.strip("| ") for ln in p.raw_content.splitlines()]
+            own = [ln for ln in lines if ln and not any(ln in t for j, t in enumerate(texts) if j != p.page)]
+            query = max(own or lines, key=len)
+            hits = _http(server.port, "POST", "/search", json.dumps({"question": query}).encode(),
+                         "application/json")["hits"]
+            queries.append(query)
+            found.append(p.page + 1 in [h["page"] for h in hits[:5]])  # /search numbers pages from 1
+        launches, plain_calls = _launches(), plain_k1["calls"] + plain_k2["calls"]
+    finally:
+        flat_fused.partial_topk_reference, flat_fused.partial_topk_int8_reference = orig_k1, orig_k2
+        server.shutdown()
+        service.tasks.shutdown()
+        tmp.cleanup()
+        os.environ.clear()
+        os.environ.update(saved)  # a later profiler window serves phase 9's service
+        config.reset_config()
+        semantic.reset_semantic_analyzer()
+    engine = loader._ocr_engine.engine
+    out = {"pages": n_pages, "ingest_wall_s": ingest_s, "s_per_page": ingest_s / n_pages,
+           "chunks": ingest["total_chunks"], "mean_confidence": float(np.mean([p.extraction_confidence for p in pages])),
+           "found_in_top5": sum(found), "launches": launches, "plain_calls": plain_calls,
+           "engine_device": str(engine.device), "det_limit": engine.det_limit, "card": card_line()}
+    log(f"phase 10 POST /ingest of the scanned PDF: {json.dumps(out)}")
+    if not all(found) or "K1 bf16 precise" not in launches or plain_calls or engine.device.type != "cuda":
+        missed = [q for q, f in zip(queries, found) if not f]
+        raise AssertionError(f"phase 10 /search: missed {missed}, launched {launches}, plain calls {plain_calls}")
+    for row in state.get("kernels", []):
+        row["launches_scanned"] = launches.get(row["name"], 0)
+    return out
+
+
+def phase_scanned(state: dict) -> None:
+    """Phase 10: the OCR fallback. The shipped det / cls / rec on the card
+    against the CPU over the committed scanned fixture, then ``POST
+    /ingest`` of it through the service on the default configuration."""
+    torch.cuda.empty_cache()
+    pdf, truth, images = _scan_pages()
+    runs = [_ocr_card_and_cpu(state, images, truth, lim) for lim in SCAN_DET_LIMITS]
+    tf32 = _tf32_reading(state["scan_engines"][SCAN_DET_LIMITS[0]], images[1])
+    log(f"phase 10 one page's forwards, cuDNN TF32 off / on (a reading, not used): {json.dumps(tf32)}")
+    ingest = _scanned_ingest(state, pdf, len(truth))
+    state["scanned"] = {"ocr": runs, "tf32_reading_ms": tf32, "ingest": ingest}
+    state["scan_profile_page"] = images[1]
+
+
+def scanned_busy_share(state: dict) -> None:
+    """The device's busy share of one page (det_limit 1280) from
+    ``torch.profiler``, against the page's unprofiled wall time."""
+    engine = state.pop("scan_engines")[SCAN_DET_LIMITS[0]]
+    image = state.pop("scan_profile_page")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine(image)
+    wall_ms = 1000 * (time.perf_counter() - t0)
+    kernels = _profiled_kernels(lambda: engine(image))
+    busy = sum(ms for _, ms, _ in kernels)
+    profile = ("not measured: torch.profiler reported no device time" if not kernels else
+               {"page_wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                "kernel_launches": sum(c for _, _, c in kernels),
+                "top_kernels": [{"name": n[:48], "ms": ms, "calls": c}
+                                for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:6]],
+                "card": card_line()})
+    state["scanned"]["profile"] = profile
+    log(f"phase 10 one page under torch.profiler: {json.dumps(profile)}")
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
-          6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served}
+          6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     phases = [int(p) for p in args.phases.split(",")]
-    state: dict = {"phases": phases}
+    state: dict = {"phases": phases, "environ": dict(os.environ)}
     for p in phases:
         t0 = time.perf_counter()
         PHASES[p](state)
@@ -3746,6 +3994,8 @@ def main(argv: list[str] | None = None) -> int:
         scale_busy_share(state)
     if "decode_llm" in state:
         decode_busy_share(state)
+    if "scan_engines" in state:
+        scanned_busy_share(state)
     if "served_trace" in state:
         served_trace(state)
     if "kernels" in state:

@@ -35,6 +35,10 @@ def _field(fn):
     return dataclasses.field(default_factory=fn)
 
 
+# the shipped OCR weights: the JAX package's artifact, read as data
+OCR_DEFAULT_WEIGHTS = Path(__file__).resolve().parents[1] / "intool_rag_tpu" / "ocr" / "weights" / "default.npz"
+
+
 @dataclasses.dataclass
 class Config:
     """Runtime configuration; every field has an env-var override."""
@@ -145,6 +149,11 @@ class Config:
     BM25_K1: float = _field(lambda: _env_float("BM25_K1", 1.5))
     BM25_B: float = _field(lambda: _env_float("BM25_B", 0.75))
     BM25_MAX_QUERY_TERMS: int = _field(lambda: _env_int("BM25_MAX_QUERY_TERMS", 32))
+
+    # --- OCR fallback for scanned PDF pages ---
+    # on exactly when the shipped weights exist, as in the JAX package:
+    # without trained weights the recognizer would emit noise
+    OCR_ENABLED: bool = _field(lambda: _env_bool("OCR_ENABLED", OCR_DEFAULT_WEIGHTS.exists()))
 
     # --- Serving ---
     SERVICE_HOST: str = _field(lambda: _env_str("SERVICE_HOST", "0.0.0.0"))

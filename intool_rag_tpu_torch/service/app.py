@@ -28,9 +28,11 @@ from ..backend import ensure_backend
 from ..config import get_config
 from ..exceptions import IndexNotFoundError, RAGError
 from ..index.registry import CorpusRegistry
+from ..ingest.loader import register_ocr_engine
 from ..ingest.pipeline import IngestionPipeline
 from ..llm.factory import get_llm
 from ..llm.reranker_factory import get_reranker
+from ..ocr.pdf_ocr import PDFOCRBridge
 from ..observability import Metrics, get_metrics, start_device_trace, stop_device_trace, trace_phase
 from ..query.response import build_rag_prompt, create_page_aware_response
 from ..query.retriever import PageLevelRetriever
@@ -67,7 +69,10 @@ class RAGService:
     answers ``/query``; left out, the LLM factory's, built on the first
     query. With ``CACHE_QUERY_RESULTS``, answers are cached on disk under
     ``CACHE_DIR``, keyed by question, project, parameters and corpus
-    version. The service's own :class:`..observability.Metrics` count its
+    version. With ``OCR_ENABLED`` (on when the shipped OCR weights exist)
+    the pages of an uploaded PDF that have no text layer are read by the
+    OCR fallback on the registry's device. The service's own
+    :class:`..observability.Metrics` count its
     requests and time its phases; ``GET /metrics`` adds the process-global
     ones (the LLM's wave server reports there)."""
 
@@ -76,6 +81,8 @@ class RAGService:
         logger.info("compute backend: %s", ensure_backend(registry.device if registry is not None else device))
         self.registry = registry or CorpusRegistry(device=device)
         self.registry.load_all()
+        # the scanned-page fallback; its engine is built on the first scanned page
+        register_ocr_engine(PDFOCRBridge(device=self.registry.device) if get_config().OCR_ENABLED else None)
         self.pipeline = IngestionPipeline(provider, storage=self.registry.storage, device=self.registry.device)
         if provider is None:
             from ..llm.embeddings.factory import get_embedding_provider

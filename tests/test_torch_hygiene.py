@@ -57,7 +57,9 @@ def test_new_modules_are_covered():
             "models/decoder.py", "providers/cuda_llm.py", "providers/fake.py", "llm/factory.py",
             "core/container.py", "storage/cache.py", "query/context.py", "query/prompts.py",
             "query/response.py", "observability.py", "backend.py", "agent/__init__.py", "agent/state.py",
-            "agent/steps.py", "agent/orchestrator.py", "models/scheduler.py"} <= names
+            "agent/steps.py", "agent/orchestrator.py", "models/scheduler.py", "ocr/__init__.py",
+            "ocr/wordlist.py", "ocr/postprocess.py", "ocr/synth.py", "ocr/rescore.py", "ocr/models.py",
+            "ocr/pipeline.py", "ocr/utils.py", "ocr/pdf_ocr.py", "ocr/eval.py", "ingest/rasterize.py"} <= names
     kernel_dir = ROOT / "intool_rag_tpu_torch" / "kernels"
     kernels = {p.name for p in kernel_dir.glob("*.cu")}
     assert {"flash_attention.cu", "flash_attention_bwd.cu"} <= kernels
@@ -94,6 +96,36 @@ def test_only_the_factory_imports_transformers_and_only_lazily():
         if "transformers" in set(_imported_roots(path)):
             assert path.is_relative_to(package), path
             assert str(path.relative_to(package)) in TRANSFORMERS_IMPORTERS, path
+
+
+def test_service_and_ocr_path_load_without_pil_or_fonttools():
+    """Neither PIL nor fontTools is on the card's machine: with both
+    blocked, the service, ``ocr.pipeline`` and ``ocr.pdf_ocr`` import, the
+    shipped bundle loads, and a scanned page of the committed fixture is
+    read through the bridge (the charset and the LM from the committed
+    homoglyph tables, no glyph rendered)."""
+    import subprocess
+    import sys
+
+    code = """
+import sys
+sys.modules["PIL"] = None
+sys.modules["fontTools"] = None
+import intool_rag_tpu_torch.service.app
+from intool_rag_tpu_torch.ocr import pipeline, synth
+from intool_rag_tpu_torch.ocr.pdf_ocr import PDFOCRBridge
+bundle = pipeline.OCRModelBundle.load(pipeline.DEFAULT_WEIGHTS)
+assert len(bundle.charset) == 204 and pipeline.DEFAULT_CHARSET == synth.build_charset()
+pdf, truth = synth.load_scanned_fixture()
+text, conf = PDFOCRBridge(device="cpu").extract_page(pdf, 0)
+assert text.strip() and conf > 0.5, (text, conf)
+try:
+    synth.render_line("x")
+except ImportError:
+    print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]
 
 
 def test_resolve_device_raises_without_cuda():
