@@ -4,7 +4,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``--phases 1,2`` runs a subset (``1,2,5`` for the capacity tier alone,
 ``1,2,6`` for ingest alone, ``1,2,7`` for training alone, ``1,8`` for
 ``/query`` alone, ``1,9`` for the rest of the served surface alone,
-``1,10`` for the OCR fallback alone). Phases:
+``1,10`` for the OCR fallback alone, ``1,11`` for the capacity tiers
+alone, ``1,12`` for the trainers alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -207,6 +208,48 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
    called; the ingest wall s and s per page. After the last phase, one
    page under ``torch.profiler`` gives the device's busy share. The kernel
    table's rows gain ``launches_scanned``.
+11. capacity tiers: phase 5's 3,000,000 x d1024 micro-cluster corpus
+   (whole on the card in f32), its queries and its streamed exact-f32
+   oracle. Built in turn and freed before the next: ``IVFFlatIndex`` in
+   bf16, ``IVFResidualIndex`` with int4 and with sign codes (each with the
+   host int8 refine tier), nlist 4,096, and ``SegmentedResidualIndex``
+   (sign codes, refine tier, k-means on the first 500,000 rows, six
+   appends of 500,000, as ``benchmarks/bench_segmented.py``). Per tier:
+   build s and k-means s apart, rows/s appended (segmented), bytes a row
+   on the card and on the host, ``cap`` and the overflow, and at nprobe
+   8 / 16 / 32 the QPS of batches of 256 (k 10 of a refined pool of 100),
+   the device pass and the host refine apart, the peak memory of a batch
+   and the size of the gathered ``[32, nprobe·cap, 1024]`` f32 rows.
+   Recall@10 against the oracle must reach 0.95 at nprobe 16 on every
+   tier; each tier built from 2,048 rows on the card and on the CPU (the
+   card's k-means handed to both) must give the same top-10 (rows as sets
+   where scores tie, scores to 1e-4). Then ``INDEX_KIND=segmented``
+   behind the HTTP service over 6,000 ``encoder_mid`` chunks: the first
+   ``/search`` builds the tier on the card, ``POST /ingest`` of a new
+   document appends a segment to the SAME index and the document is found
+   (each new chunk's own vector finds it through the tier alone),
+   ``DELETE`` rebuilds. No K1-K5 launch and no plain version anywhere in
+   the phase; the kernel table's rows gain ``launches_capacity_tiers``.
+12. training: ``lm_train.make_train_step`` at TinyLlama width (22 x 2048,
+   f32 master weights, bf16 compute, seeded init, Adam, clip 1.0), four
+   steps on one batch of 4 x S 512 of the copy task at vocabulary 32,000:
+   losses finite and falling, step ms, tokens/s, peak memory, and after
+   the last phase its device busy share and launches a step from
+   ``torch.profiler``. One step of a 2-layer f32 decoder on the card
+   against the CPU (loss rtol 1e-5, gradient cosine >= 0.99999 per
+   tensor). The JAX scheduler's two acceptance tests on the card, from
+   their initial weights (``lm_train.SPEC_INIT``): ``train_copy_lm`` (700
+   steps) and ``train_rag_qa_lm`` (800 steps), then ``ContinuousGenerator``
+   plain against prompt-lookup waves (gamma 4, window 64) with the JAX
+   bars (loss ratio, quote rate, equal tokens, tokens a wave >= 2.0 and
+   1.5). The OCR trainers' step stages on the committed fixture
+   (``ocr/fixtures/ocr_train.npz.xz``): the JAX digits test's 250 batches
+   from scratch (last loss < 0.2 x first, 2 of 3 test strings read), the
+   cached recognizer's step stage from the shipped rec weights (200
+   steps), the detector at width 16 on the 16 pages (20 steps, falling),
+   the cached classifier (100 steps: optax's schedule needs more steps
+   than its 50 of warm-up). No K1-K5 launch and no plain version; the
+   kernel table's rows gain ``launches_training``.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -1187,7 +1230,7 @@ def _word_corpus(rng: np.random.Generator):
     return vocab, texts
 
 
-def _write_storage(storage_dir: Path, texts: list[str], provider) -> None:
+def _write_storage(storage_dir: Path, texts: list[str], provider, n_docs: int = N_SERVICE_DOCS) -> None:
     from intool_rag_tpu_torch.ingest.schemas import (
         Chunk, ChunksIndex, NodeLevel, PageIndex, SemanticNode, VectorMeta, make_chunk_id,
     )
@@ -1197,7 +1240,7 @@ def _write_storage(storage_dir: Path, texts: list[str], provider) -> None:
     t0 = time.perf_counter()
     emb = provider.embed_batch(texts, is_query=False)
     log(f"embedded {len(texts)} chunks with encoder_mid in {time.perf_counter() - t0:.1f} s")
-    for d in range(N_SERVICE_DOCS):
+    for d in range(n_docs):
         doc_id = f"doc{d:03d}"
         rows = range(d * CHUNKS_PER_DOC, (d + 1) * CHUNKS_PER_DOC)
         pages = [i * 25 // CHUNKS_PER_DOC for i in range(CHUNKS_PER_DOC)]
@@ -1759,6 +1802,31 @@ def micro_chunk(seed: int, centers: torch.Tensor, rows: int) -> torch.Tensor:
     return out / out.norm(dim=1, keepdim=True)
 
 
+def _capacity_queries(centers: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor, np.ndarray]:
+    """The capacity runs' queries and oracle: 4 sets of ``Q_SCALE``
+    perturbed copies of the first rows of chunk 3 (the last set for
+    warm-up), and the exact-f32 top-``TOP_K`` of the first ``ORACLE_Q``
+    queries of set 0, streamed over the chunks regenerated from their
+    seeds. Returns ``(sets, oracle queries, oracle rows)``."""
+    dev, d = centers.device, centers.shape[1]
+    q_src = micro_chunk(1 + 3, centers, CAP_CHUNK)[:Q_SCALE]
+    noise = 0.1 * 0.35 / math.sqrt(d)
+    qs = []
+    for i in range(4):
+        qgen = torch.Generator(device=dev).manual_seed(100 + i)
+        qn = q_src + noise * torch.randn((Q_SCALE, d), generator=qgen, device=dev)
+        qs.append(qn / qn.norm(dim=1, keepdim=True))
+    q_sub = qs[0][:ORACLE_Q]
+    best_v = torch.full((ORACLE_Q, TOP_K), float("-inf"), device=dev)
+    best_i = torch.full((ORACLE_Q, TOP_K), -1, dtype=torch.long, device=dev)
+    for c in range(CAP_ROWS // CAP_CHUNK):
+        v, p = torch.topk(q_sub @ micro_chunk(1 + c, centers, CAP_CHUNK).T, TOP_K, dim=1)
+        mv, mi = torch.cat([best_v, v], dim=1), torch.cat([best_i, p + c * CAP_CHUNK], dim=1)
+        best_v, pos = torch.topk(mv, TOP_K, dim=1)
+        best_i = torch.gather(mi, 1, pos)
+    return qs, q_sub, best_i.cpu().numpy()
+
+
 def _recall(got: np.ndarray, oracle: np.ndarray) -> float:
     return sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got, oracle)) / oracle.size
 
@@ -1840,13 +1908,8 @@ def phase_capacity(state: dict) -> None:
     if index.blocks_per_list != 13:
         raise AssertionError(f"phase 5: {index.blocks_per_list} blocks per list, expected 13")
     t0 = time.perf_counter()
-    q_src = None
     for c in range(n_chunks):
-        chunk = micro_chunk(1 + c, centers, CAP_CHUNK)
-        index.append(chunk)
-        if c == 3:
-            q_src = chunk[:Q_SCALE].clone()
-        del chunk
+        index.append(micro_chunk(1 + c, centers, CAP_CHUNK))
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     once = {
@@ -1857,23 +1920,7 @@ def phase_capacity(state: dict) -> None:
     }
     log(f"phase 5 ingest: {json.dumps(once)}")
 
-    # queries: perturbed copies of known rows; 4 sets, the last for warm-up
-    noise = 0.1 * 0.35 / math.sqrt(d)
-    qs = []
-    for i in range(4):
-        qgen = torch.Generator(device=dev).manual_seed(100 + i)
-        qn = q_src + noise * torch.randn((Q_SCALE, d), generator=qgen, device=dev)
-        qs.append(qn / qn.norm(dim=1, keepdim=True))
-    # streamed exact-f32 oracle on ORACLE_Q queries, chunks regenerated from their seeds
-    q_sub = qs[0][:ORACLE_Q]
-    best_v = torch.full((ORACLE_Q, TOP_K), float("-inf"), device=dev)
-    best_i = torch.full((ORACLE_Q, TOP_K), -1, dtype=torch.long, device=dev)
-    for c in range(n_chunks):
-        v, p = torch.topk(q_sub @ micro_chunk(1 + c, centers, CAP_CHUNK).T, TOP_K, dim=1)
-        mv, mi = torch.cat([best_v, v], dim=1), torch.cat([best_i, p + c * CAP_CHUNK], dim=1)
-        best_v, pos = torch.topk(mv, TOP_K, dim=1)
-        best_i = torch.gather(mi, 1, pos)
-    oracle = best_i.cpu().numpy()
+    qs, q_sub, oracle = _capacity_queries(centers)
 
     def search(qv, k, nprobe, refine_k):
         return index.search(qv, k, nprobe=nprobe, refine_k=refine_k, group_l=CAP_GROUP)
@@ -3972,13 +4019,587 @@ def scanned_busy_share(state: dict) -> None:
     log(f"phase 10 one page under torch.profiler: {json.dumps(profile)}")
 
 
+# ------------------------------------------------------------------ phase 11
+
+TIER_NLIST, TIER_NPROBES, TIER_SEG_ROWS = 4096, (8, 16, 32), 500_000
+TIER_QUERY_CHUNK, TIER_SLICE = 32, 2048
+TIER_SERVICE_DOCS = 24  # 6,000 chunks of phase 3's corpus: above the tiers' 4,096-row floor
+PLAIN_VERSIONS = (("flat_fused", "partial_topk_reference"), ("flat_fused", "partial_topk_int8_reference"),
+                  ("bits_scan", "bits_scan_reference"), ("quant", "quantize_int8_stochastic_reference"))
+
+
+class _NoKernelOrPlain:
+    """Over a block: every K1-K5 launch count set to 0 before and read
+    after, and every plain version's calls counted; the block fails if any
+    kernel launched or any plain version ran (the capacity tiers and the
+    trainers have no TPU kernel: plain PyTorch on the card)."""
+
+    def __init__(self, label: str) -> None:
+        self.label = label
+
+    def __enter__(self):
+        import importlib
+
+        from intool_rag_tpu_torch.ops.flash_attention import flash_attention_backward_plain, flash_attention_plain
+
+        self.flash = (flash_attention_plain, flash_attention_backward_plain)
+        self.boxes = []
+        for mod, name in PLAIN_VERSIONS:
+            module = importlib.import_module(f"intool_rag_tpu_torch.ops.{mod}")
+            self.boxes.append((module, name, *_counting(module, name)))
+        for fn in self.flash:
+            fn.calls.reset()
+        _reset_launches()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for module, name, _, original in self.boxes:
+            setattr(module, name, original)
+        self.launches = _launches()
+        self.plain_calls = sum(box["calls"] for _, _, box, _ in self.boxes) + sum(f.calls.count for f in self.flash)
+        if exc[0] is None and (sum(self.launches.values()) or self.plain_calls):
+            raise AssertionError(f"{self.label}: launched {self.launches}, plain versions called "
+                                 f"{self.plain_calls} times; expected neither")
+
+
+class _KmeansClock:
+    """Times the k-means a tier module's build calls (synchronised)."""
+
+    def __init__(self, module) -> None:
+        self.module, self.seconds = module, 0.0
+
+    def __enter__(self):
+        self.original = self.module.kmeans
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.original(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        self.module.kmeans = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.kmeans = self.original
+
+
+def _tier_corpus(centers: torch.Tensor) -> torch.Tensor:
+    """Phase 5's 3M x d1024 corpus, whole on the card (f32, 12.3 GB): the
+    JAX builds gather the corpus in f32 too."""
+    out = torch.empty((CAP_ROWS, centers.shape[1]), dtype=torch.float32, device=centers.device)
+    for c in range(CAP_ROWS // CAP_CHUNK):
+        out[c * CAP_CHUNK : (c + 1) * CAP_CHUNK] = micro_chunk(1 + c, centers, CAP_CHUNK)
+    return out
+
+
+def _tier_bytes(index) -> tuple[int, int]:
+    """(bytes on the card, bytes on the host) of a capacity tier."""
+    if hasattr(index, "bytes_resident"):
+        return index.bytes_resident, index.bytes_host
+    arrays = (index.permuted, index.centroids, index.row_map, index.list_start, index.list_len)
+    return sum(a.numel() * a.element_size() for a in arrays), 0
+
+
+def _gather_sizes(cap: int) -> dict:
+    """MB of the f32 rows ``[32, nprobe·cap, 1024]`` a query chunk of the
+    JAX design gathers, and what a chunk gathers here (the chunk cut by
+    ``ivf_residual.bounded_chunk``), at each nprobe; with the cut chunks."""
+    from intool_rag_tpu_torch.index.ivf_residual import bounded_chunk
+
+    out = {"jax_gather_mb": {}, "gather_mb": {}, "query_chunk": {}}
+    for p in TIER_NPROBES:
+        chunk = bounded_chunk(TIER_QUERY_CHUNK, p * cap, DIM)
+        out["jax_gather_mb"][p] = TIER_QUERY_CHUNK * p * cap * DIM * 4 / 1e6
+        out["gather_mb"][p] = chunk * p * cap * DIM * 4 / 1e6
+        out["query_chunk"][p] = chunk
+    return out
+
+
+def _tier_search_runs(name: str, index, qs, q_sub, oracle, refine: bool) -> dict:
+    """QPS at each nprobe (a batch of Q_SCALE, two batches after a
+    warm-up), one more batch split into the device pass (the pool of
+    CAP_POOL) and the host refine; recall@10 against the oracle; peak
+    memory of a batch above what the corpus and the index hold."""
+    from intool_rag_tpu_torch.index.bits_index import refine_from_host
+
+    kw = {"refine_k": CAP_POOL} if refine else {}
+    k_dev = CAP_POOL if refine else TOP_K
+    out = {}
+    for nprobe in TIER_NPROBES:
+        search = lambda qv, k=TOP_K, **extra: index.search(qv, k, nprobe=nprobe, query_chunk=TIER_QUERY_CHUNK,
+                                                           **{**kw, **extra})
+        search(qs[3])  # warm-up: allocations, the host tier's concat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for qv in qs[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search(qv)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        # the same batch again, the device pass (its pool) and the host refine apart
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pool = index.search(qs[0], k_dev, nprobe=nprobe, query_chunk=TIER_QUERY_CHUNK)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if refine:
+            host = (index._host_cat if getattr(index, "_host_cat", None) is not None
+                    else (index.host_int8, index.host_scale8))
+            refine_from_host(qs[0], pool, TOP_K, *host)
+            torch.cuda.synchronize()
+        device_ms, refine_ms = [1000 * (t1 - t0)], [1000 * (time.perf_counter() - t1)]
+        vals, rows = search(q_sub)
+        if not (torch.isfinite(vals).all() and tuple(rows.shape) == (ORACLE_Q, TOP_K)):
+            raise AssertionError(f"phase 11 {name} nprobe {nprobe}: malformed result")
+        out[nprobe] = {
+            "qps_mean": Q_SCALE / float(np.mean(times)), "qps_runs": [Q_SCALE / t for t in times],
+            "ms_per_batch": 1000 * float(np.mean(times)), "device_pass_ms": float(np.mean(device_ms)),
+            "host_refine_ms": float(np.mean(refine_ms)) if refine else None,
+            "recall@10": _recall(rows.cpu().numpy(), oracle), "peak_mb": peak_mb,
+        }
+    return out
+
+
+def _tier_card_vs_cpu(name: str, build, corpus: torch.Tensor, queries: torch.Tensor, module) -> float:
+    """The tier built from the first TIER_SLICE rows on the card and on the
+    CPU from the same k-means (the card's, handed to the CPU build): top-10
+    rows equal as sets where scores tie, scores to 1e-4. Returns the
+    largest score difference."""
+    rows = corpus[:TIER_SLICE]
+    original = module.kmeans
+    fixed = {}
+
+    def once(points, k, **kw):
+        if "out" not in fixed:
+            fixed["out"] = tuple(t.cpu() for t in original(points, k, **kw))
+        return tuple(t.to(points.device) for t in fixed["out"])
+
+    module.kmeans = once
+    try:
+        card, cpu = build(rows, torch.device(DEVICE)), build(rows.cpu(), torch.device("cpu"))
+    finally:
+        module.kmeans = original
+    qv = queries[:64]
+    gv, gr = (t.cpu().numpy() for t in card.search(qv, TOP_K, nprobe=16))
+    wv, wr = (t.numpy() for t in cpu.search(qv.cpu(), TOP_K, nprobe=16))
+    err = float(np.abs(gv - wv).max())
+    if err > 1e-4:
+        raise AssertionError(f"phase 11 {name}: card scores {err} from the CPU's")
+    for a, b, v in zip(gr, wr, wv):
+        for i in np.flatnonzero(a != b):
+            tie = np.abs(v - v[i]) <= 1e-4
+            if not tie[-1] and set(a[tie]) != set(b[tie]):
+                raise AssertionError(f"phase 11 {name}: card rows {a} against the CPU's {b}")
+    return err
+
+
+def _tier_service(state: dict) -> dict:
+    """``INDEX_KIND=segmented`` behind the HTTP service over 6,000
+    ``encoder_mid`` chunks: the first ``/search`` builds the tier; ``POST
+    /ingest`` of a new document appends a segment to the SAME index, and
+    its quote is found (through the tier alone too); ``DELETE`` rebuilds."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.index.segmented_residual import SegmentedResidualIndex
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    rng = np.random.default_rng(11)
+    vocab, texts = _word_corpus(np.random.default_rng(1))
+    texts = texts[: TIER_SERVICE_DOCS * CHUNKS_PER_DOC]
+    new_doc = [" ".join(rng.choice(vocab[:5000], size=40)) + "." for _ in range(12)]
+    saved = dict(os.environ)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tiers_")
+    os.environ.update({"STORAGE_DIR": tmp.name, "CACHE_DIR": os.path.join(tmp.name, "cache"), "INDEX_KIND": "segmented",
+                       "IVF_RESIDUAL_BITS": "1", "IVF_REFINE_K": "100", "INDEX_DTYPE": "bfloat16",
+                       "EMBEDDING_QUERY_INSTRUCTION": "", **QUERY_WEIGHTS})
+    config.reset_config()
+    provider = CudaEmbeddingProvider(checkpoint=str(ENCODER_MID), device=DEVICE)
+    _write_storage(Path(tmp.name), texts, provider, n_docs=TIER_SERVICE_DOCS)
+    service = RAGService(provider, device=DEVICE)
+    server = ServiceServer(service, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        with _NoKernelOrPlain("phase 11 service"):
+            search = lambda q: _http(server.port, "POST", "/search", json.dumps({"question": q}).encode(),
+                                     "application/json")["hits"]
+            t0 = time.perf_counter()
+            first = search(texts[123])
+            first_s = time.perf_counter() - t0
+            dense = service.registry.engine.dense
+            tier = dense._ivf
+            if not isinstance(tier, SegmentedResidualIndex) or dense.routes_flat() or tier.device.type != DEVICE:
+                raise AssertionError(f"phase 11 service: /search did not build a segmented tier on the card ({tier})")
+            before = (tier.n_segments, tier.total_rows)
+            t0 = time.perf_counter()
+            ingest = _upload(server.port, "tiers", "fresh", "fresh.txt", "\n\n".join(new_doc).encode())
+            ingest_s = time.perf_counter() - t0
+            quote = new_doc[5]
+            hits = search(quote)
+            after_tier = service.registry.engine.dense._ivf
+            store = service.registry.store
+            if after_tier is not tier or tier.n_segments <= before[0] or tier.total_rows != len(store):
+                raise AssertionError(f"phase 11 service: ingest did not append to the same tier "
+                                     f"({before} -> {tier.n_segments, tier.total_rows})")
+            # the appended rows are searchable through the tier alone: each new
+            # chunk's own stored vector finds that chunk first
+            new_rows = store.rows_for_doc("fresh")
+            _, dense_rows = service.registry.engine.dense.search(store.embeddings[new_rows], 1)
+            if "fresh" not in [h["doc_id"] for h in hits[:5]] or dense_rows[:, 0].tolist() != new_rows:
+                raise AssertionError(f"phase 11 service: the new document was not found ({hits[:5]}; "
+                                     f"tier top-1 {dense_rows[:, 0].tolist()} for rows {new_rows})")
+            _http(server.port, "DELETE", "/documents/fresh")
+            gone = search(quote)
+            rebuilt = service.registry.engine.dense._ivf
+            if rebuilt is tier or any(h["doc_id"] == "fresh" for h in gone):
+                raise AssertionError("phase 11 service: DELETE did not rebuild the tier")
+    finally:
+        server.shutdown()
+        service.tasks.shutdown()
+        tmp.cleanup()
+        os.environ.clear()
+        os.environ.update(saved)
+        config.reset_config()
+    return {"chunks": len(texts), "first_search_s": first_s, "segments_before": before[0],
+            "segments_after_ingest": tier.n_segments, "ingest_s": ingest_s, "ingested_chunks": ingest["total_chunks"],
+            "found_in_top5": True, "rebuilt_segments": rebuilt.n_segments, "same_object_after_ingest": True,
+            "first_hit": first[0]["doc_id"] if first else None, "card": card_line()}
+
+
+def phase_tiers(state: dict) -> None:
+    """Phase 11: the capacity tiers at 3M x d1024 (phase 5's corpus,
+    queries and oracle), one at a time, then INDEX_KIND=segmented behind
+    the service."""
+    import intool_rag_tpu_torch.index.ivf_index as ivf_mod
+    import intool_rag_tpu_torch.index.ivf_residual as res_mod
+    import intool_rag_tpu_torch.index.segmented_residual as seg_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    centers = _unit(gen, (CAP_NLIST, DIM), dev)  # phase 5's topic centres
+    qs, q_sub, oracle = _capacity_queries(centers)
+    builds = {
+        "ivf bf16": (ivf_mod, False, lambda x, d: ivf_mod.IVFFlatIndex.build(x, TIER_NLIST, dtype=torch.bfloat16,
+                                                                              device=d)),
+        "ivf_residual int4": (res_mod, True, lambda x, d: res_mod.IVFResidualIndex.build(
+            x, TIER_NLIST, refine=True, bits=4, device=d)),
+        "ivf_residual int1": (res_mod, True, lambda x, d: res_mod.IVFResidualIndex.build(
+            x, TIER_NLIST, refine=True, bits=1, device=d)),
+    }
+    results = {}
+    with _NoKernelOrPlain("phase 11") as watch:
+        corpus = _tier_corpus(centers)
+        for name, (module, refine, build) in builds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _KmeansClock(module) as clock:
+                index = build(corpus, dev)
+                torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            card_b, host_b = _tier_bytes(index)
+            results[name] = {
+                "build_s": build_s, "kmeans_s": clock.seconds, "card_bytes_per_row": card_b / CAP_ROWS,
+                "host_bytes_per_row": host_b / CAP_ROWS, "card_mb": card_b / 1e6, "host_mb": host_b / 1e6,
+                "cap": index.cap, "overflow_len": index.overflow_len, **_gather_sizes(index.cap),
+                "by_nprobe": _tier_search_runs(name, index, qs, q_sub, oracle, refine),
+            }
+            del index
+            torch.cuda.empty_cache()
+            results[name]["card_vs_cpu_max_err"] = _tier_card_vs_cpu(name, build, corpus, qs[0], module)
+            log(f"phase 11 {name}: {json.dumps(results[name])}")
+        # the streaming tier: k-means on the first segment, six appends, as benchmarks/bench_segmented.py
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _KmeansClock(seg_mod) as clock:
+            index = seg_mod.SegmentedResidualIndex.train(corpus[:TIER_SEG_ROWS], TIER_NLIST, seg_rows=TIER_SEG_ROWS,
+                                                         bits=1, refine=True, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for start in range(0, CAP_ROWS, TIER_SEG_ROWS):
+            index.append(corpus[start : start + TIER_SEG_ROWS])
+        torch.cuda.synchronize()
+        append_s = time.perf_counter() - t0
+        card_b, host_b = _tier_bytes(index)
+        name = "segmented int1"
+        results[name] = {
+            "build_s": train_s + append_s, "kmeans_s": clock.seconds, "append_rows_per_s": CAP_ROWS / append_s,
+            "segments": index.n_segments, "store_capacity_segments": index._store[0].shape[0],
+            "card_bytes_per_row": card_b / CAP_ROWS, "host_bytes_per_row": host_b / CAP_ROWS,
+            "card_mb": card_b / 1e6, "host_mb": host_b / 1e6, "cap": index.cap, "max_overflow": index.max_overflow,
+            **_gather_sizes(index.cap),
+            "by_nprobe": _tier_search_runs(name, index, qs, q_sub, oracle, True),
+        }
+        centroids = index.centroids
+        del index
+        torch.cuda.empty_cache()
+        results[name]["card_vs_cpu_max_err"] = _tier_card_vs_cpu(
+            name, lambda x, d: _segmented_slice(seg_mod, centroids, x, d), corpus, qs[0], seg_mod)
+        log(f"phase 11 {name}: {json.dumps(results[name])}")
+        del corpus
+        torch.cuda.empty_cache()
+    low = {n: r["by_nprobe"][16]["recall@10"] for n, r in results.items() if r["by_nprobe"][16]["recall@10"] < 0.95}
+    if low:
+        raise AssertionError(f"phase 11: recall@10 at nprobe 16 below 0.95: {low}")
+    service = _tier_service(state)
+    log(f"phase 11 service, INDEX_KIND=segmented: {json.dumps(service)}")
+    state["tiers"] = {"by_tier": results, "service": service, "launches": watch.launches, "card": card_line()}
+    for row in state.get("kernels", []):
+        row["launches_capacity_tiers"] = watch.launches.get(row["name"], 0)
+
+
+def _segmented_slice(seg_mod, centroids: torch.Tensor, rows: torch.Tensor, device) -> object:
+    """A segmented tier over ``rows`` with the given centroids (the card's
+    run's), one segment."""
+    index = seg_mod.SegmentedResidualIndex(centroids.to(device), seg_rows=TIER_SLICE, bits=1, refine=True,
+                                           device=device)
+    index.append(rows)
+    return index
+
+
+# ------------------------------------------------------------------ phase 12
+
+LM_SEED, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 12, 4, 512, 4, 1e-4
+SPEC_CONFIG = dict(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2, intermediate_size=128,
+                   max_position=512, dtype="float32")
+OCR_DIGIT_STEPS, OCR_REC_STEPS, OCR_DET_STEPS, OCR_CLS_STEPS = 250, 200, 20, 100
+
+
+def _lm_full_width(state: dict, dev) -> dict:
+    """``make_train_step`` at TinyLlama width (22 x 2048, f32 master
+    weights, bf16 compute, seeded init, Adam): four steps on one fixed
+    batch of the copy task; losses finite and falling."""
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    from intool_rag_tpu_torch.models.lm_train import copy_task_batch, make_optimizer, make_train_step
+    from intool_rag_tpu_torch.train.contrastive import TrainState
+
+    cfg = DecoderConfig.tinyllama()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg, device=dev, param_dtype=torch.float32).init_random(
+        torch.Generator(device=dev).manual_seed(LM_SEED))
+    state_ = TrainState(model, *make_optimizer(model, LM_LR))
+    step = make_train_step(cfg, clip=1.0)
+    batch = torch.as_tensor(copy_task_batch(np.random.default_rng(LM_SEED), LM_BATCH, LM_SEQ, cfg.vocab_size),
+                            device=dev)
+    losses, times = [], []
+    for _ in range(LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state_, batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 12: full-width losses {losses} are not finite and falling")
+    step_ms = 1000 * float(np.mean(times[1:]))
+    out = {"config": "TinyLlama 22 x 2048, 32 heads over 4, MLP 5632, vocab 32000, f32 master, bf16 compute",
+           "batch": f"{LM_BATCH} x S {LM_SEQ}", "params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": step_ms, "step_ms_runs": [1000 * t for t in times],
+           "tokens_per_s": LM_BATCH * LM_SEQ / (step_ms / 1000), "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+           "card": card_line()}
+    state["lm_profile"] = (lambda: step(state_, batch), out)
+    return out
+
+
+def lm_busy_share(state: dict) -> None:
+    """The device's busy share of one full-width training step and its
+    launches, from ``torch.profiler`` (after every other timing)."""
+    fn, out = state.pop("lm_profile")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1000 * (time.perf_counter() - t0)
+    kernels = _profiled_kernels(fn)
+    busy = sum(ms for _, ms, _ in kernels)
+    out["profile"] = ("not measured: torch.profiler reported no device time" if not kernels else
+                      {"step_wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                       "launches_per_step": sum(c for _, _, c in kernels),
+                       "top_kernels": [{"name": n[:48], "ms": ms, "calls": c}
+                                       for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:6]]})
+    log(f"phase 12 one full-width step under torch.profiler: {json.dumps(out['profile'])}")
+
+
+def _lm_card_vs_cpu(dev) -> dict:
+    """One step's loss and gradients of a 2-layer f32 decoder, card against
+    CPU: loss rtol 1e-5, gradient cosine >= 0.99999 per tensor."""
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    from intool_rag_tpu_torch.models.lm_train import copy_task_batch, lm_loss
+
+    cfg = DecoderConfig(vocab_size=256, hidden_size=256, num_layers=2, num_heads=8, num_kv_heads=2,
+                        intermediate_size=512, max_position=256, dtype="float32")
+    init = DecoderLM(cfg, device="cpu", param_dtype=torch.float32).init_random(torch.Generator().manual_seed(3))
+    batch = torch.as_tensor(copy_task_batch(np.random.default_rng(3), 4, 128, cfg.vocab_size))
+    grads, losses = [], []
+    for d in (dev, torch.device("cpu")):
+        model = DecoderLM(cfg, device=d, param_dtype=torch.float32)
+        model.load_state_dict(init.state_dict())
+        loss = lm_loss(model, batch.to(d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.detach().cpu().double() for n, p in model.named_parameters()})
+    cos = min(float(torch.nn.functional.cosine_similarity(grads[0][n].flatten(), grads[1][n].flatten(), dim=0))
+              for n in grads[0] if grads[1][n].abs().max() > 0)
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    if rel > 1e-5 or cos < 0.99999:
+        raise AssertionError(f"phase 12: card against CPU loss rel {rel}, min gradient cosine {cos}")
+    return {"loss_card": losses[0], "loss_cpu": losses[1], "loss_rel_diff": rel, "min_grad_cosine": cos}
+
+
+def _spec_acceptance(task: str, dev) -> dict:
+    """The JAX scheduler's slow acceptance test on the card: train the
+    2-layer model from the JAX test's initial weights, then plain waves
+    against prompt-lookup waves (gamma 4, window 64) through
+    ``ContinuousGenerator``; the JAX test's bars."""
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig
+    from intool_rag_tpu_torch.models.lm_train import (
+        copy_task_batch, rag_qa_prompts, spec_init, train_copy_lm, train_rag_qa_lm,
+    )
+    from intool_rag_tpu_torch.models.scheduler import ContinuousGenerator
+
+    t0 = time.perf_counter()
+    if task == "copy":
+        cfg = DecoderConfig(vocab_size=64, **SPEC_CONFIG)
+        model, losses = train_copy_lm(cfg, steps=700, batch=32, seq=48, seed=0, init_params=spec_init("copy"),
+                                      device=dev)
+        prompts = [row.tolist() for row in copy_task_batch(np.random.default_rng(42), 6, 40, cfg.vocab_size)]
+        limits, slots, loss_bar, quote_bar, wave_bar = [24] * 6, 3, 0.35, 0.9, 2.0
+    else:
+        cfg = DecoderConfig(vocab_size=96, **SPEC_CONFIG)
+        model, losses = train_rag_qa_lm(cfg, steps=800, batch=32, seq=56, seed=0, n_fields=3, val_len=7,
+                                        init_params=spec_init("rag_qa"), device=dev)
+        prompts, _ = rag_qa_prompts(np.random.default_rng(123), 8, 96, n_fields=3, val_len=7)
+        limits, slots, loss_bar, quote_bar, wave_bar = [10] * 8, 4, 0.75, 0.8, 1.5
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = ContinuousGenerator(model, n_slots=slots, seg_len=4).generate_many(prompts, limits)
+    plain_s = time.perf_counter() - t0
+    quote = float(np.mean([np.isin(np.asarray(w), np.asarray(p)).mean() for w, p in zip(want, prompts)]))
+    t0 = time.perf_counter()
+    got, stats = ContinuousGenerator(model, n_slots=slots, seg_len=4, speculative_gamma=4,
+                                     lookup_window=64).generate_many(prompts, limits)
+    spec_s = time.perf_counter() - t0
+    out = {"train_s": train_s, "train_step_ms": 1000 * train_s / len(losses), "first_loss": losses[0],
+           "last_loss": losses[-1], "quote_rate": quote, "tokens_equal": got == want,
+           "tokens_per_wave": stats["tokens_per_wave"], "plain_s": plain_s, "speculative_s": spec_s}
+    if not (losses[-1] < loss_bar * losses[0] and quote >= quote_bar and got == want
+            and stats["tokens_per_wave"] >= wave_bar):
+        raise AssertionError(f"phase 12 {task}: below the JAX test's bars: {out}")
+    return out
+
+
+def _ocr_training(dev) -> dict:
+    """The OCR trainers' step stages on the committed fixture."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.ocr import train as ocr_train
+    from intool_rag_tpu_torch.ocr.models import DBDetector, OCRModelBundle, OrientationClassifier, make_recognizer
+    from intool_rag_tpu_torch.ocr.postprocess import ctc_greedy_decode
+
+    torch.backends.cudnn.allow_tf32 = False
+    fx = ocr_train.load_train_fixture()
+    out = {}
+
+    def seeded(fn, seed=0):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return fn().to(dev)
+
+    # digits from scratch: the JAX digits test's 250 batches
+    rec = seeded(lambda: make_recognizer("conv", 10, 32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = ocr_train.recognizer_steps(rec, fx["digit_batches"][:OCR_DIGIT_STEPS], blank=10)
+    digits_s = time.perf_counter() - t0
+    images = np.repeat(fx["digit_test"][..., None] / np.float32(255.0), 3, axis=3)
+    with torch.no_grad():
+        decoded = ctc_greedy_decode(rec(torch.as_tensor(images, device=dev)).cpu().numpy(), ocr_train.DIGITS)
+    correct = sum(got == want for (got, _), want in zip(decoded, ocr_train.DIGIT_TESTS))
+    out["digits"] = {"steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1], "read": correct,
+                     "decoded": [t for t, _ in decoded], "step_ms": 1000 * digits_s / len(losses)}
+    if not (losses[-1] < 0.2 * losses[0] and correct >= 2):
+        raise AssertionError(f"phase 12 digits: below the JAX test's bars: {out['digits']}")
+    # the cached recognizer's step stage from the shipped weights at their width
+    bundle = OCRModelBundle.load(config.OCR_DEFAULT_WEIGHTS)
+    rec = bundle.rec.to(dev)
+    if bundle.charset != fx["charset"]:
+        raise AssertionError("phase 12: the fixture's rec pool was labelled with another charset")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = ocr_train.recognizer_pool_steps(rec, fx["rec_images"], fx["rec_labels"], fx["rec_label_pad"],
+                                             blank=len(bundle.charset), steps=OCR_REC_STEPS, batch=32,
+                                             steps_per_launch=100)
+    rec_s = time.perf_counter() - t0
+    out["rec_cached"] = {"width": rec.width, "steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
+                         "mean_loss_first_20": float(np.mean(losses[:20])),
+                         "mean_loss_last_20": float(np.mean(losses[-20:])), "step_ms": 1000 * rec_s / len(losses)}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 12 cached rec: {out['rec_cached']}")
+    # the detector at width 16 on the 16 pages: four batches of four, five rounds
+    det = seeded(lambda: DBDetector(16))
+    pages = np.repeat(fx["det_images"][..., None] / np.float32(255.0), 3, axis=3)
+    batches = [(pages[i : i + 4], fx["det_maps"][i : i + 4]) for i in range(0, 16, 4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = ocr_train.detector_steps(det, [batches[i % 4] for i in range(OCR_DET_STEPS)])
+    det_s = time.perf_counter() - t0
+    out["det"] = {"steps": len(losses), "losses": losses, "step_ms": 1000 * det_s / len(losses)}
+    if not (np.isfinite(losses).all() and np.mean(losses[-4:]) < np.mean(losses[:4])):
+        raise AssertionError(f"phase 12 detector: losses not finite and falling: {losses}")
+    # the classifier's cached step stage (optax's schedule needs more steps than its 50 of warm-up)
+    cls_model = seeded(lambda: OrientationClassifier(16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = ocr_train.classifier_pool_steps(cls_model, fx["cls_images"], fx["cls_labels"], steps=OCR_CLS_STEPS,
+                                             batch=64, steps_per_launch=50)
+    cls_s = time.perf_counter() - t0
+    out["cls_cached"] = {"steps": len(losses), "mean_loss_first_10": float(np.mean(losses[:10])),
+                         "mean_loss_last_10": float(np.mean(losses[-10:])), "step_ms": 1000 * cls_s / len(losses)}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 12 classifier: {out['cls_cached']}")
+    return out
+
+
+def phase_training(state: dict) -> None:
+    """Phase 12: the decoder's and the OCR models' trainers on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    out = {}
+    with _NoKernelOrPlain("phase 12") as watch:
+        out["full_width"] = _lm_full_width(state, dev)
+        log(f"phase 12 full width: {json.dumps(out['full_width'])}")
+        out["card_vs_cpu"] = _lm_card_vs_cpu(dev)
+        log(f"phase 12 card against CPU: {json.dumps(out['card_vs_cpu'])}")
+        for task in ("copy", "rag_qa"):
+            out[task] = _spec_acceptance(task, dev)
+            log(f"phase 12 {task} model: {json.dumps(out[task])}")
+        out["ocr"] = _ocr_training(dev)
+        log(f"phase 12 OCR: {json.dumps(out['ocr'])}")
+    out["launches"] = watch.launches
+    out["card"] = card_line()
+    state["training"] = out
+    for row in state.get("kernels", []):
+        row["launches_training"] = watch.launches.get(row["name"], 0)
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
-          6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned}
+          6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned,
+          11: phase_tiers, 12: phase_training}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3996,6 +4617,8 @@ def main(argv: list[str] | None = None) -> int:
         decode_busy_share(state)
     if "scan_engines" in state:
         scanned_busy_share(state)
+    if "lm_profile" in state:
+        lm_busy_share(state)
     if "served_trace" in state:
         served_trace(state)
     if "kernels" in state:

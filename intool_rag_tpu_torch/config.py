@@ -144,6 +144,9 @@ class Config:
     IVF_NPROBE: int = _field(lambda: _env_int("IVF_NPROBE", 64))
     # candidate pool the host int8 tier rescores exactly (0 = off)
     IVF_REFINE_K: int = _field(lambda: _env_int("IVF_REFINE_K", 0))
+    # residual code width of ivf_residual / segmented: 4 (int4, 0.5 byte a
+    # dim) or 1 (sign codes, 0.125 byte a dim; pair with IVF_REFINE_K)
+    IVF_RESIDUAL_BITS: int = _field(lambda: _env_int("IVF_RESIDUAL_BITS", 4))
 
     # --- BM25 ---
     BM25_K1: float = _field(lambda: _env_float("BM25_K1", 1.5))

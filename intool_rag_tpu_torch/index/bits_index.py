@@ -235,19 +235,7 @@ class IVFBitsIndex:
         return self._refine(qf, rows, k)
 
     def _refine(self, qf: torch.Tensor, rows: torch.Tensor, k: int):
-        """Exact rescoring of the candidate pool ``rows [Q, pool]`` from the
-        host int8 tier: the rows are gathered on the host, the products run
-        on the index's device; stable descending order."""
-        host8, hscale = self._host_tier()
-        safe = np.clip(rows.cpu().numpy(), 0, len(host8) - 1)
-        cand = torch.from_numpy(host8[safe]).to(self.device)  # [Q, pool, D] int8
-        cand_scale = torch.from_numpy(hscale[safe]).to(self.device)
-        exact = torch.einsum("qkd,qd->qk", cand.float(), qf) * cand_scale
-        exact = torch.where(rows >= 0, exact, NEG_INF)
-        out_vals, order = top_k(exact, k)
-        out_rows = torch.gather(rows, 1, order)
-        out_rows = torch.where(torch.isfinite(out_vals), out_rows, -1)
-        return out_vals, out_rows
+        return refine_from_host(qf, rows, k, *self._host_tier())
 
     # ---------------- persistence ----------------
 
@@ -305,6 +293,23 @@ def bits_state_from_jax(
 
 
 # ---------------- device helpers ----------------
+
+
+def refine_from_host(qf: torch.Tensor, rows: torch.Tensor, k: int, host8: np.ndarray,
+                     hscale: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact rescoring of the candidate pool ``rows [Q, pool]`` (−1 empty)
+    from a host int8 tier (``host8 [N, D]``, ``hscale [N]``): the rows are
+    gathered on the host, the products run on the queries' device; the top
+    ``k`` in stable descending order. Shared by every capacity tier."""
+    safe = np.clip(rows.cpu().numpy(), 0, len(host8) - 1)
+    cand = torch.from_numpy(host8[safe]).to(qf.device)  # [Q, pool, D] int8
+    cand_scale = torch.from_numpy(hscale[safe]).to(qf.device)
+    exact = torch.einsum("qkd,qd->qk", cand.float(), qf) * cand_scale
+    exact = torch.where(rows >= 0, exact, NEG_INF)
+    out_vals, order = top_k(exact, k)
+    out_rows = torch.gather(rows, 1, order)
+    out_rows = torch.where(torch.isfinite(out_vals), out_rows, -1)
+    return out_vals, out_rows
 
 
 def _assign_choices(emb: torch.Tensor, centroids: torch.Tensor, s: int) -> torch.Tensor:

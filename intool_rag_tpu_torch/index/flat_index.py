@@ -5,11 +5,14 @@
 bf16/f32 store, K2 over an int8 mirror with ``DENSE_INT8``) when
 ``USE_PALLAS`` is on and the metric is ``cosine``/``ip``, else the blocked
 scan of :func:`..ops.topk.flat_topk`. Scores are in the clamped-cosine
-space. With ``INDEX_KIND=bits`` a store of at least ``_IVF_MIN_ROWS`` rows
-searches through the 1-bit capacity tier (``bits_index.IVFBitsIndex``),
-kept in step with the store by incremental appends; smaller stores search
-flat. The ``ivf``, ``ivf_residual``, ``segmented`` and sharded routes are
-not ported yet and raise once a store is large enough to take them.
+space. With ``INDEX_KIND`` = ``ivf``, ``ivf_residual``, ``segmented`` or
+``bits`` a store of at least ``_IVF_MIN_ROWS`` rows searches through that
+capacity tier; smaller stores search flat. ``ivf`` (``IVFFlatIndex``) and
+``ivf_residual`` (``IVFResidualIndex``, ``IVF_RESIDUAL_BITS``) rebuild on
+every store mutation; ``segmented`` (``SegmentedResidualIndex``) and
+``bits`` (``IVFBitsIndex``) append only the new rows and rebuild when the
+store object changes (a delete). The sharded route is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class DenseFlatIndex:
         self.store = store
         self.metric = metric
         self._ivf = None  # the capacity-tier index, built on first routed search
+        self._ivf_built_at = -1
         self._ivf_store_ref = None
         self._q8 = None  # (codes int8, scales f32, residual | None) for DENSE_INT8
         self._q8_built_at = -1
@@ -132,6 +136,58 @@ class DenseFlatIndex:
             idx.append(store.embeddings[done : min(done + chunk, need)])
         return idx
 
+    def _segmented_index(self):
+        """Streaming capacity tier (INDEX_KIND=segmented): only the NEW rows
+        are appended on a store mutation, in segments of
+        ``max(4096, 4·IVF_NLIST)`` rows; a delete swaps the store object,
+        which rebuilds (row ids are append-order store rows)."""
+        from .segmented_residual import SegmentedResidualIndex
+
+        cfg = get_config()
+        store = self.store
+        fresh = (
+            not isinstance(self._ivf, SegmentedResidualIndex)
+            or self._ivf_store_ref is None
+            or self._ivf_store_ref() is not store
+            or self._ivf.total_rows > store.valid_n
+        )
+        if fresh:
+            seg_rows = max(4096, cfg.IVF_NLIST * 4)
+            sample = store.embeddings[: min(store.valid_n, 8 * seg_rows)]
+            self._ivf = SegmentedResidualIndex.train(
+                sample, cfg.IVF_NLIST, seg_rows=seg_rows, bits=cfg.IVF_RESIDUAL_BITS,
+                refine=cfg.IVF_REFINE_K > 0, device=store.device,
+            )
+            self._ivf_store_ref = weakref.ref(store)
+        idx = self._ivf
+        for done in range(idx.total_rows, store.valid_n, idx.seg_rows):
+            idx.append(store.embeddings[done : min(done + idx.seg_rows, store.valid_n)])
+        return idx
+
+    def _ivf_index(self):
+        """The capacity tier of ``INDEX_KIND``. ``ivf`` and ``ivf_residual``
+        are built whole from the valid rows, again after every mutation."""
+        cfg = get_config()
+        if cfg.INDEX_KIND == "bits":
+            return self._bits_index()
+        if cfg.INDEX_KIND == "segmented":
+            return self._segmented_index()
+        from .ivf_index import IVFFlatIndex
+        from .ivf_residual import IVFResidualIndex
+
+        kind = IVFResidualIndex if cfg.INDEX_KIND == "ivf_residual" else IVFFlatIndex
+        if not isinstance(self._ivf, kind) or self._ivf_built_at != self.store.mutation_count:
+            rows = self.store.embeddings[: self.store.valid_n]
+            if kind is IVFResidualIndex:
+                self._ivf = IVFResidualIndex.build(
+                    rows, cfg.IVF_NLIST, refine=cfg.IVF_REFINE_K > 0, bits=cfg.IVF_RESIDUAL_BITS,
+                    device=self.store.device,
+                )
+            else:
+                self._ivf = IVFFlatIndex.build(rows, cfg.IVF_NLIST, device=self.store.device)
+            self._ivf_built_at = self.store.mutation_count
+        return self._ivf
+
     def _routes_ivf(self, cfg, exact: bool | None) -> bool:
         return (
             cfg.INDEX_KIND in ("ivf", "ivf_residual", "segmented", "bits")
@@ -143,19 +199,13 @@ class DenseFlatIndex:
     def routes_flat(self, cfg=None, *, exact: bool | None = None) -> bool:
         """True when :meth:`search` takes a flat branch, so :meth:`flat_plan`
         describes it; False when it goes through the capacity tier. Raises
-        for the routes this port does not have yet."""
+        for ``SHARDED_SEARCH=on``, which this port does not have yet."""
         cfg = cfg or get_config()
         if cfg.SHARDED_SEARCH == "on":
             raise NotImplementedError(
                 "SHARDED_SEARCH=on is not ported yet (ROADMAP Queue A, multi-device)"
             )
-        if not self._routes_ivf(cfg, exact):
-            return True
-        if cfg.INDEX_KIND != "bits":
-            raise NotImplementedError(
-                f"INDEX_KIND={cfg.INDEX_KIND} is not ported yet (ROADMAP Queue A, capacity tiers)"
-            )
-        return False
+        return not self._routes_ivf(cfg, exact)
 
     def search(self, query_embeddings: torch.Tensor, k: int, *, exact: bool | None = None):
         """Top-k over valid rows. Returns (scores [Q,k], rows [Q,k])."""
@@ -174,9 +224,14 @@ class DenseFlatIndex:
                 query_embeddings, (0, store.dim_pad - store.dim)
             )
         cfg = get_config()
-        if not self.routes_flat(cfg, exact=exact):  # raises for the kinds not ported
-            ivf = self._bits_index()
-            kwargs = {"refine_k": cfg.IVF_REFINE_K} if cfg.IVF_REFINE_K > 0 else {}
+        if not self.routes_flat(cfg, exact=exact):  # raises for SHARDED_SEARCH=on
+            ivf = self._ivf_index()
+            # refine_k only where the tier keeps a host int8 copy (IVFFlatIndex has none)
+            kwargs = (
+                {"refine_k": cfg.IVF_REFINE_K}
+                if cfg.IVF_REFINE_K > 0 and getattr(ivf, "host_int8", None) is not None
+                else {}
+            )
             vals, rows = ivf.search(query_embeddings, k, nprobe=cfg.IVF_NPROBE, **kwargs)
             if self.metric == "cosine":
                 vals = clamp_cosine(vals)

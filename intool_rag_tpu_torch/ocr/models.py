@@ -374,7 +374,8 @@ def ocr_state_from_flax(tree: dict, module: nn.Module) -> dict[str, torch.Tensor
         if name not in want or tuple(want[name].shape) != value.shape:
             raise ValueError(f"flax leaf {'/'.join(path)} {value.shape} has no parameter {name} in "
                              f"{type(module).__name__}")
-        state[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+        # float32, but a float64 tree (a gradient under x64) keeps its precision
+        state[name] = torch.from_numpy(np.array(value, dtype=np.float64 if value.dtype == np.float64 else np.float32))
     if set(state) != set(want):
         raise ValueError(f"{type(module).__name__}: parameters without a flax leaf: {sorted(set(want) - set(state))}")
     return state

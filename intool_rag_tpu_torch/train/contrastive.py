@@ -27,6 +27,7 @@ from ..device import resolve_device
 from ..models.encoder import EncoderConfig, TextEncoder
 
 ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)  # optax.adamw's defaults
+ADAM = dict(betas=(0.9, 0.999), eps=1e-8)  # optax.adam's defaults (eps outside the square root, as torch's)
 
 
 @dataclasses.dataclass
@@ -60,17 +61,17 @@ make_sharded_train_step = _not_ported("make_sharded_train_step")
 # ---------------- optimizer / schedule ----------------
 
 
-def warmup_cosine_factor(steps: int) -> Callable[[int], float]:
+def warmup_cosine_factor(steps: int, warmup: int | None = None, alpha: float = 0.05) -> Callable[[int], float]:
     """``count -> lr(count) / lr`` of
-    ``optax.warmup_cosine_decay_schedule(0, lr, warmup_steps=max(20, steps // 20),
-    decay_steps=steps, end_value=0.05 * lr)``: linear from 0 over the
-    warm-up, then a cosine down to 0.05 at ``steps`` and flat after. The
-    first update (count 0) has rate 0, as in optax."""
-    warmup = max(20, steps // 20)
+    ``optax.warmup_cosine_decay_schedule(0, lr, warmup_steps=warmup,
+    decay_steps=steps, end_value=alpha * lr)``: linear from 0 over the
+    warm-up (default ``max(20, steps // 20)``), then a cosine down to
+    ``alpha`` at ``steps`` and flat after. The first update (count 0) has
+    rate 0, as in optax."""
+    warmup = max(20, steps // 20) if warmup is None else warmup
     decay = steps - warmup
     if decay <= 0:
         raise ValueError(f"the schedule needs more than {warmup} steps (its warm-up), got {steps}")
-    alpha = 0.05
 
     def factor(count: int) -> float:
         if count < warmup:
@@ -93,9 +94,26 @@ def make_optimizer(model: torch.nn.Module, lr: float, steps: int | None = None):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, warmup_cosine_factor(steps))
 
 
-def apply_update(state: TrainState, loss: torch.Tensor) -> None:
-    """Backward, one optimizer step, one scheduler step; gradients freed."""
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm(max_norm)`` on the gradients, in place:
+    ``g / ‖g‖ · max_norm`` when the global norm ``‖g‖`` reaches
+    ``max_norm``, else ``g`` unchanged (``clip_grad_norm_`` scales by
+    ``max_norm / (‖g‖ + 1e-6)`` instead). Decided on the device, no host
+    synchronisation. Returns the global norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def apply_update(state: TrainState, loss: torch.Tensor, clip: float | None = None) -> None:
+    """Backward, the optional global-norm clip, one optimizer step, one
+    scheduler step; gradients freed."""
     loss.backward()
+    if clip:
+        clip_by_global_norm_(state.model.parameters(), clip)
     state.optimizer.step()
     if state.scheduler is not None:
         state.scheduler.step()

@@ -59,7 +59,9 @@ def test_new_modules_are_covered():
             "query/response.py", "observability.py", "backend.py", "agent/__init__.py", "agent/state.py",
             "agent/steps.py", "agent/orchestrator.py", "models/scheduler.py", "ocr/__init__.py",
             "ocr/wordlist.py", "ocr/postprocess.py", "ocr/synth.py", "ocr/rescore.py", "ocr/models.py",
-            "ocr/pipeline.py", "ocr/utils.py", "ocr/pdf_ocr.py", "ocr/eval.py", "ingest/rasterize.py"} <= names
+            "ocr/pipeline.py", "ocr/utils.py", "ocr/pdf_ocr.py", "ocr/eval.py", "ingest/rasterize.py",
+            "index/ivf_index.py", "index/ivf_residual.py", "index/segmented_residual.py", "models/lm_train.py",
+            "ocr/train.py"} <= names
     kernel_dir = ROOT / "intool_rag_tpu_torch" / "kernels"
     kernels = {p.name for p in kernel_dir.glob("*.cu")}
     assert {"flash_attention.cu", "flash_attention_bwd.cu"} <= kernels

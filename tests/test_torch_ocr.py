@@ -8,8 +8,8 @@ strings exactly. Given the JAX engine's own prob maps and logits, the
 port's host stages give the same quads, crops and strings. The engines
 themselves (the shipped weights; the port's on the CPU, float32) must give
 the same lines on seeded synthetic pages: texts equal, boxes within 1 px,
-confidences within 1e-4. The JAX slow cases (training) wait with
-``ocr/train.py``.
+confidences within 1e-4. The JAX slow cases (training) have their twins
+in ``test_torch_ocr_train.py``.
 """
 
 from __future__ import annotations

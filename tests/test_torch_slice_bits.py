@@ -251,7 +251,7 @@ def test_dense_index_incremental_append_matches_jax(monkeypatch):
 @pytest.mark.parametrize("rows", [4095, 4096])
 def test_routing_threshold(monkeypatch, kind, rows):
     """Below 4,096 rows every IVF kind searches flat, as in the JAX package;
-    from 4,096 on, bits routes to the tier and the unported kinds raise."""
+    from 4,096 on, every kind routes to its capacity tier."""
     from intool_rag_tpu.index.chunk_store import ChunkStore as JaxStore
     from intool_rag_tpu.index.flat_index import DenseFlatIndex as JaxDense
     from intool_rag_tpu_torch.config import get_config
@@ -275,13 +275,8 @@ def test_routing_threshold(monkeypatch, kind, rows):
         assert tidx._ivf is None
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
-    elif kind == "bits":
-        assert not tidx.routes_flat() and not jidx.routes_flat()
     else:
-        with pytest.raises(NotImplementedError, match=kind):
-            tidx.routes_flat()
-        with pytest.raises(NotImplementedError, match=kind):
-            tidx.search(torch.from_numpy(x[:4]), 3)
+        assert not tidx.routes_flat() and not jidx.routes_flat()
 
 
 @pytest.mark.parametrize("project", ["p0", "p1", None])
