@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``1,2,6`` for ingest alone, ``1,2,7`` for training alone, ``1,8`` for
 ``/query`` alone, ``1,9`` for the rest of the served surface alone,
 ``1,10`` for the OCR fallback alone, ``1,11`` for the capacity tiers
-alone, ``1,12`` for the trainers alone). Phases:
+alone, ``1,12`` for the trainers alone, ``1,13`` for corpus sharding
+alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -250,6 +251,43 @@ alone, ``1,12`` for the trainers alone). Phases:
    the cached classifier (100 steps: optax's schedule needs more steps
    than its 50 of warm-up). No K1-K5 launch and no plain version; the
    kernel table's rows gain ``launches_training``.
+
+13. corpus sharding (``intool_rag_tpu_torch/parallel/``) on virtual meshes
+   of S entries of the one card (the shards run one after another, so QPS at
+   S > 1 forecasts nothing about S cards; with two or more cards a real mesh
+   over all of them is added). (a) phase 4's 1M x d1024 store, 256 random
+   unit queries, k 10: ``sharded_flat_topk`` (K1 bf16 precise) and
+   ``sharded_flat_topk_int8`` (K2 int8r) at S 1, 2 and 4: recall@10 against
+   phase 4's dense oracle >= 0.99, and with the exact tail equal to the
+   single-device kernels' search (K1 to 1e-4, ids wherever the gap is above
+   2e-4; K2 bit-equal); then K1 / K2 on one 4-way shard under
+   ``plan_launch``'s plan and the split its merge bound rules out. (b) ``ShardedHybrid`` (int8r, 4 shards, p_max 512)
+   over the same million rows with phase 4's Zipf chunks as texts, appended
+   in 8 batches; each query aims at a chunk (its rarest terms, together in at
+   most 60 chunks, and its embedding at cosine ~0.9). Each retriever's list
+   equals the single-device one's (K2 int8r over the same codes: bit-equal;
+   a ``BM25Index`` of the same counts: 1e-5, rows wherever no score ties,
+   since every chunk has 64 tokens and equal tf ties; both at group width 1
+   and the exact tail). Weighted fusion: recall@10 against the exact hybrid
+   oracle >= 0.99 (the oracle's tie group at the cut filled by any member)
+   and fused scores equal to the single-device hybrid's position by
+   position (1e-6), rows wherever no score ties. RRF, which ranks BM25 ties
+   in id order: the fusion of the engine's own lists, and the target first
+   for >= 0.95 of the queries. (d) ``DCNHybrid`` on a 2 x 2 mesh equal to ``ShardedHybrid``
+   on 4 shards over the first 100,000 rows, whose ``save`` / ``load`` round
+   trip gives bit-equal results. (c) ``ShardedBitsIndex`` (4 shards) over
+   phase 5's 3M x d1024 corpus at nlist 256: recall@10 in the pool of 100
+   at nprobe 16 >= 0.95, and at group width 1 with the exact tail the top-10
+   of the single-device ``IVFBitsIndex`` of the same centroids and capacity.
+   (e) ``sharded_kmeans`` and ``hierarchical_kmeans`` from the same initial
+   centroids as single-device Lloyd steps: centroids to 1e-4. (f)
+   ``SHARDED_SEARCH=on`` behind the HTTP service on one card takes the
+   single-device route and answers 16 requests, one at a time, as ``off``
+   does, through K1. Every part fails
+   on any plain-version call and unless each per-shard search launched its
+   kernel (the counts are exactly shards x searches); QPS, host and device
+   ms of a batch, the merge's share and the peak memory are printed with the
+   mesh they came from. The kernel table's rows gain ``launches_sharded``.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -4592,14 +4630,690 @@ def phase_training(state: dict) -> None:
         row["launches_training"] = watch.launches.get(row["name"], 0)
 
 
+# ------------------------------------------------------------------ phase 13
+
+SHARDS = (1, 2, 4)  # the virtual meshes: S entries of the one card
+HYBRID_SHARDS, HYBRID_BATCHES, HYBRID_CAP = 4, 8, 253_952  # 62 blocks of 4,096 rows a shard hold 1M rows
+SMALL_ROWS, SMALL_CAP = 100_000, 28_672  # the DCN engine and the checkpoint: 7 blocks of 4,096 rows a shard
+RARE_DF_SUM = 60  # a hybrid query's terms match at most this many chunks: its BM25 list has no tie at kc
+QUERY_NOISE = 0.015  # per dim: a hybrid query embedding lies at cosine ~0.9 of its target chunk
+SHARD_SEED = 13
+KMEANS_ITERS = 8
+
+
+class _KernelsNoPlain(_NoKernelOrPlain):
+    """Over a block: every launch count set to 0 before and read after
+    (``launches``), every plain version's calls counted; the block fails if
+    a plain version ran. The kernels are expected."""
+
+    def __exit__(self, *exc) -> None:
+        for module, name, _, original in self.boxes:
+            setattr(module, name, original)
+        self.launches = _launches()
+        self.plain_calls = sum(box["calls"] for _, _, box, _ in self.boxes) + sum(f.calls.count for f in self.flash)
+        if exc[0] is None and self.plain_calls:
+            raise AssertionError(f"{self.label}: plain versions called {self.plain_calls} times")
+
+
+def _expect(watch: _KernelsNoPlain, want: dict, total: dict) -> None:
+    """Each per-shard search of the block launched its kernel: the counts are
+    exactly ``want`` (kernel variant -> shards x searches); add them to the
+    phase's main-path ``total``."""
+    if watch.launches != want:
+        raise AssertionError(f"{watch.label}: launched {watch.launches}, expected {want} "
+                             f"(one launch a shard a search)")
+    for name, count in want.items():
+        total[name] = total.get(name, 0) + count
+
+
+def _held_equal(got, want, atol: float, gap: float, label: str) -> float:
+    """Scores (sorted descending, [Q, k]) equal within ``atol`` position by
+    position, and every row of ``want`` whose score lies more than ``gap``
+    from every other score of its list (and from the k-th) in ``got`` too.
+    Returns the largest score difference."""
+    gv, gr, wv, wr = (t.cpu().numpy() for t in (*got, *want))
+    err = float(np.abs(gv - wv).max()) if gv.size else 0.0
+    if gv.shape != wv.shape or err > atol:
+        raise AssertionError(f"{label}: scores {gv.shape} vs {wv.shape} differ by {err} > {atol}")
+    for q, (v, a, b) in enumerate(zip(wv, gr, wr)):
+        d = np.abs(v[:, None] - v[None, :]) + np.eye(len(v)) * 1e9
+        clear = (d.min(axis=1) > gap) & (v - v[-1] > gap)
+        missing = set(b[clear].tolist()) - set(a.tolist())
+        if missing:
+            raise AssertionError(f"{label}: query {q} lacks rows {missing} (got {a.tolist()}, want {b.tolist()})")
+    return err
+
+
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _batch_readings(search, merge_inputs: dict, dev) -> dict:
+    """QPS of batches of ``Q_SCALE`` (three, each synchronised), the host
+    side and the device time of a batch, the merge's device time and share,
+    and the peak memory of one batch above what was allocated before it."""
+    from intool_rag_tpu_torch.parallel.collectives import merge_topk
+
+    runs = [Q_SCALE / _timed(search) for _ in range(3)]
+    device_ms = cuda_ms(search, iters=5, warmup=1)
+    host_ms, wall_ms = host_wall_ms(search, iters=5, warmup=1)
+    merge_ms = cuda_ms(lambda: merge_topk(merge_inputs["vals"], merge_inputs["rows"], merge_inputs["k"], dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    search()
+    torch.cuda.synchronize()
+    return {"qps_mean": float(np.mean(runs)), "qps_runs": runs, "device_ms": device_ms, "host_ms": host_ms,
+            "wall_ms": wall_ms, "merge_ms": merge_ms, "merge_share": merge_ms / device_ms,
+            "peak_mb_above_resident": (torch.cuda.max_memory_allocated() - base) / 1e6}
+
+
+def _capturing(merge_inputs: dict, dev):
+    """A merge for :func:`sharded_search` that keeps its per-shard inputs."""
+    from intool_rag_tpu_torch.parallel.collectives import merge_topk
+
+    def merge(vals, rows, k):
+        merge_inputs.update(vals=vals, rows=rows, k=k)
+        return merge_topk(vals, rows, k, dev)
+
+    return merge
+
+
+def _shard_meshes(dev) -> list[tuple[str, int, object]]:
+    """``(label, S, mesh)``: the virtual meshes of ``SHARDS`` entries of the
+    one card, and, with two or more cards, the real mesh over all of them."""
+    from intool_rag_tpu_torch.parallel.mesh import corpus_mesh, local_devices
+
+    meshes = [(f"virtual S={s}", s, corpus_mesh([dev] * s)) for s in SHARDS]
+    if torch.cuda.device_count() >= 2:
+        devices = local_devices()
+        meshes.append((f"real S={len(devices)}", len(devices), corpus_mesh(devices)))
+    return meshes
+
+
+def _sharded_flat(dev, corpus, planes, q, oracle, total: dict) -> dict:
+    """(a) ``sharded_flat_topk`` (K1 bf16 precise) and
+    ``sharded_flat_topk_int8`` (K2 int8r) over phase 4's store at each mesh."""
+    from intool_rag_tpu_torch.ops.flat_fused import flat_topk_fused, flat_topk_fused_int8
+    from intool_rag_tpu_torch.parallel.sharded_search import shard_corpus, sharded_flat_topk, sharded_flat_topk_int8
+
+    n = N_SCALE
+    c1, c2, cs = planes
+    single = {  # the single-device search of the same store (group width 32, as the shards use)
+        "K1 bf16 precise": lambda: flat_topk_fused(q, corpus, TOP_K, group_l=32, valid_n=n, precise=True, tail="exact"),
+        "K2 int8r": lambda: flat_topk_fused_int8(q, c1, cs, TOP_K, corpus_res=c2, group_l=32, valid_n=n, tail="exact"),
+    }
+    want_single = {name: fn() for name, fn in single.items()}
+    bars = {"K1 bf16 precise": (1e-4, 2e-4), "K2 int8r": (0.0, 0.0)}  # phase 2's bars: K1 1e-4, K2 bit-equal
+    out = {}
+    for label, s, mesh in _shard_meshes(dev):
+        sh_bf = shard_corpus(corpus, mesh, row_align=4096)
+        sh8 = [shard_corpus(p, mesh, row_align=4096) for p in (c1, cs, c2)]
+        merge_inputs: dict = {}
+        merge = _capturing(merge_inputs, dev)
+        searches = {
+            "K1 bf16 precise": lambda tail="fold": sharded_flat_topk(q, sh_bf, TOP_K, mesh, valid_n=n, kernel="fused",
+                                                                     tail=tail, merge=merge),
+            "K2 int8r": lambda tail="fold": sharded_flat_topk_int8(q, sh8[0], sh8[1], TOP_K, mesh, res=sh8[2],
+                                                                   valid_n=n, tail=tail, merge=merge),
+        }
+        for name, search in searches.items():
+            search()  # allocations
+            with _KernelsNoPlain(f"phase 13 (a) {label} {name}") as watch:
+                _, rows = search()
+                times = [_timed(search) for _ in range(2)]
+            _expect(watch, {name: 3 * s}, total)
+            recall = _recall(rows[:ORACLE_Q].cpu().numpy(), oracle)
+            if recall < 0.99:
+                raise AssertionError(f"phase 13 (a) {label} {name}: recall@10 {recall} < 0.99 vs the exact oracle")
+            err = _held_equal(search("exact"), want_single[name], *bars[name], f"phase 13 (a) {label} {name}")
+            entry = {"mesh": label, "shards": s, "shard_rows": sh_bf.shard_rows, "recall@10": recall,
+                     "max_abs_err_vs_single_device": err, "first_batch_ms": 1000 * times[0],
+                     **_batch_readings(search, merge_inputs, dev)}
+            out[f"{label} {name}"] = entry
+            log(f"phase 13 (a) {label} {name}: {json.dumps(entry)}")
+        del sh_bf, sh8, searches, merge_inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _split_plans(dev) -> dict:
+    """K1 bf16 precise and K2 int8r on one shard of a 4-way sharded 1M-row
+    store (62 blocks of 4,096 rows) at Q 256 and 128, under
+    ``plan_launch``'s plan and under the plan its merge bound
+    (``MAX_MERGE_ROWS``) rules out, in turns (bounded, unbounded, unbounded,
+    bounded): device ms of each."""
+    from intool_rag_tpu_torch.ops import flat_fused as ff
+    from intool_rag_tpu_torch.ops.quant import quantize_int8_residual
+
+    n = 253_952
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED + 2)
+    c = _unit(gen, (n, DIM), dev).bfloat16()
+    c1, c2, cs = quantize_int8_residual(c)
+    bound, out = ff.MAX_MERGE_ROWS, {}
+    for q in (256, 128):
+        qs = _unit(gen, (q, DIM), dev)
+        hi, lo = ff.split_query_bf16(qs)
+        a1, a2, _ = ff.split_query_int8(qs)
+        for name, fn in (("K1 bf16 precise", lambda: ff.partial_topk(hi, lo, c, 32, n)),
+                         ("K2 int8r", lambda: ff.partial_topk_int8(a1, a2, c1, c2, cs, 32, n))):
+            times: dict[str, list] = {"bounded": [], "unbounded": []}
+            plans = {}
+            for turn in ("bounded", "unbounded", "unbounded", "bounded"):
+                ff.MAX_MERGE_ROWS = bound if turn == "bounded" else 1 << 30
+                try:
+                    plans[turn] = ff.plan_launch(q, n, DIM, 32, ff._sm_count(dev), name)
+                    times[turn].append(cuda_ms(fn, iters=3, warmup=1))
+                finally:
+                    ff.MAX_MERGE_ROWS = bound
+            out[f"{name} Q {q}"] = {f"{t}_plan": plans[t] for t in plans} | {
+                f"{t}_ms": float(np.mean(v)) for t, v in times.items()}
+    log(f"phase 13 (a) split plans at a 4-way shard (62 blocks): {json.dumps(out)}")
+    return out
+
+
+def _zipf_terms(n: int) -> np.ndarray:
+    """Phase 4's chunk terms ``[n, TERMS_PER_CHUNK]`` (``make_sparse``'s first draw)."""
+    return (np.random.default_rng(0).zipf(1.2, size=(n, TERMS_PER_CHUNK)) - 1) % VOCAB
+
+
+def _hybrid_queries(chunk_terms: np.ndarray, corpus32: torch.Tensor, gen) -> tuple[list[str], torch.Tensor, np.ndarray]:
+    """``Q_SCALE`` hybrid queries, each aimed at a target chunk: its rarest
+    terms (together in at most ``RARE_DF_SUM`` chunks, so no BM25 list ties
+    at its cut and ``p_max`` prunes none of them) and its embedding at
+    cosine ~0.9. Returns ``(texts, embeddings, targets)``."""
+    st = np.sort(chunk_terms, axis=1)
+    first = np.ones_like(st, dtype=bool)
+    first[:, 1:] = st[:, 1:] != st[:, :-1]
+    df = np.bincount(st[first], minlength=VOCAB)
+    rng = np.random.default_rng(SHARD_SEED)
+    targets = rng.choice(len(chunk_terms), size=Q_SCALE, replace=False)
+    texts = []
+    for t in targets:
+        terms = np.unique(chunk_terms[t])
+        picked, used = [], 0
+        for term in terms[np.argsort(df[terms], kind="stable")][:3]:
+            if picked and used + df[term] > RARE_DF_SUM:
+                break
+            picked.append(term)
+            used += df[term]
+        texts.append(" ".join(f"term{x}" for x in picked))
+    rows = corpus32[torch.as_tensor(targets, device=corpus32.device)]
+    q = rows + QUERY_NOISE * torch.randn(rows.shape, generator=gen, device=rows.device)
+    return texts, q / q.norm(dim=1, keepdim=True), targets
+
+
+def _single_bm25(engine, row_of_gid: np.ndarray, n: int, dev):
+    """The single-device ``BM25Index`` of the sharded engine's documents, in
+    row order, from its counted postings (the texts are tokenized once)."""
+    from intool_rag_tpu_torch.index.bm25_index import BM25Index
+
+    bm = engine.bm25
+    words = list(bm.vocab)  # first-seen order
+    order = sorted(range(len(words)), key=words.__getitem__)
+    rank = np.empty(len(words), np.int32)
+    rank[order] = np.arange(len(words), dtype=np.int32)
+    rows = np.concatenate([row_of_gid[sc.slots.astype(np.int64) * bm.n_shards + s] for s, sc in enumerate(bm.shards)])
+    sizes = np.concatenate([np.diff(sc.indptr) for sc in bm.shards])
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    terms = np.concatenate([sc.terms for sc in bm.shards])
+    counts = np.concatenate([sc.counts for sc in bm.shards])
+    lens = np.concatenate([sc.lens for sc in bm.shards])
+    by_row = np.argsort(rows, kind="stable")
+    sz = sizes[by_row]
+    pairs = np.repeat(starts[by_row] - np.concatenate([[0], np.cumsum(sz)[:-1]]), sz) + np.arange(int(sz.sum()))
+    pair_terms = rank[terms[pairs]]
+    counted = ([words[i] for i in order], np.bincount(pair_terms, minlength=len(words)).astype(np.int32),
+               np.concatenate([[0], np.cumsum(sz)]).astype(np.int64), pair_terms, counts[pairs], lens[by_row])
+    return BM25Index._from_counts(counted, n, bm.params, dev)
+
+
+def _with_env(env: dict):
+    from intool_rag_tpu_torch import config
+
+    os.environ.update(env)
+    config.reset_config()
+    return config.get_config()
+
+
+def _sharded_hybrid(dev, corpus32, texts, chunk_terms, gen, total: dict) -> dict:
+    """(b) ``ShardedHybrid`` (int8r) over phase 4's million rows and Zipf
+    chunks, appended in ``HYBRID_BATCHES``: weighted and RRF fusion against
+    the exact hybrid oracle and the single-device hybrid."""
+    from intool_rag_tpu_torch.index.bm25_index import BM25Params, bm25_dispatch
+    from intool_rag_tpu_torch.index.hybrid import _fuse
+    from intool_rag_tpu_torch.ops.bm25 import bm25_topk_sorted
+    from intool_rag_tpu_torch.ops.flat_fused import flat_topk_fused_int8
+    from intool_rag_tpu_torch.ops.quant import quantize_int8_residual
+    from intool_rag_tpu_torch.ops.topk import flat_topk
+    from intool_rag_tpu_torch.parallel.mesh import corpus_mesh
+    from intool_rag_tpu_torch.parallel.sharded_hybrid import ShardedHybrid
+
+    n = N_SCALE
+    q_texts, q_emb, targets = _hybrid_queries(chunk_terms, corpus32[:n], gen)
+    mesh = corpus_mesh([dev] * HYBRID_SHARDS)
+    engine = ShardedHybrid(DIM, mesh, capacity_per_shard=HYBRID_CAP, params=BM25Params(p_max=P_MAX), quant="int8r")
+    step = n // HYBRID_BATCHES
+    t0 = time.perf_counter()
+    gids = np.concatenate([engine.append(texts[b : b + step], corpus32[b : b + step]) for b in range(0, n, step)])
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    if engine.corpus.cap != HYBRID_CAP or engine.valid_n != n:
+        raise AssertionError(f"phase 13 (b): cap {engine.corpus.cap}, {engine.valid_n} rows")
+    row_of_gid = np.full(HYBRID_SHARDS * HYBRID_CAP, -1, np.int64)
+    row_of_gid[gids] = np.arange(n)
+    to_rows = torch.as_tensor(row_of_gid, device=dev)
+    t0 = time.perf_counter()
+    engine.bm25.device_arrays()
+    torch.cuda.synchronize()
+    postings_s = time.perf_counter() - t0
+
+    # the single-device hybrid of the same rows: K2 int8r over the same codes
+    # (quantized as the sharded corpus quantizes), BM25Index of the same counts
+    single_planes = quantize_int8_residual(corpus32, reciprocal=True)
+    t0 = time.perf_counter()
+    index = _single_bm25(engine, row_of_gid, n, dev)
+    single_bm25_s = time.perf_counter() - t0
+    qt, qf, b_arrays, b_statics = index.topk_plan(q_texts)
+
+    def single_hybrid(cfg):
+        q1, q2, s8 = single_planes
+        d_vals, d_rows = flat_topk_fused_int8(q_emb, q1, s8, CANDIDATES, corpus_res=q2, group_l=1, valid_n=n,
+                                              tail="exact")
+        s_vals, s_rows = bm25_dispatch(qt, qf, b_arrays, k=CANDIDATES, **b_statics)
+        return _fuse(d_vals, d_rows, s_vals, s_rows, TOP_K, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K,
+                     w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT)
+
+    # the exact hybrid oracle (phase 4's construction): exact f32 dense top-100
+    # of the appended rows, exact BM25 (no query term is pruned), the same fusion
+    qo = q_emb[:ORACLE_Q]
+    od_vals, od_rows = flat_topk(qo, corpus32, CANDIDATES, metric="ip", block_n=100_000, valid_n=n)
+    os_vals, os_rows = bm25_topk_sorted(qt[:ORACLE_Q], qf[:ORACLE_Q], index.term_start, index.term_len, index.post_docs,
+                                        index.post_w, index.idf, CANDIDATES, n_docs=n, p_max=P_MAX)
+
+    out = {"rows": n, "shards": HYBRID_SHARDS, "mesh": f"virtual S={HYBRID_SHARDS}", "append_s": append_s,
+           "append_rows_per_s": n / append_s, "postings_build_s": postings_s, "single_bm25_from_counts_s": single_bm25_s,
+           "card_mb": sum(t.numel() * t.element_size() for p in engine.corpus._planes() for t in p.shards) / 1e6}
+    def rows_of(gids: torch.Tensor) -> torch.Tensor:
+        return to_rows[gids.clamp_min(0).long()].masked_fill(gids < 0, -1)
+
+    # each retriever's list of the sharded engine (both at group width 1 and
+    # the exact tail) against the single-device one's: the dense lists equal
+    # (the same codes, K2 bit-equal), BM25 to 1e-5 of its largest score (f32
+    # sums in the order of each package's term ids) with rows wherever no
+    # score ties (equal tf at equal lengths ties: the chunks are 64 tokens)
+    q1, q2, s8 = single_planes
+    lists = {
+        "dense": (engine.corpus.search(q_emb, CANDIDATES, group_l=1, tail="exact"),
+                  flat_topk_fused_int8(q_emb, q1, s8, CANDIDATES, corpus_res=q2, group_l=1, valid_n=n, tail="exact"),
+                  0.0),
+        "bm25": (engine.bm25.topk(q_texts, CANDIDATES), bm25_dispatch(qt, qf, b_arrays, k=CANDIDATES, **b_statics),
+                 1e-5),
+    }
+    for name, ((gv, gg), (wv, wr), tol) in lists.items():
+        wr = torch.where(wv > 0, wr, -1) if name == "bm25" else wr  # the single index's no-match slots: (0.0, 0)
+        bar = tol * float(wv.abs().max())
+        out[f"{name}_list_max_abs_err"] = _held_equal((gv, rows_of(gg)), (wv, wr), bar, bar,
+                                                      f"phase 13 (b) the {name} list vs the single-device index")
+    saved = dict(os.environ)
+    try:
+        for mode in ("weighted", "rrf"):
+            cfg = _with_env({"FUSION_MODE": mode, "HYBRID_SEARCH_ENABLED": "true"})
+            search = lambda: engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES)  # noqa: E731
+            search()
+            with _KernelsNoPlain(f"phase 13 (b) {mode}") as watch:
+                _, got = search()
+                times = [_timed(search) for _ in range(2)]
+            _expect(watch, {"K2 int8r": 3 * HYBRID_SHARDS}, total)
+            got = rows_of(got).cpu().numpy()
+            o_vals, oracle = _fuse(od_vals, od_rows, os_vals, os_rows, TOP_K, fusion_mode=mode, rrf_k=cfg.RRF_K,
+                                   w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT)
+            # BM25-only chunks of one query term score alike (d = 0, equal s):
+            # the oracle rows tied with its k-th fused score (within the int8r
+            # error, 1e-4) are the cut's tie group, which any member fills
+            recall = _tie_recall(got[:ORACLE_Q], o_vals.cpu().numpy(), oracle.cpu().numpy(), 1e-4)
+            # the single-device hybrid over the same codes and counts, both at
+            # group width 1 and the exact tail
+            exact_vals, exact_rows = engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES, group_l=1,
+                                                   tail="exact")
+            exact_rows = rows_of(exact_rows)
+            single = single_hybrid(cfg)
+            entry = {"recall@10_vs_exact_oracle": recall,
+                     "recall@10_as_sets": _recall(got[:ORACLE_Q], oracle.cpu().numpy()),
+                     "equal_sets_share": float(np.mean([set(a) == set(b) for a, b in zip(
+                         exact_rows.tolist(), single[1].tolist())])),
+                     "overlap@10_vs_single_device": _recall(exact_rows.cpu().numpy(), single[1].cpu().numpy()),
+                     "top1_is_target": float(np.mean(got[:, 0] == targets)), "first_batch_ms": 1000 * times[0],
+                     "qps_runs": [Q_SCALE / t for t in times]}
+            out[mode] = entry
+            if mode == "weighted":
+                # fused scores position by position, rows wherever no score ties
+                entry["max_abs_err_vs_single_device"] = _held_equal(
+                    (exact_vals, exact_rows), single, 1e-6, 1e-6, "phase 13 (b) weighted vs the single-device hybrid")
+            if mode == "weighted" and recall < 0.99:
+                raise AssertionError(f"phase 13 (b) weighted: recall@10 {recall} < 0.99 against the exact hybrid oracle")
+            if mode == "rrf":
+                # RRF ranks BM25 ties (equal tf at equal lengths) in id order, which
+                # the shards change, and ties a dense rank with the same BM25 rank:
+                # its fused lists are held as the fusion of the sharded engine's own
+                # retriever lists (each held above against the single-device one),
+                # scores position by position, rows wherever no score ties
+                (dv, dg), (sv, sg) = lists["dense"][0], lists["bm25"][0]
+                want = _fuse(dv, rows_of(dg), sv, rows_of(sg), TOP_K, fusion_mode="rrf", rrf_k=cfg.RRF_K,
+                             w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT)
+                entry["max_abs_err_vs_fused_lists"] = _held_equal((exact_vals, exact_rows), want, 0.0, 1e-9,
+                                                                  "phase 13 (b) rrf vs its lists' fusion")
+                if entry["top1_is_target"] < 0.95:
+                    raise AssertionError(f"phase 13 (b) rrf: the target first in {entry['top1_is_target']} < 0.95")
+            log(f"phase 13 (b) {mode}: {json.dumps(entry)}")
+        cfg = _with_env({"FUSION_MODE": "weighted"})
+        out["weighted_batch"] = _batch_readings(lambda: engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES),
+                                                _hybrid_merge_inputs(engine, q_emb), dev)
+        log(f"phase 13 (b) build and batch (merge: the dense side's): "
+            f"{json.dumps({k: v for k, v in out.items() if k not in ('weighted', 'rrf')})}")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    del engine, index, single_planes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tie_recall(got: np.ndarray, oracle_vals: np.ndarray, oracle: np.ndarray, gap: float) -> float:
+    """Recall@k against an oracle whose k-th score may tie with scores past
+    the cut: an oracle row counts as found when ``got`` holds it or its
+    score lies within ``gap`` of the oracle's k-th (a member of the cut's tie
+    group, which any member fills)."""
+    hits = 0
+    for g, v, o in zip(got, oracle_vals, oracle):
+        have = set(g.tolist())
+        hits += sum(1 for val, r in zip(v, o) if r in have or val - v[-1] <= gap)
+    return hits / oracle.size
+
+
+def _hybrid_merge_inputs(engine, q_emb) -> dict:
+    """The dense side's per-shard candidate lists of one batch (the merge's inputs)."""
+    from intool_rag_tpu_torch.parallel.sharded_search import sharded_flat_topk_int8
+
+    box: dict = {}
+    c = engine.corpus
+    sharded_flat_topk_int8(q_emb, c.codes, c.scales, CANDIDATES, c.mesh, res=c.res, valid_n=c.counts,
+                           merge=_capturing(box, c.mesh.out_device))
+    return box
+
+
+def _small_engines(dev, corpus32, texts, tmp: Path, total: dict) -> dict:
+    """(d) ``DCNHybrid`` on a 2 x 2 mesh against ``ShardedHybrid`` on 4
+    shards over the first ``SMALL_ROWS`` rows, and (b)'s checkpoint round
+    trip of that ``ShardedHybrid``."""
+    from intool_rag_tpu_torch.index.bm25_index import BM25Params
+    from intool_rag_tpu_torch.parallel.dcn import DCNHybrid, dcn_mesh
+    from intool_rag_tpu_torch.parallel.mesh import corpus_mesh
+    from intool_rag_tpu_torch.parallel.sharded_hybrid import ShardedHybrid
+
+    rows, texts = corpus32[:SMALL_ROWS], texts[:SMALL_ROWS]
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED + 1)
+    q_texts = texts[:Q_SCALE]
+    q_emb = rows[:Q_SCALE] + QUERY_NOISE * torch.randn((Q_SCALE, DIM), generator=gen, device=dev)
+    kw = dict(capacity_per_shard=SMALL_CAP, params=BM25Params(p_max=P_MAX), quant="int8r")
+    flat = ShardedHybrid(DIM, corpus_mesh([dev] * 4), **kw)
+    dcn = DCNHybrid(DIM, dcn_mesh([dev] * 4, n_dcn=2), **kw)
+    g1, g2 = flat.append(texts, rows), dcn.append(texts, rows)
+    if not np.array_equal(g1, g2):
+        raise AssertionError("phase 13 (d): the DCN engine placed rows elsewhere")
+    out = {}
+    saved = dict(os.environ)
+    try:
+        _with_env({"FUSION_MODE": "weighted", "HYBRID_SEARCH_ENABLED": "true"})
+        results = {}
+        for label, engine in (("ShardedHybrid S=4", flat), ("DCNHybrid 2x2", dcn)):
+            engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES)
+            with _KernelsNoPlain(f"phase 13 (d) {label}") as watch:
+                results[label] = engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES)
+                t = _timed(lambda: engine.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES))
+            _expect(watch, {"K2 int8r": 2 * 4}, total)
+            out[label] = {"ms_per_batch": 1000 * t}
+        (fv, fr), (dv, dr) = results.values()
+        if not (torch.equal(fv, dv) and torch.equal(fr, dr)):
+            raise AssertionError("phase 13 (d): DCNHybrid 2x2 differs from ShardedHybrid on 4 shards")
+        if float((fr[:, 0].cpu() == torch.as_tensor(g1[:Q_SCALE])).float().mean()) < 0.99:
+            raise AssertionError("phase 13 (d): the queried chunks are not first")
+        t0 = time.perf_counter()
+        flat.save(tmp / "sharded_hybrid")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ShardedHybrid.load(tmp / "sharded_hybrid", flat.mesh)
+        load_s = time.perf_counter() - t0
+        bv, br = back.search(q_texts, q_emb, TOP_K, candidates=CANDIDATES)
+        if not (torch.equal(bv, fv) and torch.equal(br, fr)):
+            raise AssertionError("phase 13 (b): the reloaded ShardedHybrid's results differ")
+        files = sum(p.stat().st_size for p in (tmp / "sharded_hybrid").iterdir())
+        out["checkpoint"] = {"rows": SMALL_ROWS, "save_s": save_s, "load_s": load_s, "files_mb": files / 1e6,
+                             "bit_equal_after_reload": True}
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    log(f"phase 13 (d) and the checkpoint: {json.dumps(out)}")
+    return out
+
+
+def _sharded_bits(dev, centers, total: dict) -> dict:
+    """(c) ``ShardedBitsIndex`` over phase 5's 3M x d1024 corpus at nlist
+    256, against the single-device ``IVFBitsIndex`` from the same centroids
+    and capacity."""
+    from intool_rag_tpu_torch.index.bits_index import IVFBitsIndex
+    from intool_rag_tpu_torch.parallel.mesh import corpus_mesh
+    from intool_rag_tpu_torch.parallel.sharded_bits import ShardedBitsIndex
+
+    capacity = CAP_NLIST * 4 * 4 * CAP_BLOCK_N  # 16 blocks a list: 4 a shard, and the same lists on one device
+    trained = IVFBitsIndex.train(micro_chunk(1, centers, CAP_CHUNK), CAP_NLIST, capacity=capacity,
+                                 block_n=CAP_BLOCK_N, iters=CAP_KMEANS_ITERS, refine=False, device=dev)
+    sharded = ShardedBitsIndex(trained.centroids, corpus_mesh([dev] * 4), capacity=capacity, block_n=CAP_BLOCK_N)
+    t0 = time.perf_counter()
+    for c in range(CAP_ROWS // CAP_CHUNK):
+        chunk = micro_chunk(1 + c, centers, CAP_CHUNK)
+        if not np.array_equal(sharded.append(chunk), trained.append(chunk)):
+            raise AssertionError("phase 13 (c): global row ids differ")
+    torch.cuda.synchronize()
+    both_s = time.perf_counter() - t0
+    if sharded.cap_l != trained.cap_l or not np.array_equal(sharded.fill.sum(axis=1), trained.fill):
+        raise AssertionError("phase 13 (c): the lists' populations differ from the single-device index")
+    qs, q_sub, oracle = _capacity_queries(centers)
+    search = lambda: sharded.search(qs[0], CAP_POOL, nprobe=16, group_l=CAP_GROUP)  # noqa: E731
+    search()
+    with _KernelsNoPlain("phase 13 (c)") as watch:
+        _, pool = sharded.search(q_sub, CAP_POOL, nprobe=16, group_l=CAP_GROUP)
+        _, top = sharded.search(q_sub, TOP_K, nprobe=16, group_l=CAP_GROUP)
+        times = [_timed(search) for _ in range(3)]
+    _expect(watch, {"K3": 5 * 4}, total)
+    pool_recall, recall = _recall(pool.cpu().numpy(), oracle), _recall(top.cpu().numpy(), oracle)
+    if pool_recall < 0.95:
+        raise AssertionError(f"phase 13 (c): recall@10 in the pool of 100 at nprobe 16 {pool_recall} < 0.95")
+    # equality: both at group width 1 and the exact tail (every probed slot a candidate)
+    exact = dict(nprobe=16, group_l=1, tail="exact")
+    err = _held_equal(sharded.search(q_sub, TOP_K, **exact), trained.search(q_sub, TOP_K, **exact), 1e-5, 1e-5,
+                      "phase 13 (c) vs the single-device index")
+    out = {"rows": sharded.total_rows, "mesh": "virtual S=4", "nlist": sharded.nlist, "cap_l": sharded.cap_l,
+           "blocks_per_list_per_shard": sharded.local_blocks, "append_both_s": both_s,
+           "bytes_per_shard_mb": sharded.bytes_per_shard / 1e6, "recall@10_in_pool@100": pool_recall,
+           "recall@10_no_refine": recall, "max_abs_err_vs_single_device": err,
+           "qps_runs": [Q_SCALE / t for t in times], "qps_mean": float(np.mean([Q_SCALE / t for t in times]))}
+    log(f"phase 13 (c): {json.dumps(out)}")
+    del sharded, trained
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_kmeans_check(dev, centers) -> dict:
+    """(e) ``sharded_kmeans`` (S=4) and ``hierarchical_kmeans`` (2 x 2) from
+    the same initial centroids as single-device Lloyd steps
+    (``ops/kmeans.py``), on phase 5's first chunk at nlist 256."""
+    from intool_rag_tpu_torch.ops.kmeans import _kmeans_pp_init, lloyd_step_blockwise
+    from intool_rag_tpu_torch.parallel.dcn import dcn_mesh, hierarchical_kmeans
+    from intool_rag_tpu_torch.parallel.mesh import corpus_mesh
+    from intool_rag_tpu_torch.parallel.sharded_kmeans import sharded_kmeans
+    from intool_rag_tpu_torch.parallel.sharded_search import shard_corpus
+
+    points = micro_chunk(1, centers, CAP_CHUNK)
+    init = _kmeans_pp_init(points[:4096], CAP_NLIST, 0)
+    t0 = time.perf_counter()
+    c = init
+    for _ in range(KMEANS_ITERS):
+        assign, sums, counts = lloyd_step_blockwise(points, c)
+        c = torch.where((counts < 0.5)[:, None], c, sums / counts[:, None].clamp_min(1.0))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    out = {"points": CAP_CHUNK, "k": CAP_NLIST, "iters": KMEANS_ITERS, "single_device_s": single_s}
+    for label, mesh, fn in (("sharded_kmeans S=4", corpus_mesh([dev] * 4), sharded_kmeans),
+                            ("hierarchical_kmeans 2x2", dcn_mesh([dev] * 4, n_dcn=2), hierarchical_kmeans)):
+        pts = shard_corpus(points, mesh)
+        t0 = time.perf_counter()
+        got, got_assign = fn(pts, CAP_NLIST, mesh, valid_n=CAP_CHUNK, iters=KMEANS_ITERS, init=init)
+        torch.cuda.synchronize()
+        err = float((got - c).abs().max())
+        same = float((got_assign.gather()[:CAP_CHUNK] == assign).float().mean())
+        if err > 1e-4:
+            raise AssertionError(f"phase 13 (e) {label}: centroids differ by {err} > 1e-4")
+        out[label] = {"s": time.perf_counter() - t0, "max_abs_err": err, "same_assignment_share": same}
+    log(f"phase 13 (e): {json.dumps(out)}")
+    return out
+
+
+def _service_sharded_on(state: dict, total: dict) -> dict:
+    """(f) ``SHARDED_SEARCH=on`` behind the HTTP service on one card: the
+    single-device route (as the JAX package on one chip), the answers of
+    ``off``, K1 launched."""
+    from intool_rag_tpu_torch import config
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+    from intool_rag_tpu_torch.service.app import RAGService
+    from intool_rag_tpu_torch.service.http import ServiceServer
+
+    rng = np.random.default_rng(SHARD_SEED)
+    vocab, texts = _word_corpus(np.random.default_rng(1))
+    texts = texts[: TIER_SERVICE_DOCS * CHUNKS_PER_DOC]
+    questions = [texts[i] for i in rng.choice(len(texts), size=N_REQUESTS // 2, replace=False)]
+    questions += [" ".join(rng.choice(vocab[:2000], size=4)) for _ in range(N_REQUESTS // 2)]
+    saved = dict(os.environ)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
+    answers, out = {}, {"devices": torch.cuda.device_count(), "chunks": len(texts)}
+    try:
+        _with_env({"STORAGE_DIR": tmp.name, "CACHE_DIR": os.path.join(tmp.name, "cache"), "INDEX_KIND": "flat",
+                   "INDEX_DTYPE": "bfloat16", "DENSE_INT8": "0", "DENSE_INT8_RESIDUAL": "0", "USE_PALLAS": "1",
+                   "EMBEDDING_QUERY_INSTRUCTION": ""})
+        provider = CudaEmbeddingProvider(checkpoint=str(ENCODER_MID), device=DEVICE)
+        _write_storage(Path(tmp.name), texts, provider, n_docs=TIER_SERVICE_DOCS)
+        for mode in ("off", "on"):
+            _with_env({"SHARDED_SEARCH": mode, "CACHE_DIR": os.path.join(tmp.name, f"cache_{mode}")})
+            service = RAGService(provider, device=DEVICE)
+            server = ServiceServer(service, host="127.0.0.1", port=0)
+            server.start_background()
+            try:
+                _post(server.port, "warm up the search path")
+                # one request at a time: each is a batch of its own in both runs
+                # (the batcher's grouping of concurrent requests moves BM25's
+                # summation order, and so the last digit of a score)
+                with _KernelsNoPlain(f"phase 13 (f) SHARDED_SEARCH={mode}") as watch:
+                    results = [_post(server.port, q) for q in questions]
+            finally:
+                server.shutdown()
+                service.tasks.shutdown()
+            dense = service.registry.engine.dense
+            shards = mode == "on" and torch.cuda.device_count() >= 2  # JAX _use_sharded: two or more devices
+            if (dense._sharded is not None) != shards or dense.routes_flat() == shards or \
+                    set(watch.launches) != {"K1 bf16 precise"}:
+                raise AssertionError(f"phase 13 (f) {mode}: launched {watch.launches}, sharded "
+                                     f"{dense._sharded is not None}; expected the {'sharded' if shards else 'single-device'} "
+                                     "route through K1")
+            for name, count in watch.launches.items():
+                total[name] = total.get(name, 0) + count
+            answers[mode] = [[(h["doc_id"], h["chunk_id"], round(h["score"], 6)) for h in body["hits"]]
+                             for _, body in results]
+            out[mode] = {"p50_ms": 1000 * float(np.median([t for t, _ in results])), "launches": watch.launches}
+    finally:
+        tmp.cleanup()
+        os.environ.clear()
+        os.environ.update(saved)
+        config.reset_config()
+    same = answers["on"] == answers["off"] if out["devices"] == 1 else \
+        [a[:1] for a in answers["on"]] == [a[:1] for a in answers["off"]]
+    if not same:
+        q = next(i for i, (a, b) in enumerate(zip(answers["on"], answers["off"])) if a != b)
+        raise AssertionError(f"phase 13 (f): SHARDED_SEARCH=on answered otherwise than off: question {q}: "
+                             f"{answers['on'][q]} vs {answers['off'][q]}")
+    out["equal_answers"] = True
+    log(f"phase 13 (f): {json.dumps(out)}")
+    return out
+
+
+def phase_sharded(state: dict) -> None:
+    """Phase 13: corpus sharding on the card (``parallel/``), on virtual
+    meshes of the one card (and on every card where there are two or more)."""
+    from intool_rag_tpu_torch.ops.quant import quantize_int8_residual
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    log(f"phase 13: {torch.cuda.device_count()} CUDA device(s); the virtual meshes put S shards on {dev}, "
+        "one after another, so their QPS at S > 1 forecasts nothing about S cards")
+    total: dict[str, int] = {}
+    results = {"devices": torch.cuda.device_count(), "card": card_line()}
+    with _KernelsNoPlain("phase 13"), tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(7)  # phase 4's corpus
+        n_pad = -(-N_SCALE // 4096) * 4096
+        corpus32 = torch.randn((n_pad, DIM), generator=gen, device=dev)
+        corpus32 /= corpus32.norm(dim=1, keepdim=True)
+        corpus = corpus32.bfloat16()
+        planes = quantize_int8_residual(corpus)
+        qgen = torch.Generator(device=dev).manual_seed(SHARD_SEED)
+        q = _unit(qgen, (Q_SCALE, DIM), dev)
+        _, oracle = _exact_dense(q[:ORACLE_Q], corpus)
+        results["sharded_flat"] = _sharded_flat(dev, corpus, planes, q, oracle, total)
+        del corpus, planes
+        results["split_plans"] = _split_plans(dev)
+        torch.cuda.empty_cache()
+        chunk_terms = _zipf_terms(N_SCALE)
+        words = np.array([f"term{t}" for t in range(VOCAB)], dtype=object)
+        texts = [" ".join(row) for row in words[chunk_terms]]
+        log(f"phase 13: corpus and {len(texts):,} chunk texts made in {time.perf_counter() - t0:.1f} s")
+        results["sharded_hybrid"] = _sharded_hybrid(dev, corpus32, texts, chunk_terms, qgen, total)
+        results["dcn_and_checkpoint"] = _small_engines(dev, corpus32, texts, Path(tmp), total)
+        del corpus32, texts, chunk_terms
+        torch.cuda.empty_cache()
+        centers = _unit(torch.Generator(device=dev).manual_seed(0), (CAP_NLIST, DIM), dev)  # phase 5's
+        results["sharded_bits"] = _sharded_bits(dev, centers, total)
+        results["kmeans"] = _sharded_kmeans_check(dev, centers)
+        results["service"] = _service_sharded_on(state, total)
+    results["launches"] = total
+    state["sharded"] = results
+    for row in state.get("kernels", []):
+        row["launches_sharded"] = total.get(row["name"], 0)
+    log(f"phase 13 main-path launches: {json.dumps(total)}")
+
+
+def _exact_dense(q: torch.Tensor, stored: torch.Tensor):
+    """Phase 4's dense oracle of the stored rows: the blocked scan's top
+    ``CANDIDATES``, rescored exactly in f32, its top ``TOP_K``."""
+    from intool_rag_tpu_torch.ops.topk import flat_topk, rescore_candidates, top_k
+
+    _, rows = flat_topk(q, stored, CANDIDATES, metric="ip", block_n=100_000, valid_n=N_SCALE)
+    vals, pos = top_k(rescore_candidates(q, stored, rows, metric="ip"), TOP_K)
+    return vals, torch.gather(rows, 1, pos).cpu().numpy()
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
           6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned,
-          11: phase_tiers, 12: phase_training}
+          11: phase_tiers, 12: phase_training, 13: phase_sharded}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -138,7 +138,12 @@ class Config:
     DENSE_INT8_RESIDUAL: bool = _field(lambda: _env_bool("DENSE_INT8_RESIDUAL", False))
     INDEX_KIND: str = _field(lambda: _env_str("INDEX_KIND", "flat"))
     SEARCH_BLOCK_N: int = _field(lambda: _env_int("SEARCH_BLOCK_N", 16384))
+    # multi-device corpus sharding: "auto" shards the dense index over every
+    # local device when there are two or more and the corpus holds at least
+    # SHARDED_SEARCH_MIN_ROWS rows; "off" stays on one device; "on" shards
+    # whenever two or more devices are visible
     SHARDED_SEARCH: str = _field(lambda: _env_str("SHARDED_SEARCH", "auto"))
+    SHARDED_SEARCH_MIN_ROWS: int = _field(lambda: _env_int("SHARDED_SEARCH_MIN_ROWS", 100_000))
     USE_PALLAS: bool = _field(lambda: _env_bool("USE_PALLAS", True))
     IVF_NLIST: int = _field(lambda: _env_int("IVF_NLIST", 1024))
     IVF_NPROBE: int = _field(lambda: _env_int("IVF_NPROBE", 64))

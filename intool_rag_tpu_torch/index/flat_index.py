@@ -11,8 +11,14 @@ capacity tier; smaller stores search flat. ``ivf`` (``IVFFlatIndex``) and
 ``ivf_residual`` (``IVFResidualIndex``, ``IVF_RESIDUAL_BITS``) rebuild on
 every store mutation; ``segmented`` (``SegmentedResidualIndex``) and
 ``bits`` (``IVFBitsIndex``) append only the new rows and rebuild when the
-store object changes (a delete). The sharded route is not ported yet and
-raises.
+store object changes (a delete).
+
+``SHARDED_SEARCH`` routes as in the JAX package: with two or more local
+devices (every visible card for a store on the card), ``on``, or ``auto``
+on a store of at least ``SHARDED_SEARCH_MIN_ROWS`` rows, shards the store
+over them (:mod:`..parallel.sharded_search`) before any capacity tier is
+considered; the placement is cached per store mutation. On one device
+every setting searches on that device.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from ..config import get_config
 from ..ops.flat_fused import choose_group_width, flat_topk_fused, flat_topk_fused_int8
 from ..ops.topk import clamp_cosine, flat_topk, rescore_candidates
+from ..parallel import mesh
 from .chunk_store import ChunkStore
 
 
@@ -85,6 +92,68 @@ class DenseFlatIndex:
         self._ivf_store_ref = None
         self._q8 = None  # (codes int8, scales f32, residual | None) for DENSE_INT8
         self._q8_built_at = -1
+        self._sharded = None  # (mesh, payload): the store's placement over the devices
+        self._sharded_built_at = -1
+
+    def _use_sharded(self, cfg) -> bool:
+        if cfg.SHARDED_SEARCH == "off" or self.metric not in ("cosine", "ip"):
+            return False
+        if len(mesh.local_devices(self.store.device.type)) < 2:
+            return False
+        if cfg.SHARDED_SEARCH == "on":
+            return True
+        return self.store.valid_n >= cfg.SHARDED_SEARCH_MIN_ROWS
+
+    def _sharded_corpus(self):
+        """``(mesh, payload)``, rebuilt per store mutation. Payload is
+        ``("plain", store rows)`` or, with ``DENSE_INT8`` on the card,
+        ``("int8", codes, scales, residual | None)`` of the int8 mirror.
+        On the card each shard is padded to the widest kernel block
+        (128·32 rows); padding rows are masked by valid_n before selection."""
+        from ..parallel.sharded_search import shard_corpus
+
+        cfg = get_config()
+        on_card = self.store.device.type == "cuda"
+        want_int8 = bool(cfg.DENSE_INT8) and on_card and cfg.USE_PALLAS
+        if (
+            self._sharded is None
+            or self._sharded_built_at != self.store.mutation_count
+            or (self._sharded[1][0] == "int8") != want_int8
+        ):
+            m = mesh.corpus_mesh(mesh.local_devices(self.store.device.type))
+            row_align = 4096 if on_card and cfg.USE_PALLAS else 1
+            if want_int8:
+                q8, s8, res = self._int8_mirror(residual=cfg.DENSE_INT8_RESIDUAL)
+                payload = (
+                    "int8", shard_corpus(q8, m, row_align=row_align), shard_corpus(s8, m, row_align=row_align),
+                    shard_corpus(res, m, row_align=row_align) if cfg.DENSE_INT8_RESIDUAL else None,
+                )
+            else:
+                payload = ("plain", shard_corpus(self.store.embeddings, m, row_align=row_align))
+            self._sharded = (m, payload)
+            self._sharded_built_at = self.store.mutation_count
+        return self._sharded
+
+    def _sharded_search(self, query_embeddings: torch.Tensor, k: int, cfg):
+        from ..parallel.sharded_search import kernel_group_l, sharded_flat_topk, sharded_flat_topk_int8
+
+        store = self.store
+        m, payload = self._sharded_corpus()
+        if payload[0] == "int8":
+            _, codes, scales, res = payload
+            vals, rows = sharded_flat_topk_int8(query_embeddings, codes, scales, k, m, res=res,
+                                                valid_n=store.valid_n)
+        else:
+            sharded = payload[1]
+            shard_rows = max(sharded.shard_rows, 1)
+            fused = cfg.USE_PALLAS and store.device.type == "cuda" and kernel_group_l(shard_rows, k) is not None
+            vals, rows = sharded_flat_topk(
+                query_embeddings, sharded, k, m, valid_n=store.valid_n,
+                block_n=min(cfg.SEARCH_BLOCK_N, shard_rows), kernel="fused" if fused else "scan",
+            )
+        if self.metric == "cosine":
+            vals = clamp_cosine(vals)
+        return vals.to(store.device), rows.to(store.device)
 
     def _int8_mirror(self, residual: bool = False):
         """int8 + scales mirror of the store for K2, quantized on the
@@ -198,13 +267,10 @@ class DenseFlatIndex:
 
     def routes_flat(self, cfg=None, *, exact: bool | None = None) -> bool:
         """True when :meth:`search` takes a flat branch, so :meth:`flat_plan`
-        describes it; False when it goes through the capacity tier. Raises
-        for ``SHARDED_SEARCH=on``, which this port does not have yet."""
+        describes it; False when it shards or goes through the capacity tier."""
         cfg = cfg or get_config()
-        if cfg.SHARDED_SEARCH == "on":
-            raise NotImplementedError(
-                "SHARDED_SEARCH=on is not ported yet (ROADMAP Queue A, multi-device)"
-            )
+        if self._use_sharded(cfg) and exact is not True:
+            return False
         return not self._routes_ivf(cfg, exact)
 
     def search(self, query_embeddings: torch.Tensor, k: int, *, exact: bool | None = None):
@@ -224,7 +290,9 @@ class DenseFlatIndex:
                 query_embeddings, (0, store.dim_pad - store.dim)
             )
         cfg = get_config()
-        if not self.routes_flat(cfg, exact=exact):  # raises for SHARDED_SEARCH=on
+        if self._use_sharded(cfg) and exact is not True:  # before any capacity tier, as in JAX
+            return self._sharded_search(query_embeddings, k, cfg)
+        if self._routes_ivf(cfg, exact):
             ivf = self._ivf_index()
             # refine_k only where the tier keeps a host int8 copy (IVFFlatIndex has none)
             kwargs = (

@@ -88,6 +88,7 @@ def get_lib() -> ctypes.CDLL | None:
         lib.build_corpus.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
         lib.corpus_sizes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
         lib.corpus_copy.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 7
+        lib.corpus_first_seen.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.free_corpus.argtypes = [ctypes.c_void_p]
         lib.tokenize_one.restype = ctypes.c_int64
         lib.tokenize_one.argtypes = [
@@ -102,10 +103,12 @@ def native_available() -> bool:
     return get_lib() is not None
 
 
-def build_corpus_native(texts: list[str]):
+def build_corpus_native(texts: list[str], *, first_seen: bool = False):
     """Tokenize and count a corpus natively: ``(vocab list sorted, df [V]
     i32, doc_indptr [n+1] i64, pair_terms [nnz] i32, pair_counts [nnz] i32,
-    doc_len [n] i32)``, or None when the library is unavailable."""
+    doc_len [n] i32)``, with ``first_seen`` also each vocabulary term's rank
+    in the order the texts' tokens meet them ([V] i32); None when the
+    library is unavailable. A document's pairs come in hash-map order."""
     lib = get_lib()
     if lib is None:
         return None
@@ -130,7 +133,12 @@ def build_corpus_native(texts: list[str]):
             vocab_offsets, df, doc_indptr, pair_terms, pair_counts, doc_len)))
         raw = blob.raw[:blob_bytes]
         vocab = [raw[vocab_offsets[i] : vocab_offsets[i + 1]].decode("utf-8") for i in range(v)]
-        return vocab, df, doc_indptr, pair_terms[:nnz], pair_counts[:nnz], doc_len[:n_docs]
+        out = (vocab, df, doc_indptr, pair_terms[:nnz], pair_counts[:nnz], doc_len[:n_docs])
+        if first_seen:
+            rank = np.zeros(max(v, 1), np.int32)
+            lib.corpus_first_seen(handle, rank.ctypes.data_as(ctypes.c_void_p))
+            out += (rank[:v],)
+        return out
     finally:
         lib.free_corpus(handle)
 

@@ -173,6 +173,7 @@ struct CorpusResult {
   std::vector<int32_t> pair_terms;     // [nnz]
   std::vector<int32_t> pair_counts;    // [nnz]
   std::vector<int32_t> doc_len;        // [n_docs] total tokens
+  std::vector<int32_t> first_seen;     // [V] rank of each (sorted) term in first-seen order
 };
 
 }  // namespace
@@ -224,6 +225,7 @@ void* build_corpus(const char* docs, const int64_t* offsets, int64_t n_docs) {
   std::sort(order.begin(), order.end(), [&](int32_t a, int32_t b) {
     return terms[a] < terms[b];
   });
+  res->first_seen = order;
   std::vector<int32_t> remap(terms.size());
   for (size_t rank = 0; rank < order.size(); ++rank)
     remap[order[rank]] = static_cast<int32_t>(rank);
@@ -267,6 +269,13 @@ void corpus_copy(void* handle, char* blob, int64_t* vocab_offsets, int32_t* df,
   std::memcpy(pair_counts, r->pair_counts.data(),
               r->pair_counts.size() * sizeof(int32_t));
   std::memcpy(doc_len, r->doc_len.data(), r->doc_len.size() * sizeof(int32_t));
+}
+
+// The first-seen rank of each term of the sorted vocabulary: the order in
+// which a tokenizing pass over the corpus meets them.
+void corpus_first_seen(void* handle, int32_t* out) {
+  auto* r = static_cast<CorpusResult*>(handle);
+  std::memcpy(out, r->first_seen.data(), r->first_seen.size() * sizeof(int32_t));
 }
 
 void free_corpus(void* handle) { delete static_cast<CorpusResult*>(handle); }

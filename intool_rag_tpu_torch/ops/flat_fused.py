@@ -39,6 +39,11 @@ _KINDS = {
     "K1 f32": (7, 128),
 }
 MAX_GROUP_L = 128  # the kernels keep j in one byte
+# a split block's last CTA merges splits x width partial rows of 128 lanes
+# alone: 16 or 32 splits of 64-128-wide tiles took 3.7-27 ms on the H100
+# where the unsplit launch took 0.18-0.39 ms (2 x 128 and 8 x 16 stayed
+# fast; chip_smoke.py phase 13's shard shapes, NVIDIA H100 80GB HBM3, 700 W)
+MAX_MERGE_ROWS = 256
 
 
 class LaunchCount:
@@ -94,7 +99,8 @@ def plan_launch(q: int, n: int, d: int, group_l: int, n_sm: int, variant: str) -
     block's ``group_l`` tiles split: none where the blocks already give the
     ``n_sm`` persistent CTAs an item each, else the divisor of ``group_l``
     that gives each CTA the fewest 128-row tiles (rounds of items times
-    tiles per item), the smallest such. Raises on shapes the kernel
+    tiles per item), the smallest such, among the splits whose merge stays
+    small: ``splits · width ≤ MAX_MERGE_ROWS``. Raises on shapes the kernel
     refuses."""
     if variant not in _KINDS:
         raise ValueError(f"no tensor-core kernel for {variant!r}")
@@ -110,7 +116,7 @@ def plan_launch(q: int, n: int, d: int, group_l: int, n_sm: int, variant: str) -
     items = -(-q // width) * (n // (LANES * group_l))
     if items >= n_sm:
         return width, 1
-    splits = min((s for s in range(1, group_l + 1) if group_l % s == 0),
+    splits = min((s for s in range(1, group_l + 1) if group_l % s == 0 and s * width <= MAX_MERGE_ROWS),
                  key=lambda s: (-(-items * s // n_sm) * (group_l // s), s))
     return width, splits
 

@@ -26,11 +26,23 @@ from .topk import NEG_INF, merge_topk, top_k
 _SOURCE = "quant_stochastic.cu"
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+# XLA compiles ``absmax / 127.0`` under ``jax.jit`` as ``absmax · (1/127)``
+# (and torch on CUDA divides by a Python scalar the same way): the scale
+# rule of every JAX build that quantizes inside a jitted function
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def _row_scale(xf: torch.Tensor, reciprocal: bool) -> torch.Tensor:
+    absmax = xf.abs().amax(dim=1).clamp_min(1e-9)
+    return absmax * _INV127 if reciprocal else absmax / 127.0
+
+
+def quantize_int8(x: torch.Tensor, *, reciprocal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric absmax quantization.
-    Returns (values int8 [N, D], scales f32 [N])."""
+    Returns (values int8 [N, D], scales f32 [N]). ``reciprocal`` takes the
+    scale as ``absmax · (1/127)``, the jitted JAX builds' rule."""
     xf = x.float()
-    scale = xf.abs().amax(dim=1).clamp_min(1e-9) / 127.0
+    scale = _row_scale(xf, reciprocal)
     q = torch.round(xf / scale[:, None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -40,15 +52,15 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_int8_residual(
-    x: torch.Tensor,
+    x: torch.Tensor, *, reciprocal: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-level int8 row encoding ``row ≈ scale · (q1 + q2/128)``.
 
     ``q2 = round(128·(row/scale − q1))`` lies in [−64, 64] because
     |row/scale − q1| ≤ 0.5. Returns ``(q1 int8 [N,D], q2 int8 [N,D],
-    scale f32 [N])``."""
+    scale f32 [N])``; ``reciprocal`` as in :func:`quantize_int8`."""
     xf = x.float()
-    scale = xf.abs().amax(dim=1).clamp_min(1e-9) / 127.0
+    scale = _row_scale(xf, reciprocal)
     scaled = xf / scale[:, None]
     q1f = torch.round(scaled.clamp(-127.0, 127.0))
     q2 = torch.round(128.0 * (scaled - q1f)).to(torch.int8)

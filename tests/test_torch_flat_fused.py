@@ -310,6 +310,17 @@ def test_plan_launch_covers_the_main_shapes(shape):
     assert plan_launch(256, 1_003_520, 1024, 32, 132, "K1 f32") == (128, 1)
     assert plan_launch(16, 53_248, 384, 32, 132, "K1 f32") == (16, 8)
     assert plan_launch(8, 53_248, 384, 8, 132, "K1 f32") == (8, 2)
+    # a shard of a 4-way sharded 1M-row store (62 blocks): the merge of a
+    # split block grows with splits x width, so wide tiles split at most
+    # 256 / width ways (32 and 16 splits ran 27 and 7.3 ms on the H100)
+    assert plan_launch(256, 253_952, 1024, 32, 132, "K1 bf16 precise") == (128, 1)
+    assert plan_launch(128, 253_952, 1024, 32, 132, "K1 bf16 precise") == (128, 2)
+    assert plan_launch(128, 253_952, 1024, 32, 132, "K2 int8r") == (64, 1)
+    assert plan_launch(64, 503_808, 1024, 32, 132, "K1 bf16 precise") == (64, 1)
+    for q in (1, 8, 16, 64, 128, 256, 300):
+        for variant in VARIANTS:
+            width, splits = plan_launch(q, 253_952, 1024, 32, 132, variant)
+            assert splits * width <= flat_fused.MAX_MERGE_ROWS
 
 
 @pytest.mark.parametrize("args", [

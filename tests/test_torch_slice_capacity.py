@@ -171,13 +171,45 @@ def test_registry_add_and_delete_match_jax(monkeypatch, corpus, tmp_path, name):
 
 
 @pytest.mark.parametrize("kind", ["ivf", "ivf_residual", "segmented", "bits"])
-def test_sharded_search_on_still_raises(monkeypatch, kind):
-    """The only route the port lacks: SHARDED_SEARCH=on (multi-device)."""
+def test_sharded_search_on_routes_as_jax(monkeypatch, kind):
+    """``SHARDED_SEARCH=on`` routes as the JAX package's ``_use_sharded``
+    (``index/flat_index.py:115-123, 327, 382-390``) over a 4,096-row store:
+    on one device it takes the route of ``off`` (the capacity tier of this
+    ``INDEX_KIND``); on 8 it shards before the tier, ``routes_flat`` is
+    False, and the results equal the JAX sharded route's."""
+    import jax
+
+    from intool_rag_tpu.index.chunk_store import ChunkStore as JaxStore
+    from intool_rag_tpu.index.flat_index import DenseFlatIndex as JaxIndex
     from intool_rag_tpu_torch.index.chunk_store import ChunkStore
     from intool_rag_tpu_torch.index.flat_index import DenseFlatIndex
+    from intool_rag_tpu_torch.parallel import mesh
 
-    _set_env(monkeypatch, INDEX_KIND=kind, SHARDED_SEARCH="on")
-    store = ChunkStore(dim=32, dtype="float32", device="cpu")
-    store.append(np.eye(4, 32, dtype=np.float32), "doc", list("abcd"), [0] * 4, list("abcd"))
-    with pytest.raises(NotImplementedError, match="SHARDED_SEARCH"):
-        DenseFlatIndex(store).routes_flat()
+    n, d = 4096, 32
+    emb = np.random.default_rng(4).standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    ids = [f"c{i}" for i in range(n)]
+    store = ChunkStore(dim=d, dtype="float32", device="cpu")
+    store.append(emb, "doc", ids, [0] * n, ids)
+    jstore = JaxStore(dim=d, dtype="float32")
+    jstore.append(emb, "doc", ids, [0] * n, ids)
+    index, jindex = DenseFlatIndex(store), JaxIndex(jstore)
+
+    routes = {}
+    one_jax_device = jax.devices()[:1]
+    for mode in ("off", "on"):
+        _set_env(monkeypatch, INDEX_KIND=kind, SHARDED_SEARCH=mode)
+        with monkeypatch.context() as m:
+            m.setattr(jax, "devices", lambda *a, **kw: one_jax_device)
+            routes[mode] = (index.routes_flat(), jindex.routes_flat())
+    assert routes["on"] == routes["off"] == (False, False)  # the capacity tier, in both packages
+
+    monkeypatch.setattr(mesh, "local_devices", lambda device_type="cuda": [torch.device("cpu")] * 8)
+    assert not index.routes_flat() and not jindex.routes_flat()
+    q = emb[:6] + 0.01
+    tv, tr = index.search(torch.from_numpy(q), 10)
+    jv, jr = jindex.search(jnp.asarray(q), 10)
+    assert index._sharded is not None and index._ivf is None  # sharded, no tier built
+    assert len(index._sharded[1][1].shards) == 8
+    assert_topk_equal(tv.numpy(), tr.numpy(), np.asarray(jv), np.asarray(jr))
+    assert tr[:, 0].tolist() == list(range(6))
