@@ -6,7 +6,7 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``/query`` alone, ``1,9`` for the rest of the served surface alone,
 ``1,10`` for the OCR fallback alone, ``1,11`` for the capacity tiers
 alone, ``1,12`` for the trainers alone, ``1,13`` for corpus sharding
-alone). Phases:
+alone, ``1,14`` for model parallelism alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -187,8 +187,9 @@ alone). Phases:
    that repeats its context: ms a token plain, speculative and in waves,
    and ``llm.accepted_per_wave``. Last of the whole run, after every
    timing: ``POST /debug/trace`` (0.5 s) while ``/agent/query`` requests
-   run must write one Chrome trace holding CUDA kernel events. The kernel
-   table's rows gain ``launches_served``.
+   run must write one Chrome trace holding CUDA kernel events
+   (``--trace-windows N`` repeats the window N times, with 1 and 4 request
+   threads in turn). The kernel table's rows gain ``launches_served``.
 10. scanned ingest: the committed scanned fixture
    (``intool_rag_tpu_torch/ocr/fixtures/scanned_invoices.pdf``: 8 US Letter
    pages at 144 DPI, 1,224 x 1,584 px, 20-27 ground-truth lines each, one
@@ -289,6 +290,29 @@ alone). Phases:
    ms of a batch, the merge's share and the peak memory are printed with the
    mesh they came from. The kernel table's rows gain ``launches_sharded``.
 
+14. model parallelism on virtual meshes of the one card (with two or more
+   cards, over all of them as well). (a) ``shard_decoder_params`` at
+   TinyLlama width (random weights), tp 2 and 4: an f32 copy's greedy
+   tokens (2 prompts of 128, 32 new) and its ``ContinuousGenerator`` tokens
+   (4 prompts, 2 slots) equal the single device's; the bf16 model's
+   teacher-forced logits within phase 8's bar (``BF16_CACHE_*``) and its
+   greedy tokens equal up to the first position whose single-device top-2
+   gap is within the logits' max |diff|; ms a token at tp 1 / 2 / 4, and
+   after the last phase the launches a token under ``torch.profiler``.
+   (b) ``sp_encode_fn`` at ``bge_m3`` width, B 1, S 8,192, over seq meshes
+   of 2 and 4: each embedding at cosine >= 0.999 to the single-device
+   forward (the K5 route), an f32 copy at depth 2 within 1e-4 of the
+   single-device key-mask route; ms a forward and peak memory. (c) the
+   DP+TP step on ``train_mesh`` (data 2, model 2) from phase 7's first run
+   (its weights and batch): 3 steps, falling, the first loss within 1e-2
+   relative of the single-device step's; the first step's bf16 gradient,
+   leaf by leaf, no further from the single-device f32 step's than
+   ``MP_GRAD_RATIO`` times the single-device bf16 step's; two runs
+   bit-equal, K5 forward / dkv / dq launched layers x shards x groups a
+   step (the phase's main path); an f32 copy at depth 2 within 1e-5
+   relative a step. No plain version may run; the kernel table's rows gain
+   ``launches_model_parallel``.
+
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -298,6 +322,8 @@ when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -3791,42 +3817,55 @@ def phase_served(state: dict) -> None:
     state["served"] = {"agent": agent, "decoder": decoder, "launches": launches}
 
 
-def served_trace(state: dict) -> None:
+def served_trace(state: dict, windows: int = 1) -> None:
     """``POST /debug/trace`` (0.5 s) while ``/agent/query`` requests run:
     the trace file must exist and hold CUDA kernel events. After every
-    timing of the run: a profiler window slows later host work."""
+    timing of the run: a profiler window slows later host work. With
+    ``windows`` > 1 (``--trace-windows``) the window repeats, with 1 and 4
+    request threads in turn: the device gate must keep every start and
+    stop of the profiler apart from the requests' launches."""
     import glob
     import threading
 
     service, server, tmp = state.pop("served_trace")
-    stop = threading.Event()
-    answered = []
-
-    def agent_loop():
-        while not stop.is_set():
-            answered.append(_agent(server.port, "what does the invoice part say about the report")[1])
-
-    worker = threading.Thread(target=agent_loop)
+    readings = []
     try:
-        worker.start()
-        time.sleep(0.2)
-        out = _http(server.port, "POST", "/debug/trace", json.dumps({"seconds": 0.5}).encode(), "application/json")
-        stop.set()
-        worker.join()
-        files = glob.glob(os.path.join(out["trace_dir"], "*.json"))
-        events = json.loads(Path(files[0]).read_text())["traceEvents"] if len(files) == 1 else []
+        for w in range(windows):
+            stop = threading.Event()
+            answered = []
+
+            def agent_loop(stop, answered):
+                while not stop.is_set():
+                    answered.append(_agent(server.port, "what does the invoice part say about the report")[1])
+
+            workers = [threading.Thread(target=agent_loop, args=(stop, answered)) for _ in range(1 if w % 2 == 0 else 4)]
+            try:
+                for worker in workers:
+                    worker.start()
+                time.sleep(0.2)
+                out = _http(server.port, "POST", "/debug/trace", json.dumps({"seconds": 0.5}).encode(),
+                            "application/json")
+            finally:
+                stop.set()
+                for worker in workers:
+                    worker.join()
+            files = sorted(glob.glob(os.path.join(out["trace_dir"], "*.json")))
+            events = json.loads(Path(files[-1]).read_text())["traceEvents"] if len(files) == w + 1 else []
+            readings.append({"threads": len(workers), "files": len(files), "events": len(events),
+                             "cuda_kernel_events": sum(1 for e in events if e.get("cat") == "kernel"),
+                             "agent_query_ranges": sum(1 for e in events if e.get("name") == "agent.query"),
+                             "agent_answers": len(answered)})
+            if len(files) != w + 1 or not readings[-1]["cuda_kernel_events"] or not answered:
+                raise AssertionError(f"phase 9 trace, window {w}: {readings[-1]}")
     finally:
-        stop.set()
         server.shutdown()
         service.tasks.shutdown()
         tmp.cleanup()
-    kernels = sum(1 for e in events if e.get("cat") == "kernel")
-    phases = sum(1 for e in events if e.get("name") == "agent.query")
-    trace = {"seconds": out["seconds"], "files": len(files), "events": len(events), "cuda_kernel_events": kernels,
-             "agent_query_ranges": phases, "agent_answers": len(answered), "card": card_line()}
+    trace = {"seconds": out["seconds"], **readings[0], "card": card_line()}
+    if windows > 1:
+        trace["windows"] = windows
+        trace["min"] = {k: min(r[k] for r in readings) for k in ("events", "cuda_kernel_events", "agent_answers")}
     log(f"phase 9 /debug/trace: {json.dumps(trace)}")
-    if len(files) != 1 or kernels == 0 or not answered:
-        raise AssertionError(f"phase 9 trace: {trace}")
     state.setdefault("served", {})["trace"] = trace
 
 
@@ -5306,15 +5345,459 @@ def _exact_dense(q: torch.Tensor, stored: torch.Tensor):
     return vals, torch.gather(rows, 1, pos).cpu().numpy()
 
 
+# ------------------------------------------------------------------ phase 14
+
+MP_SEED = 14
+TP_DEGREES = (2, 4)  # tensor-parallel degrees, on virtual meshes of the one card
+TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 128, 32
+TP_SCHED = (4, 2, 16)  # ContinuousGenerator: prompts, slots, new tokens each
+TP_TIMED_STEPS, TP_PROFILED_STEPS = 32, 4  # decode steps behind ms a token, and behind launches a token
+SP_SHARDS, SP_LEN, SP_VALID = (2, 4), 8192, 8000  # BGE-M3's long input, a padded tail
+SP_F32_ATOL = 1e-4
+MP_STEPS, MP_LOSS_REL, MP_F32_RTOL = 3, 1e-2, 1e-5
+# the sharded bf16 gradient's distance to the f32 one, leaf by leaf, over one device's bf16 distance:
+# 1.63 at worst and 1.016 over all leaves at bge_m3 width on an H100 (PERF.md, Findings)
+MP_GRAD_RATIO = 2.5
+TINYLLAMA_WIDTH = (22, 32, 4, 5632, 32000)  # layers, heads, kv heads, intermediate, vocabulary
+
+
+def _meshes_of(make, sizes, dev) -> list[tuple[str, object]]:
+    """``(label, mesh)``: ``make(devices)`` over ``n`` entries of the one card
+    for each size, and over every card where there are two or more."""
+    from intool_rag_tpu_torch.parallel.mesh import local_devices
+
+    meshes = [(f"virtual {n}", make([dev] * n)) for n in sizes]
+    if torch.cuda.device_count() >= 2:
+        devices = local_devices()
+        meshes.append((f"real {len(devices)}", make(devices)))
+    return meshes
+
+
+def _greedy(model, ids: torch.Tensor, new: int) -> torch.Tensor:
+    from intool_rag_tpu_torch.models.decoder import generate
+
+    return generate(model, ids, torch.ones_like(ids), max_new_tokens=new)
+
+
+def _decode_ms(model, ids: torch.Tensor) -> float:
+    """ms a decode step at batch 1 (wall through ``generate``: the
+    difference of ``TP_TIMED_STEPS + 1`` new tokens and 1, medians of 2)."""
+
+    def wall(n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _greedy(model, ids, n)
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t0)
+
+    wall(TP_TIMED_STEPS + 1)
+    one = float(np.median([wall(1) for _ in range(2)]))
+    full = float(np.median([wall(TP_TIMED_STEPS + 1) for _ in range(2)]))
+    return (full - one) / TP_TIMED_STEPS
+
+
+def _logit_check(single, tp, seq: torch.Tensor) -> dict:
+    """One teacher-forced prefill of ``seq`` through both models: max |diff|
+    against the largest |logit|, the least cosine over positions, and the
+    greedy token of every position: equal wherever the single device's
+    top-2 gap exceeds the max |diff|."""
+    pos = torch.arange(seq.shape[1], device=seq.device).expand_as(seq)
+    with torch.no_grad():
+        want = single(seq, pos, single.init_cache(seq.shape[0], positions=seq.shape[1]))
+        got = tp(seq, pos, tp.init_cache(seq.shape[0], positions=seq.shape[1]))
+    top2 = torch.topk(want, 2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    max_diff = float((got - want).abs().max())
+    clear = gaps > max_diff
+    return {"max_abs_diff": max_diff, "max_abs_logit": float(want.abs().max()),
+            "min_cosine": float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()),
+            "positions": int(gaps.numel()), "positions_clear_of_ties": int(clear.sum()),
+            "greedy_equal_where_clear": bool((got.argmax(-1) == want.argmax(-1))[clear].all())}
+
+
+def _tp_decode(state: dict, dev) -> dict:
+    """(a) TinyLlama width, random weights: the f32 copy's greedy tokens and
+    scheduler tokens equal one device's at tp 2 and 4; the bf16 model's
+    logits within phase 8's bar and its greedy tokens equal up to the first
+    near-tie; ms a token at tp 1 / 2 / 4."""
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM, init_decoder_params
+    from intool_rag_tpu_torch.models.scheduler import ContinuousGenerator
+    from intool_rag_tpu_torch.parallel.mesh import Mesh
+    from intool_rag_tpu_torch.parallel.tp_decoder import shard_decoder_params
+
+    cfg = DecoderConfig.tinyllama()
+    if (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size) != TINYLLAMA_WIDTH:
+        raise AssertionError(f"phase 14 expects the TinyLlama width, got {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED)
+    params = init_decoder_params(cfg, gen)
+    f32 = DecoderLM(dataclasses.replace(cfg, dtype="float32"), device=dev).eval()
+    f32.load_state_dict(params)
+    bf16 = DecoderLM(cfg, device=dev).eval()
+    bf16.load_state_dict(params)
+    del params
+    ids = torch.randint(3, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT_LEN), generator=gen, device=dev)
+    sched_prompts = [torch.randint(3, cfg.vocab_size, (int(n),), generator=gen, device=dev).tolist()
+                     for n in (24, 40, 56, 72)[:TP_SCHED[0]]]
+    with torch.no_grad():
+        want_f32 = _greedy(f32, ids, TP_NEW)
+        want_bf16 = _greedy(bf16, ids, TP_NEW)
+        want_sched, _ = ContinuousGenerator(f32, n_slots=TP_SCHED[1]).generate_many(sched_prompts, TP_SCHED[2])
+    seq = torch.cat([ids, want_bf16], dim=1)  # the bf16 single device's own sequence, teacher-forced
+    out = {"config": "tinyllama", "prompts": [TP_PROMPTS, TP_PROMPT_LEN], "new_tokens": TP_NEW, "degrees": {}}
+    timed = {"tp 1": bf16}
+    for label, mesh in _meshes_of(lambda d: Mesh(d, ("model",)), TP_DEGREES, dev):
+        tp = mesh.shape["model"]
+        t0 = time.perf_counter()
+        tp_f32, tp_bf16 = (shard_decoder_params(m, mesh) for m in (f32, bf16))
+        shard_s = time.perf_counter() - t0
+        with torch.no_grad():
+            got_f32 = _greedy(tp_f32, ids, TP_NEW)
+            got_bf16 = _greedy(tp_bf16, ids, TP_NEW)
+            got_sched, sched_stats = ContinuousGenerator(tp_f32, n_slots=TP_SCHED[1]).generate_many(
+                sched_prompts, TP_SCHED[2])
+        logits = _logit_check(bf16, tp_bf16, seq)
+        row = {
+            "mesh": label, "tp": tp, "shard_s": shard_s,
+            "f32_greedy_equal": bool(torch.equal(got_f32, want_f32)),
+            "f32_scheduler_equal": got_sched == want_sched, "scheduler_tokens": sched_stats["total_tokens"],
+            "bf16_logits": logits,
+            # free-running bf16 tokens part at the first near-tie, then follow other prefixes (a reading)
+            "bf16_share_equal": float((got_bf16 == want_bf16).float().mean()),
+        }
+        out["degrees"][label] = row
+        log(f"phase 14 (a) TP decode {label}: {json.dumps(row)}")
+        bar = BF16_CACHE_REL * logits["max_abs_logit"]
+        if not (row["f32_greedy_equal"] and row["f32_scheduler_equal"]
+                and logits["greedy_equal_where_clear"] and logits["positions_clear_of_ties"] > 0
+                and logits["max_abs_diff"] <= bar and logits["min_cosine"] >= BF16_CACHE_COS):
+            raise AssertionError(f"phase 14 (a) TP decode {label}: {json.dumps(row)}")
+        del tp_f32
+        timed[label] = tp_bf16
+    del f32
+    torch.cuda.empty_cache()
+    one = ids[:1]
+    out["ms_per_token"] = {label: _decode_ms(m, one) for label, m in timed.items()}
+    out["card"] = card_line()
+    log(f"phase 14 (a) decode ms a token, batch 1, {TP_PROMPT_LEN}-token prompt, bf16: "
+        f"{json.dumps(out['ms_per_token'])}")
+    state["mp_decode"] = timed  # launches a token: profiled after the last phase
+    return out
+
+
+def model_parallel_launches(state: dict) -> None:
+    """Launches and device busy ms a decode token at each tp, from
+    ``torch.profiler`` over ``generate`` with 1 and ``TP_PROFILED_STEPS + 1``
+    new tokens (after the last phase: a profiler window slows later host work)."""
+    models = state.pop("mp_decode")
+    out = {}
+    for label, model in models.items():
+        dev = model.embed.weight.device
+        ids = torch.randint(3, model.config.vocab_size, (1, TP_PROMPT_LEN),
+                            generator=torch.Generator(device=dev).manual_seed(MP_SEED), device=dev)
+        with torch.no_grad():
+            one = _profiled_kernels(lambda: _greedy(model, ids, 1))
+            full = _profiled_kernels(lambda: _greedy(model, ids, TP_PROFILED_STEPS + 1))
+        if not full:
+            out[label] = "not measured: torch.profiler reported no device time"
+            continue
+        out[label] = {
+            "launches_per_token": (sum(c for _, _, c in full) - sum(c for _, _, c in one)) / TP_PROFILED_STEPS,
+            "device_busy_ms_per_token": (sum(ms for _, ms, _ in full) - sum(ms for _, ms, _ in one))
+            / TP_PROFILED_STEPS,
+        }
+    state["model_parallel"]["tp_decode"]["profile"] = out
+    log(f"phase 14 (a) decode launches a token under torch.profiler: {json.dumps(out)}")
+
+
+def _sp_encode(dev) -> dict:
+    """(b) ``bge_m3`` width, B 1, S 8,192: the sequence-parallel embeddings
+    against the single-device forward (K5), bf16, at seq meshes of 2 and 4;
+    an f32 copy at depth 2 against the single-device key-mask route."""
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.parallel.sequence import seq_mesh, sp_encode_fn
+
+    cfg = EncoderConfig.bge_m3()
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads) != INGEST_WIDTH[:3]:
+        raise AssertionError(f"phase 14 expects the bge_m3 width, got {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED)
+    model = TextEncoder(cfg, device=dev).init_random(gen).eval()
+    ids = torch.randint(4, cfg.vocab_size, (1, SP_LEN), generator=gen, device=dev)
+    mask = (torch.arange(SP_LEN, device=dev) < SP_VALID).long()[None]
+    ids = torch.where(mask.bool(), ids, cfg.pad_token_id)
+    ids[:, 0] = 0
+
+    def peak_mb(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    out = {"config": "bge_m3", "batch": 1, "seq": SP_LEN, "valid": SP_VALID, "meshes": {}}
+    with torch.no_grad():
+        ref = model(ids, mask)  # the K5 route
+        out["single_device"] = {"ms": cuda_ms(lambda: model(ids, mask), iters=3, warmup=1),
+                                "peak_mb_above_resident": peak_mb(lambda: model(ids, mask))}
+        log(f"phase 14 (b) one device (the K5 route): {json.dumps(out['single_device'])}")
+        for label, mesh in _meshes_of(seq_mesh, SP_SHARDS, dev):
+            fn = sp_encode_fn(cfg, mesh)
+            emb = fn(model, ids, mask)
+            cos = float(torch.nn.functional.cosine_similarity(emb, ref, dim=-1).min())
+            row = {"shards": mesh.shape["seq"], "min_cosine": cos, "ms": cuda_ms(lambda: fn(model, ids, mask),
+                                                                               iters=2, warmup=1),
+                   "peak_mb_above_resident": peak_mb(lambda: fn(model, ids, mask))}
+            out["meshes"][label] = row
+            log(f"phase 14 (b) SP encode {label}: {json.dumps(row)}")
+            if cos < 0.999 or emb.shape != ref.shape or not bool(torch.isfinite(emb).all()):
+                raise AssertionError(f"phase 14 (b) SP encode {label}: {row}")
+        small = dataclasses.replace(cfg, num_layers=2, dtype="float32", flash_min_len=0)
+        f32 = TextEncoder(small, device=dev).eval()
+        f32.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("layers.") or int(k.split(".")[1]) < 2})
+        del model
+        torch.cuda.empty_cache()
+        ref32 = f32(ids, mask)  # the key-mask route
+        hid32 = f32(ids, mask, pool=False)[mask.bool()]
+        out["f32_depth_2"] = {}
+        for label, mesh in _meshes_of(seq_mesh, SP_SHARDS, dev):
+            got = sp_encode_fn(small, mesh)(f32, ids, mask)
+            hid = sp_encode_fn(small, mesh, pool=False)(f32, ids, mask)[mask.bool()]
+            row = {"max_abs_err": float((got - ref32).abs().max()),
+                   "hidden_max_abs_err": float((hid - hid32).abs().max())}  # a reading, not a bar
+            out["f32_depth_2"][label] = row
+            if row["max_abs_err"] > SP_F32_ATOL:
+                raise AssertionError(f"phase 14 (b) f32 depth 2 {label}: {row}")
+        log(f"phase 14 (b) f32 copy at depth 2 against the key-mask route: {json.dumps(out['f32_depth_2'])}")
+    out["card"] = card_line()
+    return out
+
+
+def _mp_losses(step, state, batch, steps: int) -> tuple[list[float], list[float]]:
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, batch)[1])
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+    return [float(x) for x in torch.stack(losses).cpu()], ms
+
+
+class _KeepGrads(torch.optim.Optimizer):
+    """An optimizer that takes no step and leaves the gradients on the
+    parameters: a train step's gradients, read after it."""
+
+    def __init__(self, params) -> None:
+        super().__init__(params, {})
+
+    def step(self, closure=None):
+        return None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        return None
+
+
+def _step_grads(step, model, batch, gather) -> dict:
+    """The gradients of one call of ``step`` at ``model``'s weights, by
+    state-dict name (``gather(model)``); the weights stay as they were."""
+    from intool_rag_tpu_torch.train.contrastive import TrainState
+
+    step(TrainState(model, _KeepGrads(model.parameters())), batch)
+    return gather(model)
+
+
+def _grad_distance(got: dict, want: dict) -> dict:
+    """Each leaf's ``|got - want| / |want|`` (Frobenius norms), and over all
+    leaves at once (``"all"``)."""
+    out, num, den = {}, 0.0, 0.0
+    for name, w in want.items():
+        d = float(torch.linalg.vector_norm((got[name].to(w.device) - w).double()))
+        n = float(torch.linalg.vector_norm(w.double()))
+        out[name] = d / max(n, 1e-30)
+        num, den = num + d * d, den + n * n
+    out["all"] = math.sqrt(num) / max(math.sqrt(den), 1e-30)
+    return out
+
+
+def _dp_tp_train(state: dict, dev, total: dict) -> dict:
+    """(c) the DP+TP step at ``bge_m3`` width on ``train_mesh`` (data 2,
+    model 2) of the one card: phase 7's first run (its initial weights and
+    batch), 3 steps against the single-device step, two runs bit-equal,
+    K5 launches counted; the first step's bf16 gradients, leaf by leaf,
+    against the single-device f32 step's beside the single-device bf16
+    step's; then an f32 copy at depth 2."""
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.parallel.mesh import train_mesh
+    from intool_rag_tpu_torch.train.contrastive import (
+        TrainState, make_optimizer, make_sharded_train_step, make_train_step, shard_params,
+    )
+
+    cfg = EncoderConfig.bge_m3()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    pairs, s_p = TRAIN_RUNS[0][1:]
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)  # phase 7's draws, in its order
+    model = TextEncoder(cfg, device=dev, param_dtype=torch.float32).init_random(gen).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _train_batch(gen, cfg, pairs, s_p, dev)
+
+    def single(config, weights):
+        m = TextEncoder(config, device=dev, param_dtype=torch.float32).train()
+        m.load_state_dict(weights)
+        return m
+
+    def single_grads(config) -> dict:
+        m = single(config, init)
+        return _step_grads(make_train_step(config), m, batch, lambda m: {n: p.grad for n, p in m.named_parameters()})
+
+    # the first step's gradients at the initial weights: f32 (the reference: no rounding to
+    # speak of) and bf16 compute on one device; the sharded step's are held against both below
+    grads32, grads_bf = single_grads(cfg32), single_grads(cfg)
+    single_err = _grad_distance(grads_bf, grads32)
+    del grads_bf
+    train_state = TrainState(model, *make_optimizer(model, TRAIN_LR))
+    single_losses, single_ms = _mp_losses(make_train_step(cfg), train_state, batch, MP_STEPS)
+    # the single device's own spread: the same step on the pairs in another order (the same
+    # loss, summed in another order); at random weights the bf16 gradient is mostly rounding
+    # noise, and Adam's first updates carry it into the later losses
+    model.load_state_dict(init)
+    train_state = TrainState(model, *make_optimizer(model, TRAIN_LR))
+    perm = torch.roll(torch.arange(pairs, device=dev), 1)
+    permuted, _ = _mp_losses(make_train_step(cfg), train_state, {k: v[perm] for k, v in batch.items()}, MP_STEPS)
+    spread = [abs(a - b) / abs(b) for a, b in zip(permuted, single_losses)]
+    del model, train_state
+    m32 = single(cfg32, init)
+    losses32, _ = _mp_losses(make_train_step(cfg32), TrainState(m32, *make_optimizer(m32, TRAIN_LR)), batch,
+                             MP_STEPS)
+    del m32
+    torch.cuda.empty_cache()
+    log(f"phase 14 (c) single device, phase 7's first run: losses {single_losses}, step ms {single_ms}; "
+        f"the pairs in another order: losses {permuted} (relative {spread}); f32 compute: losses {losses32}; "
+        f"the first bf16 gradient's distance to the f32 one: all {single_err['all']}, "
+        f"worst {json.dumps(dict(sorted(single_err.items(), key=lambda kv: -kv[1])[:4]))}")
+
+    def sharded_run(config, weights, mesh):
+        sharded = shard_params(single(config, weights), mesh)
+        st = TrainState(sharded, *make_optimizer(sharded, TRAIN_LR))
+        step, place = make_sharded_train_step(config, mesh)
+        placed = place(batch)
+        _reset_k5_counts()  # the main path: counts set to 0 just before, read just after
+        losses, ms = _mp_losses(step, st, placed, MP_STEPS)
+        counts = _k5_counts()
+        return losses, ms, counts, sharded.gather_state_dict()
+
+    def worst(err: dict, n: int = 4) -> dict:
+        return dict(sorted(err.items(), key=lambda kv: -kv[1])[:n])
+
+    out = {"config": "bge_m3", "queries": [pairs, TRAIN_Q_LEN], "passages": [pairs, s_p], "steps": MP_STEPS,
+           "single_device": {"losses": single_losses, "step_ms": single_ms, "pairs_permuted_losses": permuted,
+                             "pairs_permuted_rel": spread, "f32_losses": losses32,
+                             "grad_rel_to_f32": {"all": single_err["all"], "worst": worst(single_err)}},
+           "meshes": {}}
+    for label, mesh in _meshes_of(lambda d: train_mesh(d, model_parallel=2), (4,), dev):
+        dp, tp = mesh.shape["data"], mesh.shape["model"]
+        want = {name: cfg.num_layers * tp * dp * MP_STEPS for name in ("K5 bf16", "K5 dkv bf16", "K5 dq bf16")}
+        sharded = shard_params(single(cfg, init), mesh)
+        tp_err = _grad_distance(_step_grads(make_sharded_train_step(cfg, mesh)[0], sharded, batch,
+                                            lambda m: m.gather_state_dict(grads=True)), grads32)
+        del sharded
+        # each leaf's distance to the f32 gradient over the single device's bf16 distance
+        ratio = {n: tp_err[n] / max(single_err[n], 1e-30) for n in tp_err}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, counts, weights = sharded_run(cfg, init, mesh)
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        again, _, counts2, weights2 = sharded_run(cfg, init, mesh)
+        bit_equal = again == losses and all(torch.equal(weights[k], weights2[k]) for k in weights)
+        del weights, weights2
+        torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
+        rel32 = [abs(a - b) / abs(b) for a, b in zip(losses, losses32)]
+        row = {"data": dp, "model": tp, "losses": losses, "loss_rel_to_single": rel, "loss_rel_to_f32": rel32,
+               "grad_rel_to_f32": {"all": tp_err["all"], "worst": worst(tp_err)},
+               "grad_ratio_to_single": {"all": ratio["all"], "worst": worst(ratio)}, "step_ms": ms,
+               "step_ms_after_first": float(np.median(ms[1:])), "single_step_ms_after_first":
+               float(np.median(single_ms[1:])), "phase_7_step_ms_after_first":
+               state.get("train", {}).get("runs", [{}])[0].get("step_ms_after_first"),
+               "launches": counts["launches"], "expected_launches": want, "repeat_bit_equal": bit_equal,
+               "peak_mb": peak_mb}
+        out["meshes"][label] = row
+        log(f"phase 14 (c) DP+TP step {label}: {json.dumps(row)}")
+        # the bars on bf16: the first loss (the same weights) within MP_LOSS_REL of one device's,
+        # and the first step's gradient, every leaf, no further from the f32 step's than
+        # MP_GRAD_RATIO times the single-device bf16 step's; later losses are printed
+        if counts["launches"] != want or counts["plain_forward"] or counts["plain_backward"] \
+                or counts2["launches"] != want or rel[0] > MP_LOSS_REL or not losses[-1] < losses[0] \
+                or max(ratio.values()) > MP_GRAD_RATIO \
+                or not bit_equal or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 14 (c) DP+TP step {label}: {json.dumps(row)}")
+        if label == "virtual 4":
+            for name, count in want.items():
+                total[name] = total.get(name, 0) + count
+    del grads32
+    # an f32 copy at depth 2 (the K5 f32 kernels): losses to rtol 1e-5
+    small = dataclasses.replace(cfg32, num_layers=2)
+    weights = {k: v for k, v in init.items() if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+    del init
+    m = single(small, weights)
+    single32, _ = _mp_losses(make_train_step(small), TrainState(m, *make_optimizer(m, TRAIN_LR)), batch, MP_STEPS)
+    del m
+    mesh = train_mesh([dev] * 4, model_parallel=2)
+    got32, _, _, _ = sharded_run(small, weights, mesh)
+    rel32 = [abs(a - b) / abs(b) for a, b in zip(got32, single32)]
+    out["f32_depth_2"] = {"losses": got32, "single_device": single32, "rel": rel32}
+    log(f"phase 14 (c) f32 copy at depth 2: {json.dumps(out['f32_depth_2'])}")
+    if max(rel32) > MP_F32_RTOL:
+        raise AssertionError(f"phase 14 (c) f32 depth 2: {out['f32_depth_2']}")
+    out["card"] = card_line()
+    return out
+
+
+def phase_model_parallel(state: dict) -> None:
+    """Phase 14: model parallelism on the card (``parallel/tp_decoder.py``,
+    ``parallel/sequence.py``, the DP+TP step of ``train/contrastive.py``),
+    on virtual meshes of the one card (and on every card where there are
+    two or more). No plain version may run; the DP+TP step's K5 launches are
+    its main path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    log(f"phase 14: {torch.cuda.device_count()} CUDA device(s); the virtual meshes put every shard on {dev}, "
+        "one after another")
+    total: dict[str, int] = {}
+    results: dict = {"devices": torch.cuda.device_count(), "card": card_line()}
+    state["model_parallel"] = results
+    with _KernelsNoPlain("phase 14"):
+        t0 = time.perf_counter()
+        results["tp_decode"] = _tp_decode(state, dev)
+        results["tp_decode"]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results["sp_encode"] = _sp_encode(dev)
+        results["sp_encode"]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results["dp_tp_train"] = _dp_tp_train(state, dev, total)
+        results["dp_tp_train"]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    results["launches"] = total
+    for row in state.get("kernels", []):
+        row["launches_model_parallel"] = total.get(row["name"], 0)
+    log(f"phase 14 main-path launches (the DP+TP step): {json.dumps(total)}")
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
           6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned,
-          11: phase_tiers, 12: phase_training, 13: phase_sharded}
+          11: phase_tiers, 12: phase_training, 13: phase_sharded, 14: phase_model_parallel}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+    parser.add_argument("--trace-windows", type=int, default=1,
+                        help="repeat phase 9's /debug/trace window this many times")
     args = parser.parse_args(argv)
+    faulthandler.enable()  # a crash in native code prints every thread's Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5333,8 +5816,10 @@ def main(argv: list[str] | None = None) -> int:
         scanned_busy_share(state)
     if "lm_profile" in state:
         lm_busy_share(state)
+    if "mp_decode" in state:
+        model_parallel_launches(state)
     if "served_trace" in state:
-        served_trace(state)
+        served_trace(state, args.trace_windows)
     if "kernels" in state:
         print(json.dumps({"kernels": state["kernels"]}))
     print(state.get("card") or card_line())

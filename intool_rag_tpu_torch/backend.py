@@ -10,13 +10,12 @@ caller asks for it.
 
 from __future__ import annotations
 
-import logging
-
 import torch
 
+from .logging import get_logger
 from .device import resolve_device
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 def ensure_backend(device: str | torch.device | None = None) -> str:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from pathlib import Path
 
 
@@ -80,8 +81,12 @@ class Config:
     # sampling controls of the in-process decoder (0 / 1.0 = off)
     LLM_TOP_K: int = _field(lambda: _env_int("LLM_TOP_K", 0))
     LLM_TOP_P: float = _field(lambda: _env_float("LLM_TOP_P", 1.0))
-    # continuous batching and prompt-lookup speculation of the JAX decoder;
-    # not ported: the in-process decoder raises unless both are 0
+    # how the in-process decoder serves (providers/cuda_llm.py):
+    # LLM_CONTINUOUS_SLOTS > 0 puts every request into a wave server of that
+    # many continuous-batching slots (models/scheduler.py), whose steps are
+    # batched prompt-lookup waves of LLM_SPECULATIVE_GAMMA tokens when it is
+    # > 1 at temperature 0; without slots, LLM_SPECULATIVE_GAMMA > 0 at
+    # temperature 0 speculates on one stream; 0 and 0: one generate a request
     LLM_CONTINUOUS_SLOTS: int = _field(lambda: _env_int("LLM_CONTINUOUS_SLOTS", 0))
     LLM_SPECULATIVE_GAMMA: int = _field(lambda: _env_int("LLM_SPECULATIVE_GAMMA", 0))
 
@@ -163,6 +168,16 @@ class Config:
     # without trained weights the recognizer would emit noise
     OCR_ENABLED: bool = _field(lambda: _env_bool("OCR_ENABLED", OCR_DEFAULT_WEIGHTS.exists()))
 
+    # --- Logging (logging.py: the root level, set on the first logger) ---
+    LOG_LEVEL: str = _field(lambda: _env_str("LOG_LEVEL", "INFO"))
+
+    # --- Mesh ---
+    # the JAX package's mesh axis sizes (0 = all devices), with its defaults;
+    # read by nothing in either package: the sharded entry points take a
+    # mesh (parallel/mesh.py). Another value draws a warning (__post_init__)
+    MESH_DATA_AXIS: int = _field(lambda: _env_int("MESH_DATA_AXIS", 0))
+    MESH_MODEL_AXIS: int = _field(lambda: _env_int("MESH_MODEL_AXIS", 1))
+
     # --- Serving ---
     SERVICE_HOST: str = _field(lambda: _env_str("SERVICE_HOST", "0.0.0.0"))
     SERVICE_PORT: int = _field(lambda: _env_int("SERVICE_PORT", 8001))
@@ -170,6 +185,13 @@ class Config:
         lambda: _env_float("QUERY_MICRO_BATCH_WINDOW_MS", 2.0)
     )
     QUERY_MAX_BATCH: int = _field(lambda: _env_int("QUERY_MAX_BATCH", 64))
+
+    def __post_init__(self) -> None:
+        if (self.MESH_DATA_AXIS, self.MESH_MODEL_AXIS) != (0, 1):
+            warnings.warn(
+                f"MESH_DATA_AXIS={self.MESH_DATA_AXIS} / MESH_MODEL_AXIS={self.MESH_MODEL_AXIS} are ignored: "
+                "nothing reads them, as in the JAX package; pass a mesh to the sharded entry points "
+                "(parallel/mesh.py: train_mesh, seq_mesh)", stacklevel=2)
 
     @property
     def UPLOAD_DIR(self) -> Path:

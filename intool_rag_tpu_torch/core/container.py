@@ -7,12 +7,13 @@ as the HTTP client and has nothing of it to close."""
 
 from __future__ import annotations
 
-import logging
 import threading
 
 import torch
 
-logger = logging.getLogger(__name__)
+from ..logging import get_logger
+
+logger = get_logger(__name__)
 
 
 class Container:

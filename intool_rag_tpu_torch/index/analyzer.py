@@ -11,11 +11,12 @@ symbols: the native analyzer keeps ``€`` inside ``5€``.
 
 from __future__ import annotations
 
-import logging
 import re
 import unicodedata
 
-logger = logging.getLogger(__name__)
+from ..logging import get_logger
+
+logger = get_logger(__name__)
 
 _STOPWORDS = frozenset(
     """a an and are as at be but by for from has have if in into is it its of on

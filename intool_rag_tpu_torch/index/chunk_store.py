@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..device import resolve_device
 
 _ROW_BLOCK = 4096
@@ -24,7 +24,7 @@ _DIM_BLOCK = 128
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -3,13 +3,13 @@ device corpus (port of ``intool_rag_tpu/index/registry.py``)."""
 
 from __future__ import annotations
 
-import logging
 import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 from ..device import resolve_device
 from ..exceptions import IndexNotFoundError
@@ -17,7 +17,7 @@ from .bm25_index import BM25Index
 from .chunk_store import ChunkStore
 from .hybrid import HybridEngine
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class CorpusRegistry:

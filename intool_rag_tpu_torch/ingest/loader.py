@@ -12,14 +12,14 @@ SURVEY.md §0; here it is a working injection point).
 from __future__ import annotations
 
 import dataclasses
-import logging
 from pathlib import Path
 from typing import Protocol
 
+from ..logging import get_logger
 from ..exceptions import DocumentLoadError, UnsupportedFormatError
 from .pdf import extract_pdf_text
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass

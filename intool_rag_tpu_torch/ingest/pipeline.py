@@ -8,13 +8,13 @@ behind the disk embedding cache (``storage/cache.py``) when
 
 from __future__ import annotations
 
-import logging
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 from ..exceptions import IngestError
 from ..ingest.chunker import ChunkerConfig, ChunksBuilder
@@ -24,7 +24,7 @@ from ..ingest.schemas import ChunksIndex, VectorMeta
 from ..ingest.tree import SemanticTreeBuilder
 from ..storage.artifacts import FileStorageManager
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class IngestionPipeline:

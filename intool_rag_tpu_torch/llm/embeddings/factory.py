@@ -14,14 +14,14 @@ the device.
 
 from __future__ import annotations
 
-import logging
 import threading
 
 import torch
 
+from ...logging import get_logger
 from ...config import get_config
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _provider = None
 _lock = threading.Lock()

@@ -8,15 +8,15 @@ server answers; else the extractive fake LLM, with a warning."""
 
 from __future__ import annotations
 
-import logging
 import threading
 
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 from .base import BaseLLM
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _llm: BaseLLM | None = None
 _lock = threading.Lock()

@@ -6,14 +6,14 @@ they are never served."""
 
 from __future__ import annotations
 
-import logging
 import threading
 
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _reranker = None
 _built = False

@@ -9,13 +9,13 @@ as the JAX package's does. It runs on the host and touches no device.
 
 from __future__ import annotations
 
-import logging
 import threading
 
+from ...logging import get_logger
 from ...config import get_config
 from .base import SemanticAnalyzer
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _analyzer: SemanticAnalyzer | None = None
 _lock = threading.Lock()

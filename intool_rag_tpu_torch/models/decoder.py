@@ -87,6 +87,17 @@ class KVCache:
     valid: torch.Tensor
     length: int = 0
 
+    def put_rows(self, rows: torch.Tensor, start: int, sub: "KVCache") -> None:
+        """Rows ``rows`` of this cache take ``sub``'s positions at ``[start,
+        start + P_sub)`` and lose every other position (their history is
+        cleared through ``valid``): the continuous-batching scheduler's slot
+        refill."""
+        end = start + sub.valid.shape[1]
+        self.k[:, rows, start:end] = sub.k
+        self.v[:, rows, start:end] = sub.v
+        self.valid[rows] = False
+        self.valid[rows, start:end] = sub.valid
+
 
 def init_cache(config: DecoderConfig, batch: int, device: str | torch.device | None = None,
                positions: int | None = None) -> KVCache:
@@ -148,21 +159,29 @@ class RMSNorm(nn.Module):
 
 
 class DecoderAttention(nn.Module):
-    def __init__(self, cfg: DecoderConfig, layer_idx: int) -> None:
+    """One layer's attention over ``num_heads`` query heads and
+    ``num_kv_heads`` kv heads (default: the config's; a tensor-parallel
+    shard holds a slice of each, ``parallel/tp_decoder.py``). ``o_proj``
+    maps the heads back to the full hidden width."""
+
+    def __init__(self, cfg: DecoderConfig, layer_idx: int, num_heads: int | None = None,
+                 num_kv_heads: int | None = None) -> None:
         super().__init__()
         self.cfg = cfg
         self.layer_idx = layer_idx
+        self.num_heads = num_heads or cfg.num_heads
+        self.num_kv_heads = num_kv_heads or cfg.num_kv_heads
         h, dh = cfg.hidden_size, cfg.head_dim
-        self.q_proj = Linear(h, cfg.num_heads * dh)
-        self.k_proj = Linear(h, cfg.num_kv_heads * dh)
-        self.v_proj = Linear(h, cfg.num_kv_heads * dh)
-        self.o_proj = Linear(cfg.num_heads * dh, h)
+        self.q_proj = Linear(h, self.num_heads * dh)
+        self.k_proj = Linear(h, self.num_kv_heads * dh)
+        self.v_proj = Linear(h, self.num_kv_heads * dh)
+        self.o_proj = Linear(self.num_heads * dh, h)
 
     def forward(self, hidden, rope: tuple[torch.Tensor, torch.Tensor], mask: torch.Tensor, cache: KVCache):
         cfg = self.cfg
         b, s, _ = hidden.shape
-        dh, kh = cfg.head_dim, cfg.num_kv_heads
-        q = _rope(self.q_proj(hidden).view(b, s, cfg.num_heads, dh), *rope)
+        dh, kh, nh = cfg.head_dim, self.num_kv_heads, self.num_heads
+        q = _rope(self.q_proj(hidden).view(b, s, nh, dh), *rope)
         k = _rope(self.k_proj(hidden).view(b, s, kh, dh), *rope)
         v = self.v_proj(hidden).view(b, s, kh, dh)
         # this call's k / v into the preallocated cache, in place
@@ -172,11 +191,11 @@ class DecoderAttention(nn.Module):
         # only the filled prefix [0, end): the masked tail would add exact zeros
         k_all = cache.k[self.layer_idx, :, :end].float()  # [B, W, K, Dh]
         v_all = cache.v[self.layer_idx, :, :end]
-        q5 = q.view(b, s, kh, cfg.num_heads // kh, dh).float()
+        q5 = q.view(b, s, kh, nh // kh, dh).float()
         scores = torch.einsum("bskrd,bpkd->bkrsp", q5, k_all) / math.sqrt(dh)  # [B, K, R, S, W] f32
         attn = torch.softmax(scores.masked_fill(~mask, -math.inf), dim=-1)
         out = torch.einsum("bkrsp,bpkd->bskrd", attn.to(v_all.dtype).float(), v_all.float())
-        return self.o_proj(out.to(hidden.dtype).reshape(b, s, cfg.num_heads * dh))
+        return self.o_proj(out.to(hidden.dtype).reshape(b, s, nh * dh))
 
 
 class DecoderBlock(nn.Module):
@@ -227,28 +246,40 @@ class DecoderLM(nn.Module):
         self.load_state_dict(init_decoder_params(self.config, generator, param_dtype=self.embed.weight.dtype))
         return self
 
+    def init_cache(self, batch: int, positions: int | None = None) -> KVCache:
+        """An empty cache for this model, on its parameters' device
+        (:func:`init_cache`)."""
+        return init_cache(self.config, batch, self.embed.weight.device, positions)
+
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor, cache: KVCache,
                 valid_mask: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.config
-        b, s = input_ids.shape
-        start, end = cache.length, cache.length + s
-        if end > cache.valid.shape[1]:
-            raise ValueError(f"the cache holds {cache.valid.shape[1]} positions; this call needs {end}")
-        cache.valid[:, start:end] = True if valid_mask is None else valid_mask.bool()
-        # [B, 1, 1, S, W]: causal, and valid or the query's own slot (a pad
-        # query would otherwise see no key, and its NaN would reach later layers)
-        p_idx = torch.arange(end, device=input_ids.device)
-        q_pos = start + torch.arange(s, device=input_ids.device)
-        causal = p_idx[None, :] <= q_pos[:, None]
-        self_slot = p_idx[None, :] == q_pos[:, None]
-        mask = (causal & (cache.valid[:, None, :end] | self_slot))[:, None, None]
+        mask = attention_mask(cache, input_ids, valid_mask)
         rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         hidden = self.embed(input_ids).to(cfg.torch_dtype)
         for layer in self.layers:
             hidden = layer(hidden, rope, mask, cache)
         logits = self.lm_head(self.final_ln(hidden)).float()
-        cache.length = end
+        cache.length += input_ids.shape[1]
         return logits
+
+
+def attention_mask(cache, input_ids: torch.Tensor, valid_mask: torch.Tensor | None) -> torch.Tensor:
+    """Marks this call's slots ``[cache.length, cache.length + S)`` valid
+    (``valid_mask``, default all) and returns the ``[B, 1, 1, S, W]`` mask
+    over the filled prefix ``W``: causal, and valid or the query's own slot
+    (a pad query would otherwise see no key, and its NaN would reach later
+    layers). Raises when the cache is too short."""
+    s = input_ids.shape[1]
+    start, end = cache.length, cache.length + s
+    if end > cache.valid.shape[1]:
+        raise ValueError(f"the cache holds {cache.valid.shape[1]} positions; this call needs {end}")
+    cache.valid[:, start:end] = True if valid_mask is None else valid_mask.bool()
+    p_idx = torch.arange(end, device=input_ids.device)
+    q_pos = start + torch.arange(s, device=input_ids.device)
+    causal = p_idx[None, :] <= q_pos[:, None]
+    self_slot = p_idx[None, :] == q_pos[:, None]
+    return (causal & (cache.valid[:, None, :end] | self_slot))[:, None, None]
 
 
 def init_decoder_params(config: DecoderConfig, generator: torch.Generator,
@@ -358,9 +389,8 @@ def generate(
     ``temperature <= 0``; otherwise sampled from the filtered logits with
     ``generator``. After a row's ``eos_id`` every later token of that row
     is ``pad_id``; the loop ends early once every row is done."""
-    cfg = model.config
     b, s = prompt_ids.shape
-    cache = init_cache(cfg, b, prompt_ids.device)
+    cache = model.init_cache(b)
     positions = torch.clamp(torch.cumsum(prompt_mask.long(), dim=1) - 1, min=0)
     logits = model(prompt_ids, positions, cache, prompt_mask.bool())
     tok = _sample(logits[:, -1], temperature, top_k, top_p, generator)
@@ -416,7 +446,7 @@ def generate_lookup_speculative(
     if gamma < 1:
         raise ValueError("gamma must be at least 1 (1: no draft, plain greedy steps)")
     dev = prompt_ids.device
-    cache = init_cache(model.config, 1, dev, positions=s + gamma * max_new_tokens)
+    cache = model.init_cache(1, positions=s + gamma * max_new_tokens)
     positions = torch.clamp(torch.cumsum(prompt_mask.long(), dim=1) - 1, min=0)
     logits = model(prompt_ids, positions, cache, prompt_mask.bool())
     last = torch.argmax(logits[0, -1])

@@ -1,6 +1,5 @@
 """Transformer text encoder, XLM-RoBERTa architecture (port of
-``intool_rag_tpu/models/encoder.py``; sequence parallelism, its
-``ring_axis``, is not ported).
+``intool_rag_tpu/models/encoder.py``).
 
 - RoBERTa positions: ``cumsum(mask)·mask + pad_token_id``, restarting at
   each segment of a packed row;
@@ -16,6 +15,17 @@
 On the flash route a pad query attends to the pad keys only, on the key-mask
 route to the valid keys, so hidden states at pad positions differ between
 routes (in both packages); only valid positions are ever read.
+
+Sequence parallelism (``parallel/sequence.py``) runs each layer around an
+outside attention, ring attention across the shards: it drives the pieces
+:meth:`TextEncoder.embed`, :meth:`SelfAttention.project`,
+:meth:`SelfAttention.output` and :meth:`EncoderLayer.finish` itself. The
+JAX config's ``ring_axis`` field has no counterpart here: the caller of
+``sp_encode_fn`` picks the ring, no module reads it from its config. The
+tensor-parallel train step (``train/contrastive.py``) runs an
+:class:`EncoderLayer` of ``H/tp`` heads and ``I/tp`` hidden units on each
+shard's slices (:meth:`SelfAttention.context`, :meth:`EncoderLayer.up`,
+:meth:`Linear.partial`), and sums the shards' partials itself.
 
 Parameters live in ``param_dtype``. Serving keeps them in the compute
 dtype (bf16-resident weights, read once per forward). Training builds the
@@ -86,6 +96,11 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias: a row-parallel shard's share of the
+        full one, which the shards' sum completes (``train/contrastive.py``)."""
+        return nn.functional.linear(x, self.weight.to(x.dtype))
+
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` that computes in its input's dtype (see :class:`Linear`)."""
@@ -105,59 +120,98 @@ class Embedding(nn.Embedding):
         return nn.functional.embedding(ids, self.weight).to(dtype or self.weight.dtype)
 
 
+def heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``[B, S, H·dh]`` as a ``[B, H, S, dh]`` view: nothing is copied."""
+    b, s, width = x.shape
+    return x.view(b, s, num_heads, width // num_heads).transpose(1, 2)
+
+
+def attend(q, k, v, mask: torch.Tensor, segment_ids: torch.Tensor | None, flash_min_len: int) -> torch.Tensor:
+    """Attention of ``[B, H, S, dh]`` heads by the route the shape and
+    ``flash_min_len`` choose (module docstring), ``[B, H, S, dh]``."""
+    s, dh = q.shape[2], q.shape[3]
+    if flash_min_len and s >= flash_min_len and s % 128 == 0:
+        # pads carry segment id 0 (valid tokens 1, or 1..P in a packed
+        # row), so they attend among themselves and no row is empty
+        seg = (mask if segment_ids is None else segment_ids).to(torch.int32).contiguous()
+        return flash_attention_segments(q, k, v, seg, seg, 1.0 / dh**0.5)
+    if segment_ids is not None:
+        keep = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]  # [B, 1, S, S]
+    else:
+        keep = mask[:, None, None, :].bool()
+    logits = (q.float() @ k.float().transpose(-1, -2)) / dh**0.5
+    logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+    return torch.softmax(logits, dim=-1).to(v.dtype) @ v
+
+
+def merge_heads(attn: torch.Tensor) -> torch.Tensor:
+    """``[B, H, S, dh]`` back to ``[B, S, H·dh]``."""
+    b, nh, s, dh = attn.shape
+    return attn.transpose(1, 2).reshape(b, s, nh * dh)
+
+
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: EncoderConfig) -> None:
+    """One layer's attention over ``num_heads`` heads (default: the
+    config's; a tensor-parallel shard holds a slice of them,
+    ``train/contrastive.py``). ``output`` maps the heads back to the full
+    hidden width."""
+
+    def __init__(self, cfg: EncoderConfig, num_heads: int | None = None) -> None:
         super().__init__()
-        self.num_heads = cfg.num_heads
+        self.num_heads = num_heads or cfg.num_heads
         self.flash_min_len = cfg.flash_min_len
         h = cfg.hidden_size
-        self.query = Linear(h, h)
-        self.key = Linear(h, h)
-        self.value = Linear(h, h)
-        self.output = Linear(h, h)
+        width = self.num_heads * (h // cfg.num_heads)
+        self.query = Linear(h, width)
+        self.key = Linear(h, width)
+        self.value = Linear(h, width)
+        self.output = Linear(width, h)
+
+    def project(self, hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q, k and v as ``[B, H, S, dh]`` views of their projections."""
+        return tuple(heads(proj(hidden), self.num_heads) for proj in (self.query, self.key, self.value))
+
+    def context(
+        self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """The heads' attention, merged: ``[B, S, H·dh]``, the output
+        projection's input."""
+        return merge_heads(attend(*self.project(hidden), mask, segment_ids, self.flash_min_len))
 
     def forward(
         self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
     ) -> torch.Tensor:
-        b, s, h = hidden.shape
-        dh = h // self.num_heads
-
-        def heads(x):  # a view, [B, H, S, dh]: nothing is copied
-            return x.view(b, s, self.num_heads, dh).transpose(1, 2)
-
-        q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
-        if self.flash_min_len and s >= self.flash_min_len and s % 128 == 0:
-            # pads carry segment id 0 (valid tokens 1, or 1..P in a packed
-            # row), so they attend among themselves and no row is empty
-            seg = (mask if segment_ids is None else segment_ids).to(torch.int32).contiguous()
-            attn = flash_attention_segments(q, k, v, seg, seg, 1.0 / dh**0.5)
-        else:
-            if segment_ids is not None:
-                keep = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]  # [B, 1, S, S]
-            else:
-                keep = mask[:, None, None, :].bool()
-            logits = (q.float() @ k.float().transpose(-1, -2)) / dh**0.5
-            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-            attn = torch.softmax(logits, dim=-1).to(v.dtype) @ v
-        return self.output(attn.transpose(1, 2).reshape(b, s, h))
+        return self.output(self.context(hidden, mask, segment_ids))
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: EncoderConfig) -> None:
+    """One post-LayerNorm block; ``num_heads`` and ``intermediate_size``
+    (default: the config's) give a tensor-parallel shard's slice."""
+
+    def __init__(self, cfg: EncoderConfig, num_heads: int | None = None,
+                 intermediate_size: int | None = None) -> None:
         super().__init__()
-        h = cfg.hidden_size
-        self.attention = SelfAttention(cfg)
+        h, width = cfg.hidden_size, intermediate_size or cfg.intermediate_size
+        self.attention = SelfAttention(cfg, num_heads)
         self.attention_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
-        self.intermediate = Linear(h, cfg.intermediate_size)
-        self.mlp_output = Linear(cfg.intermediate_size, h)
+        self.intermediate = Linear(h, width)
+        self.mlp_output = Linear(width, h)
         self.output_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
 
     def forward(
         self, hidden: torch.Tensor, mask: torch.Tensor, segment_ids: torch.Tensor | None = None
     ) -> torch.Tensor:
-        hidden = self.attention_ln(hidden + self.attention(hidden, mask, segment_ids))
-        mlp = self.mlp_output(nn.functional.gelu(self.intermediate(hidden), approximate="none"))
-        return self.output_ln(hidden + mlp)
+        return self.finish(hidden, self.attention(hidden, mask, segment_ids))
+
+    def finish(self, hidden: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        """The rest of the layer after the attention's output projection:
+        add & LayerNorm, the MLP, add & LayerNorm."""
+        hidden = self.attention_ln(hidden + attn_out)
+        return self.output_ln(hidden + self.mlp_output(self.up(hidden)))
+
+    def up(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The MLP's hidden units: exact GELU of the first projection."""
+        return nn.functional.gelu(self.intermediate(hidden), approximate="none")
 
 
 class TextEncoder(nn.Module):
@@ -240,24 +294,43 @@ class TextEncoder(nn.Module):
             base = torch.where(change, c - valid, torch.zeros_like(c))
             positions = (c - torch.cummax(base, dim=1).values) * valid + cfg.pad_token_id
         elif positions is None:
-            positions = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
-        dtype = cfg.torch_dtype
-        hidden = (
-            self.word_emb(input_ids.long(), dtype)
-            + self.pos_emb(positions.long(), dtype)
-            + self.type_emb(torch.zeros_like(input_ids, dtype=torch.long), dtype)
-        )
-        hidden = self.emb_ln(hidden)
+            positions = roberta_positions(mask, cfg.pad_token_id)
+        hidden = self.embed(input_ids, positions)
         for layer in self.layers:
             hidden = layer(hidden, mask, segment_ids)
         if not pool:
             return hidden.float()
         if cls_index is not None:  # each segment's first token -> [B, P, H]
             index = cls_index.long()[:, :, None].expand(-1, -1, hidden.shape[-1])
-            cls = torch.gather(hidden, 1, index).float()
-        else:
-            cls = hidden[:, 0, :].float()
-        return cls / cls.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+            return l2_normalize(torch.gather(hidden, 1, index).float())
+        return l2_normalize(hidden[:, 0, :].float())
+
+    def embed(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Word + position + type embeddings, LayerNormed, in the compute
+        dtype: the first layer's input."""
+        dtype = self.config.torch_dtype
+        hidden = (
+            self.word_emb(input_ids.long(), dtype)
+            + self.pos_emb(positions.long(), dtype)
+            + self.type_rows(input_ids, dtype)
+        )
+        return self.emb_ln(hidden)
+
+    def type_rows(self, input_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The type embeddings of ``input_ids``' tokens: every type id is 0."""
+        return self.type_emb(torch.zeros_like(input_ids, dtype=torch.long), dtype)
+
+
+def roberta_positions(mask: torch.Tensor, pad_token_id: int) -> torch.Tensor:
+    """RoBERTa position ids of ``[B, S]`` rows: ``cumsum(mask)·mask +
+    pad_token_id`` (valid tokens count from ``pad_token_id + 1``, pads sit
+    at ``pad_token_id``)."""
+    return torch.cumsum(mask, dim=1) * mask + pad_token_id
+
+
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """Rows of unit L2 norm (a zero row stays zero)."""
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-9)
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -354,7 +427,7 @@ def save_encoder_checkpoint(path, model: "TextEncoder", *, store_dtype: str = "f
         return node.astype(dt) if node.dtype == np.float32 else node
 
     meta = dataclasses.asdict(model.config)
-    meta["ring_axis"] = None  # the JAX config's sequence-parallel field; not ported
+    meta["ring_axis"] = None  # the JAX config's sequence-parallel field: sp_encode_fn picks the ring here
     np.savez_compressed(
         Path(path),
         meta=np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8),
@@ -366,8 +439,8 @@ def load_encoder_checkpoint(path) -> tuple[EncoderConfig, dict]:
     """Read a checkpoint written by the JAX package's
     ``save_encoder_checkpoint``: ``(config, params tree of f32 numpy)``.
     Every field of the checkpoint's config is carried over but ``ring_axis``
-    (sequence parallelism is not ported). Raises ``FileNotFoundError`` for a
-    missing file."""
+    (``parallel/sequence.py::sp_encode_fn`` takes the ring from its caller,
+    not from a config). Raises ``FileNotFoundError`` for a missing file."""
     from .msgpack import unpackb
 
     path = Path(path)

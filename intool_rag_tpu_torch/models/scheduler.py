@@ -51,7 +51,7 @@ import time
 import numpy as np
 import torch
 
-from .decoder import DecoderLM, KVCache, _sample, init_cache
+from .decoder import DecoderLM, KVCache, _sample
 
 
 @dataclasses.dataclass
@@ -180,20 +180,13 @@ class ContinuousGenerator:
         slot's window with the prompt's last tokens. Returns the first
         tokens ``[M]``; with ``state`` None (compaction) only the cache is
         written and nothing is sampled."""
-        cfg, dev = self.config, self.device
+        dev = self.device
         ids, mask, slots, limits = (torch.as_tensor(a, device=dev) for a in self._pack_group(s_bucket, entries))
         m = ids.shape[0]
-        shape = (cfg.num_layers, m, s_bucket, cfg.num_kv_heads, cfg.head_dim)
-        sub = KVCache(k=torch.zeros(shape, dtype=cache.k.dtype, device=dev),
-                      v=torch.zeros(shape, dtype=cache.v.dtype, device=dev),
-                      valid=torch.zeros((m, s_bucket), dtype=torch.bool, device=dev))
+        sub = self.model.init_cache(m, positions=s_bucket)
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         logits = self.model(ids, positions, sub, mask.bool())
-        start, end = cache.length - s_bucket, cache.length
-        cache.k[:, slots, start:end] = sub.k
-        cache.v[:, slots, start:end] = sub.v
-        cache.valid[slots] = False
-        cache.valid[slots, start:end] = sub.valid
+        cache.put_rows(slots, cache.length - s_bucket, sub)
         if state is None:
             return None
         firsts = self._sample(logits[:, -1])
@@ -296,7 +289,7 @@ class ContinuousGenerator:
             lens.append(len(ids))
             groups.setdefault(_bucket(len(ids)), []).append((b, ids, 1))
         cursor = _bucket(max(lens))
-        fresh = init_cache(self.config, self.n_slots, self.device)
+        fresh = self.model.init_cache(self.n_slots)
         fresh.length = cursor
         for s_bucket, entries in sorted(groups.items()):
             self._insert(fresh, s_bucket, entries, None)
@@ -309,7 +302,7 @@ class ContinuousGenerator:
                       seed: int = 0) -> tuple[list[list[int]], dict]:
         """Generate for every prompt (token-id lists), streaming slots.
         Returns (tokens per prompt, EOS left out; stats)."""
-        cfg, dev = self.config, self.device
+        dev = self.device
         n = len(prompts)
         limits = [max_new_tokens] * n if isinstance(max_new_tokens, int) else list(max_new_tokens)
         self._generator = torch.Generator(device=dev).manual_seed(seed)
@@ -343,7 +336,7 @@ class ContinuousGenerator:
             return st
 
         cursor = _bucket(max((len(p) for p in prompts), default=8))
-        cache = init_cache(cfg, self.n_slots, dev)
+        cache = self.model.init_cache(self.n_slots)
         cache.length = cursor  # the host knows the cursor: nothing is read back for it
         state = upload()
         inflight: collections.deque = collections.deque()

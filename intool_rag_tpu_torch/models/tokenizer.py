@@ -16,13 +16,13 @@ the BM25 analyzer hash (md5, stable across processes) into [4, vocab_size).
 from __future__ import annotations
 
 import hashlib
-import logging
 
 import numpy as np
 
+from ..logging import get_logger
 from ..index.analyzer import tokenize as analyze
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class SimpleTokenizer:

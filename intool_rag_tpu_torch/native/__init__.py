@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import logging
 import os
 import subprocess
 import threading
@@ -23,7 +22,9 @@ from pathlib import Path
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
+from ..logging import get_logger
+
+logger = get_logger(__name__)
 
 SOURCE = Path(__file__).resolve().parent / "analyzer.cc"
 BUILD_DIR = SOURCE.parent / "_build"

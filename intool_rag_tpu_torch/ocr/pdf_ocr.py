@@ -10,14 +10,14 @@ Implements the ``OCREngine`` protocol of ingest/loader.py.
 from __future__ import annotations
 
 import io
-import logging
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..ingest.pdf import Name, PDFDocument, Stream, decode_stream
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 def _decode_image_xobject(doc: PDFDocument, stream: Stream) -> np.ndarray | None:

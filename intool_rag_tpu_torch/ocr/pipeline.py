@@ -14,12 +14,12 @@ host code, unchanged.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..config import OCR_DEFAULT_WEIGHTS as DEFAULT_WEIGHTS
 from ..device import resolve_device
 from .models import OCRModelBundle
@@ -37,7 +37,7 @@ from .postprocess import (
     to_markdown,
 )
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 def __getattr__(name: str):
     # DEFAULT_CHARSET (the JAX module's name), computed when first read:

@@ -41,11 +41,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..logging import get_logger
 from ..device import resolve_device
 from ..train.contrastive import ADAM, TrainState, apply_update, warmup_cosine_factor
 from .models import OCRModelBundle, DBDetector, OrientationClassifier, make_recognizer
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 TRAIN_FIXTURE = Path(__file__).parent / "fixtures" / "ocr_train.npz.xz"  # an npz, xz-compressed
 DIGITS = "0123456789"

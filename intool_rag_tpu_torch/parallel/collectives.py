@@ -1,12 +1,16 @@
-"""The collectives of corpus sharding, for one process that drives every
-shard (no JAX counterpart: the JAX package calls ``lax.all_gather`` /
-``lax.psum`` inside ``shard_map``).
+"""The collectives of the sharded modules, for one process that drives
+every shard (no JAX counterpart: the JAX package calls ``lax.all_gather`` /
+``lax.psum`` inside ``shard_map``, or lets GSPMD insert them).
 
 Every sharded function of this package first launches all shards' work,
 then calls one of these: the per-shard tensors move to one device by peer
 copies (``Tensor.to(device, non_blocking=True)``, over NVLink between
-cards), and the reduction runs there. What crosses shards is small: k
-candidates a query from each shard, or a Lloyd step's ``[K, D]`` sums.
+cards), and the reduction runs there. In corpus sharding what crosses
+shards is small: k candidates a query from each shard, or a Lloyd step's
+``[K, D]`` sums. Model parallelism moves activations: :func:`broadcast`
+and :func:`reduce` are the differentiable pair (Megatron's ``f`` and
+``g``) that carry a replicated tensor to every shard and a row-parallel
+product's partial sums back, forward and backward, summing in shard order.
 """
 
 from __future__ import annotations
@@ -63,3 +67,48 @@ def two_level_psum(tensors: list[torch.Tensor], mesh) -> torch.Tensor:
     n_ici = mesh.shape["ici"]
     groups = [psum(tensors[g * n_ici : (g + 1) * n_ici], mesh.devices[g, 0]) for g in range(mesh.shape["dcn"])]
     return psum(groups, mesh.out_device)
+
+
+class _Broadcast(torch.autograd.Function):
+    """A copy of ``x`` on every device; backward: the copies' gradients
+    summed in shard order on ``x``'s device."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.device = x.device
+        # an entry on x's own device is a view, not a copy (virtual meshes)
+        return tuple(x.view_as(x) if y is x else y for y in (x.to(d, non_blocking=True) for d in devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (psum(list(grads), ctx.device), *(None,) * len(grads))
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum of the per-shard tensors on ``device``, in shard order;
+    backward: the gradient copied back to every shard's device."""
+
+    @staticmethod
+    def forward(ctx, device, *tensors):
+        ctx.devices = [t.device for t in tensors]
+        return psum(list(tensors), device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *(grad.to(d, non_blocking=True) for d in ctx.devices))
+
+
+def broadcast(x: torch.Tensor, devices) -> list[torch.Tensor]:
+    """``x`` on each of ``devices`` (Megatron's ``f``: a replicated input of
+    column-parallel shards, or a parameter carried to each data-parallel
+    group). Its gradient is the sum of the copies' gradients, taken in
+    shard order, so a repeated backward gives the same bits; without it,
+    autograd would add them in whatever order the devices finish."""
+    return list(_Broadcast.apply(x, *devices))
+
+
+def reduce(tensors: list[torch.Tensor], device) -> torch.Tensor:
+    """:func:`psum` with a gradient (Megatron's ``g``: the all-reduce after
+    a row-parallel product): each input's gradient is the output's, copied
+    to that input's device."""
+    return _Reduce.apply(torch.device(device), *tensors)

@@ -11,7 +11,9 @@ another.
 
 Axes:
 - ``data``  — corpus rows (and the batch, for training).
-- ``model`` — tensor parallelism; :func:`train_mesh` builds the grid.
+- ``model`` — tensor parallelism (``tp_decoder``, the sharded train step);
+  :func:`train_mesh` builds the (data, model) grid.
+- ``seq`` — the sequence of a long input (:mod:`.sequence`).
 - ``dcn`` × ``ici`` — the two-level mesh of :mod:`.dcn`.
 """
 
@@ -90,6 +92,12 @@ def train_mesh(devices=None, model_parallel: int | None = None) -> Mesh:
     if n % model_parallel != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
     return Mesh(_as_grid(devices, (n // model_parallel, model_parallel)), ("data", "model"))
+
+
+def axis_devices(mesh: Mesh, axis: str) -> list[torch.device]:
+    """The devices along ``axis``, at index 0 of every other axis."""
+    grid = np.moveaxis(mesh.devices, mesh.axis_names.index(axis), 0)
+    return list(grid.reshape(mesh.shape[axis], -1)[:, 0])
 
 
 def _as_grid(devices: list, shape: tuple[int, ...]) -> np.ndarray:

@@ -17,13 +17,13 @@ local and the hashing tokenizer otherwise, as in the JAX provider.
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 from ..device import resolve_device
 from ..models.encoder import EncoderConfig, TextEncoder, load_encoder
@@ -31,7 +31,7 @@ from ..models.packing import build_packed_arrays, pack_bins, shrink_width
 from ..models.tokenizer import get_tokenizer
 from .base import instruction_prefix
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 _SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 RANDOM_INIT_SEED = 0  # the generator of the weights used when none are given

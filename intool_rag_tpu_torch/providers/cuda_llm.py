@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import logging
 import queue
 import threading
 import time
@@ -45,6 +44,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..logging import get_logger
 from ..config import get_config
 from ..device import resolve_device
 from ..llm.base import BaseLLM
@@ -52,10 +52,10 @@ from ..models.decoder import (
     DecoderConfig, DecoderLM, cast_params_for_inference, generate, generate_lookup_speculative, init_decoder_params,
     load_hf_llama,
 )
-from ..observability import get_metrics
+from ..observability import device_work, get_metrics
 from .cuda_embed import _bucket
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 RANDOM_INIT_SEED = 0  # the generator of the weights used when none are given
 WAVE_GATHER_S = 0.010  # how long a wave waits for requests to join it
 _STOP = object()
@@ -124,7 +124,9 @@ class _WaveServer:
                 m.inc("llm_wave_requests", len(wave))
                 t_wave = time.perf_counter()
                 try:
-                    results, stats = self.gen.generate_many([w[0] for w in wave], [w[1] for w in wave])
+                    # its waiters hold the device gate: enter even while a trace waits for it
+                    with device_work(urgent=True):
+                        results, stats = self.gen.generate_many([w[0] for w in wave], [w[1] for w in wave])
                 except Exception as exc:  # to every waiter of the wave
                     m.inc("llm_wave_errors")
                     for _, _, done, box in wave:

@@ -17,16 +17,16 @@ from __future__ import annotations
 import dataclasses
 import http.client
 import json as _json
-import logging
 import socket
 import time
 import urllib.parse
 from typing import Iterator
 
+from ..logging import get_logger
 from ..config import get_config
 from ..exceptions import ProviderConnectionError, ProviderTimeoutError
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass

@@ -14,7 +14,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
-import logging
 import re
 import time
 import uuid
@@ -23,6 +22,7 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
+from ..logging import get_logger
 from .. import __version__
 from ..backend import ensure_backend
 from ..config import get_config
@@ -33,7 +33,8 @@ from ..ingest.pipeline import IngestionPipeline
 from ..llm.factory import get_llm
 from ..llm.reranker_factory import get_reranker
 from ..ocr.pdf_ocr import PDFOCRBridge
-from ..observability import Metrics, get_metrics, start_device_trace, stop_device_trace, trace_phase
+from ..observability import (Metrics, device_work, get_metrics, start_device_trace, stop_device_trace,
+                             trace_phase)
 from ..query.response import build_rag_prompt, create_page_aware_response
 from ..query.retriever import PageLevelRetriever
 from ..storage.cache import QueryResultCache
@@ -44,7 +45,7 @@ from .models import (
 )
 from .multipart import parse_multipart
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 _DOC_ID = re.compile(r"[A-Za-z0-9._-]+")
 
 
@@ -114,6 +115,12 @@ class RAGService:
         parsed = urlparse(path)
         route = parsed.path.rstrip("/") or "/"
         params = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+        if method == "POST" and route == "/debug/trace":  # takes the device gate alone itself
+            return self._dispatch(method, route, params, body, content_type)
+        with device_work():
+            return self._dispatch(method, route, params, body, content_type)
+
+    def _dispatch(self, method: str, route: str, params: dict, body: bytes, content_type: str) -> tuple[int, dict]:
         try:
             if method == "POST" and route == "/ingest":
                 return 200, self.ingest(params, body, content_type)
@@ -178,9 +185,11 @@ class RAGService:
         self.metrics.inc("ingest_requests")
 
         if params.get("mode") == "async":
-            job = self.tasks.submit(
-                "ingest", lambda: self._do_ingest(filepath, project, doc_id, upload.filename, language)
-            )
+            def job_fn():
+                with device_work():
+                    return self._do_ingest(filepath, project, doc_id, upload.filename, language)
+
+            job = self.tasks.submit("ingest", job_fn)
             return {"job_id": job.job_id, "status": job.status, "doc_id": doc_id}
 
         start = time.time()
@@ -259,13 +268,14 @@ class RAGService:
         the LLM's stream, then ``done`` with the confidence, or ``error``."""
         sources = create_page_aware_response("", ranked)["sources"]["primary_sources"]
 
-        def events():
+        def events():  # runs in the HTTP layer, after handle returned: holds the gate itself
             yield "event: sources\ndata: " + json.dumps(sources) + "\n\n"
             parts = []
             try:
-                for chunk in self.llm.generate_stream(prompt):
-                    parts.append(chunk)
-                    yield "event: token\ndata: " + json.dumps({"text": chunk}) + "\n\n"
+                with device_work():
+                    for chunk in self.llm.generate_stream(prompt):
+                        parts.append(chunk)
+                        yield "event: token\ndata: " + json.dumps({"text": chunk}) + "\n\n"
             except Exception as exc:  # the stream has started: report in band, as the JAX service does
                 yield "event: error\ndata: " + json.dumps({"detail": str(exc)}) + "\n\n"
                 return

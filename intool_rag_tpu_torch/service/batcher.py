@@ -8,14 +8,14 @@ call into the batched retrieval path; followers block on events.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from typing import Any, Callable
 
+from ..logging import get_logger
 from ..config import get_config
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 class _Pending:

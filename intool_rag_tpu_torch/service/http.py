@@ -14,14 +14,14 @@ events.
 from __future__ import annotations
 
 import json
-import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..logging import get_logger
 from ..config import get_config
 from .app import RAGService
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 def make_handler(service: RAGService):

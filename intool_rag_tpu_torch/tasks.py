@@ -7,7 +7,6 @@ N workers drain a queue of ingest jobs; job state is queryable.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import queue
 import threading
 import time
@@ -15,8 +14,9 @@ import traceback
 import uuid
 from typing import Any, Callable
 
+from .logging import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass

@@ -61,7 +61,7 @@ def test_new_modules_are_covered():
             "ocr/wordlist.py", "ocr/postprocess.py", "ocr/synth.py", "ocr/rescore.py", "ocr/models.py",
             "ocr/pipeline.py", "ocr/utils.py", "ocr/pdf_ocr.py", "ocr/eval.py", "ingest/rasterize.py",
             "index/ivf_index.py", "index/ivf_residual.py", "index/segmented_residual.py", "models/lm_train.py",
-            "ocr/train.py"} <= names
+            "ocr/train.py", "parallel/tp_decoder.py", "parallel/sequence.py", "logging.py"} <= names
     kernel_dir = ROOT / "intool_rag_tpu_torch" / "kernels"
     kernels = {p.name for p in kernel_dir.glob("*.cu")}
     assert {"flash_attention.cu", "flash_attention_bwd.cu"} <= kernels
@@ -150,3 +150,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError):
         ChunkStore(dim=8)
     assert ChunkStore(dim=8, device="cpu").embeddings.device.type == "cpu"
+    # the model-parallel entry points: with no devices given they take every CUDA device
+    from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.parallel.sequence import seq_mesh
+    from intool_rag_tpu_torch.parallel.tp_decoder import shard_decoder_params
+    from intool_rag_tpu_torch.train.contrastive import shard_params
+
+    decoder = DecoderLM(DecoderConfig.tiny(), device="cpu").init_random(torch.Generator().manual_seed(0))
+    encoder = TextEncoder(EncoderConfig.tiny(), device="cpu", param_dtype=torch.float32)
+    for call in (seq_mesh, lambda: shard_decoder_params(decoder), lambda: shard_params(encoder)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert seq_mesh(["cpu"] * 2).shape == {"seq": 2}

@@ -7,14 +7,19 @@ rounded to 6 places in both, so equal means equal). ``trace_phase`` times
 into the metrics it is given. The port's ``/metrics`` holds the JAX keys
 and counts its requests; ``/debug/trace`` clamps ``seconds`` to [0.5, 60],
 answers a malformed body with a 400 and, on the CPU, writes a Chrome
-trace JSON with the window's CPU events. ``ensure_backend`` raises without
-CUDA unless the CPU was asked for."""
+trace JSON with the window's CPU events. The device gate holds a trace's
+start and stop back until the work in flight ends, holds new work back
+meanwhile (but not the urgent work that serves it), and lets a window
+run under concurrent requests. ``ensure_backend`` raises without CUDA
+unless the CPU was asked for."""
 
 from __future__ import annotations
 
 import glob
 import json
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -138,3 +143,72 @@ def test_debug_trace_writes_a_chrome_trace_on_the_cpu(service):
     finally:
         stop_device_trace()
     assert len(glob.glob(os.path.join(out["trace_dir"], "*.json"))) == 2
+
+
+def test_device_gate_keeps_a_trace_start_apart_from_work_in_flight(tmp_path):
+    from intool_rag_tpu_torch import observability as obs
+
+    release, stop_now, entered, paths = threading.Event(), threading.Event(), [], []
+
+    def hold():
+        with obs.device_work():
+            entered.append("held")
+            release.wait(5)
+
+    def later(tag, urgent):
+        with obs.device_work(urgent=urgent):
+            entered.append(tag)
+
+    def trace():  # torch.profiler starts and stops on one thread, as /debug/trace does
+        obs.start_device_trace(str(tmp_path), False)
+        stop_now.wait(5)
+        paths.append(obs.stop_device_trace())
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    while not entered:
+        time.sleep(0.001)
+    tracer = threading.Thread(target=trace)
+    tracer.start()
+    while not obs._gate._waiting:  # the trace waits for the work in flight
+        time.sleep(0.001)
+    plain = threading.Thread(target=later, args=("plain", False))
+    urgent = threading.Thread(target=later, args=("urgent", True))
+    plain.start()
+    urgent.start()
+    urgent.join(5)
+    time.sleep(0.05)
+    assert entered == ["held", "urgent"] and not obs._trace  # new work and the trace wait
+    release.set()
+    for t in (holder, plain):
+        t.join(5)
+    assert entered == ["held", "urgent", "plain"]  # the work ran once the trace had started
+    stop_now.set()
+    tracer.join(10)
+    assert len(paths) == 1 and os.path.exists(paths[0]) and not obs._trace
+    with obs.device_work():
+        with obs.device_work():  # a thread may enter again while it is inside
+            with pytest.raises(RuntimeError, match="inside device work"):
+                obs.start_device_trace(str(tmp_path), False)
+    assert not obs._trace
+    assert obs._gate._inside == obs._gate._waiting == 0 and not obs._gate._alone
+
+
+def test_debug_trace_under_concurrent_requests(service):
+    stop, codes = threading.Event(), []
+
+    def load(route):
+        while not stop.is_set():
+            codes.append(service.handle("POST", route, b'{"question": "anything?"}')[0])
+
+    workers = [threading.Thread(target=load, args=(r,)) for r in ("/agent/query", "/search", "/query")]
+    for w in workers:
+        w.start()
+    try:
+        status, out = service.handle("POST", "/debug/trace", b'{"seconds": 0.5}')
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(10)
+    assert status == 200 and len(glob.glob(os.path.join(out["trace_dir"], "*.json"))) == 1
+    assert codes and set(codes) == {200}

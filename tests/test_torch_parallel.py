@@ -82,6 +82,25 @@ def test_mesh_shapes_and_local_devices():
             tmesh.local_devices()
 
 
+def test_mesh_config_fields_take_the_jax_defaults_and_warn_that_nothing_reads_them(monkeypatch):
+    """``MESH_DATA_AXIS`` / ``MESH_MODEL_AXIS`` keep the JAX config's
+    defaults; nothing reads them in either package, so another value draws
+    a warning instead of passing silently."""
+    import warnings
+
+    from intool_rag_tpu.config import Config as JaxConfig
+    from intool_rag_tpu_torch.config import Config
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cfg = Config()
+    want = JaxConfig()
+    assert (cfg.MESH_DATA_AXIS, cfg.MESH_MODEL_AXIS) == (want.MESH_DATA_AXIS, want.MESH_MODEL_AXIS) == (0, 1)
+    monkeypatch.setenv("MESH_MODEL_AXIS", "2")
+    with pytest.warns(UserWarning, match="MESH_MODEL_AXIS=2 are ignored"):
+        assert Config().MESH_MODEL_AXIS == 2
+
+
 def _both_flat(queries, corpus, k, n_dev, *, valid_n, block_n, j_kw=None, t_kw=None, row_align=1):
     """The JAX and the port sharded flat search of the same inputs."""
     jm, tm = jax_mesh(n_dev), port_mesh(n_dev)

@@ -188,10 +188,83 @@ def test_train_step_refuses_another_config():
         ttrain.make_train_step(cfg)(state, {})
 
 
+def _jax_path(name: str) -> list[str]:
+    """A :class:`TextEncoder` state-dict name as its JAX params path."""
+    *path, leaf = name.split(".")
+    if path[0] == "layers":
+        path = [f"layer_{path[1]}", *path[2:]]
+    if leaf == "weight":
+        leaf = "embedding" if path[-1].endswith("_emb") else "scale" if path[-1].endswith("_ln") else "kernel"
+    return [*path, leaf]
+
+
 @pytest.mark.parametrize("name", ["param_shardings", "shard_params", "make_sharded_train_step"])
 def test_sharded_step_is_not_ported(name):
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(ttrain, name)(None, None)
+    """The three names of the DP+TP step against the JAX package's, on
+    ``train_mesh`` (data 4, model 2) over 8 devices (JAX's virtual CPUs, 8
+    ``cpu`` entries for the port), from the same parameters: the split of
+    every parameter (the port's ``[out, in]`` weights split the other dim;
+    the column-parallel biases split where the JAX spec replicates them and
+    GSPMD slices them), the sharded forward (1e-5), and one step's loss
+    (1e-5 relative) and updated parameters (1e-4, the key biases aside, as
+    in the five-step case above). ``test_torch_parallel_train.py`` holds the
+    rest."""
+    from intool_rag_tpu.parallel.mesh import train_mesh as jax_train_mesh
+    from intool_rag_tpu_torch.parallel.mesh import train_mesh
+
+    cfg = EncoderConfig.tiny()
+    jcfg = jenc.EncoderConfig.tiny()
+    params = jenc.init_params(jcfg, seed=4)
+    start = _numpy_tree(params)
+    model = TextEncoder(cfg, device="cpu", param_dtype=torch.float32)
+    model.load_state_dict(params_from_jax(start))
+    jmesh, tmesh = jax_train_mesh(), train_mesh(["cpu"] * 8)
+    batch = _batch(np.random.default_rng(9), cfg.vocab_size, 8, 16)
+    if name == "param_shardings":
+        want = jtrain.param_shardings(params, jmesh)
+        got = ttrain.param_shardings(model, tmesh)
+        assert len(got) == len(jax.tree.leaves(want))
+        for tname, spec in got.items():
+            node = want["params"]
+            for key in _jax_path(tname):
+                node = node[key]
+            jspec = tuple(node.spec)
+            if tname.endswith(".weight") and len(jspec) == 2:  # a kernel: the port's [out, in] is its transpose
+                assert spec == jspec[::-1], (tname, spec, jspec)
+            elif tname.split(".")[-2] in ("query", "key", "value", "intermediate"):  # a column-parallel bias
+                assert jspec == () and spec == ("model",), tname
+            else:
+                assert jspec == () and spec == (), tname
+    elif name == "shard_params":
+        jsharded = jtrain.shard_params(params, jmesh)
+        want = np.asarray(jax.jit(jenc.TextEncoder(jcfg).apply)(jsharded, batch["p_ids"], batch["p_mask"]))
+        sharded = ttrain.shard_params(model, tmesh)
+        assert isinstance(sharded, ttrain.ShardedEncoder) and (sharded.dp, sharded.tp) == (4, 2)
+        with torch.no_grad():
+            got = sharded(torch.from_numpy(batch["p_ids"]), torch.from_numpy(batch["p_mask"]))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+        assert all(torch.equal(v, model.state_dict()[k]) for k, v in sharded.gather_state_dict().items())
+    else:
+        optimizer = optax.adamw(1e-3, weight_decay=0.01)
+        jstep, jplace = jtrain.make_sharded_train_step(jcfg, optimizer, jmesh)
+        jsharded = jtrain.shard_params(params, jmesh)
+        jstate, jloss = jstep(jtrain.TrainState(jsharded, optimizer.init(jsharded)), jplace(batch))
+        sharded = ttrain.shard_params(model, tmesh)
+        tstate = ttrain.TrainState(sharded, *ttrain.make_optimizer(sharded, 1e-3))
+        step, place = ttrain.make_sharded_train_step(cfg, tmesh)
+        tstate, tloss = step(tstate, place(batch))
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        got = params_to_jax(sharded.gather_state_dict())["params"]
+        want_tree = _numpy_tree(jstate.params)["params"]
+
+        def compare(g, w, path):
+            for key in w:
+                if isinstance(w[key], dict):
+                    compare(g[key], w[key], path + (key,))
+                elif not (path[-1:] == ("key",) and key == "bias"):
+                    np.testing.assert_allclose(g[key], w[key], atol=1e-4, rtol=0, err_msg="/".join(path + (key,)))
+
+        compare(got, want_tree, ())
 
 
 def test_cached_trainer_falls_into_the_jax_trainers_band():
