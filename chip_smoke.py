@@ -3071,6 +3071,18 @@ def _query(port: int, body: dict) -> tuple[float, dict]:
     return time.perf_counter() - t0, out
 
 
+def _answered_timings(spans) -> list[dict[str, float]]:
+    """Seconds of ``retrieve`` and ``generate`` of each query the LLM
+    answered, from the service's ``query.retrieve`` / ``query.generate``
+    spans (``observability.collect_spans``) by trace: a cache hit opens
+    neither, a streamed answer no ``query.generate``."""
+    by_trace: dict[int, dict[str, float]] = {}
+    for s in spans:
+        if s.name in ("query.retrieve", "query.generate"):
+            by_trace.setdefault(s.trace, {})[s.name.split(".")[1]] = (s.end_ns - s.start_ns) / 1e9
+    return [t for t in by_trace.values() if "generate" in t]
+
+
 def _query_sse(port: int, body: dict) -> list[tuple[str, object]]:
     """``POST /query`` with ``stream: true``: the server-sent events in order."""
     req = urllib.request.Request(f"http://127.0.0.1:{port}/query", data=json.dumps({**body, "stream": True}).encode(),
@@ -3139,6 +3151,7 @@ def _query_fake(provider, uploads, tmp: str) -> dict:
     from intool_rag_tpu_torch import config
     from intool_rag_tpu_torch.llm import factory
     from intool_rag_tpu_torch.llm.semantic import factory as semantic
+    from intool_rag_tpu_torch.observability import collect_spans
     from intool_rag_tpu_torch.ops import flat_fused
     from intool_rag_tpu_torch.providers.fake import FakeLLM
     from intool_rag_tpu_torch.service.app import RAGService
@@ -3161,20 +3174,20 @@ def _query_fake(provider, uploads, tmp: str) -> dict:
         _query(server.port, {"question": "warm up the query path"})
         if not isinstance(service.llm, FakeLLM):
             raise AssertionError(f"LLM_PROVIDER=fake served {type(service.llm).__name__}")
-        service.query_timings.clear()
-        # ---- the main path: counts set to 0 just before, read just after
-        _reset_launches()
-        plain_k1["calls"] = plain_k2["calls"] = 0
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=N_QUERY_FAKE) as pool:
-            results = list(pool.map(lambda q: _query(server.port, {"question": q[0]}), quotes))
-        wall = time.perf_counter() - t0
-        launches, plain_calls = _launches(), plain_k1["calls"] + plain_k2["calls"]
-        hits = service.query_cache.hits
-        _, again = _query(server.port, {"question": quotes[0][0]})
-        cache_hit = service.query_cache.hits == hits + 1 and again == results[0][1]
-        events = _query_sse(server.port, {"question": quotes[1][0]})
-        timings = list(service.query_timings)
+        with collect_spans() as spans:
+            # ---- the main path: counts set to 0 just before, read just after
+            _reset_launches()
+            plain_k1["calls"] = plain_k2["calls"] = 0
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=N_QUERY_FAKE) as pool:
+                results = list(pool.map(lambda q: _query(server.port, {"question": q[0]}), quotes))
+            wall = time.perf_counter() - t0
+            launches, plain_calls = _launches(), plain_k1["calls"] + plain_k2["calls"]
+            hits = service.query_cache.hits
+            _, again = _query(server.port, {"question": quotes[0][0]})
+            cache_hit = service.query_cache.hits == hits + 1 and again == results[0][1]
+            events = _query_sse(server.port, {"question": quotes[1][0]})
+        timings = _answered_timings(spans)
         # a reading, not the main path: the quoted chunk first at the default weights
         os.environ.update({"BM25_WEIGHT": "0.3", "VECTOR_WEIGHT": "0.7"})
         config.reset_config()
@@ -3347,6 +3360,7 @@ def _query_decoder(provider, quotes, tmp: str, dev) -> tuple[dict, object]:
     from intool_rag_tpu_torch import config
     from intool_rag_tpu_torch.llm import factory
     from intool_rag_tpu_torch.models.decoder import DecoderConfig
+    from intool_rag_tpu_torch.observability import collect_spans
     from intool_rag_tpu_torch.providers.cuda_llm import CudaLLM
     from intool_rag_tpu_torch.service.app import RAGService
     from intool_rag_tpu_torch.service.http import ServiceServer
@@ -3384,16 +3398,16 @@ def _query_decoder(provider, quotes, tmp: str, dev) -> tuple[dict, object]:
     body = lambda q: {"question": q, "max_context_length": DECODER_CONTEXT_CHARS}  # noqa: E731
     try:
         _query(server.port, body("warm up the decoder"))
-        service.query_timings.clear()
         calls.clear()
-        # ---- the main path: counts set to 0 just before, read just after
-        _reset_launches()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
-            results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
-        wall = time.perf_counter() - t0
-        launches = _launches()
-        timings = list(service.query_timings)
+        with collect_spans() as spans:
+            # ---- the main path: counts set to 0 just before, read just after
+            _reset_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
+                results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        timings = _answered_timings(spans)
         forwards = list(calls)
         twice, twice_tokens = [], []
         for _ in range(2):  # the query cache is off: both go through the decoder
@@ -3589,7 +3603,7 @@ def _served_decoder(service, server, quotes, dev, phase8: dict | None) -> dict:
     from intool_rag_tpu_torch import config
     from intool_rag_tpu_torch.models.decoder import DecoderConfig, DecoderLM, generate
     from intool_rag_tpu_torch.models.scheduler import ContinuousGenerator
-    from intool_rag_tpu_torch.observability import get_metrics
+    from intool_rag_tpu_torch.observability import collect_spans, get_metrics
     from intool_rag_tpu_torch.providers.cuda_llm import CudaLLM
 
     body = lambda q: {"question": q, "max_context_length": DECODER_CONTEXT_CHARS}  # noqa: E731
@@ -3609,21 +3623,21 @@ def _served_decoder(service, server, quotes, dev, phase8: dict | None) -> dict:
     def serve(llm, label: str) -> dict:
         service._llm = llm
         _query(server.port, body("warm up the decoder"))
-        service.query_timings.clear()
         before = get_metrics().snapshot()
-        _reset_launches()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
-            results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
-        wall = time.perf_counter() - t0
-        launches = _launches()
+        with collect_spans() as spans:
+            _reset_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=N_QUERY_DECODER) as pool:
+                results = list(pool.map(lambda q: _query(server.port, body(q[0])), quotes[:N_QUERY_DECODER]))
+            wall = time.perf_counter() - t0
+            launches = _launches()
         after = get_metrics().snapshot()
         if "K1 bf16 precise" not in launches or any(not b["sources"] for _, b in results):
             raise AssertionError(f"phase 9 {label}: launches {launches}, "
                                  f"sources {[len(b['sources']) for _, b in results]}")
         delta = {k: after["counters"].get(k, 0) - before["counters"].get(k, 0)
                  for k in ("llm_waves", "llm_wave_requests", "llm_wave_tokens", "llm_compactions", "llm_wave_errors")}
-        timings = list(service.query_timings)
+        timings = _answered_timings(spans)
         row = {"wall_s": wall, "p50_ms": 1000 * float(np.median([r[0] for r in results])),
                "generate_p50_ms": 1000 * float(np.median([t["generate"] for t in timings])),
                "retrieve_p50_ms": 1000 * float(np.median([t["retrieve"] for t in timings])), "launches": launches}

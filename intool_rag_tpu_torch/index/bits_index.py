@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import trace_phase
 from ..ops.bits_scan import N_PLANES, encode_bits_planar, ivf_bits_topk
 from ..ops.kmeans import kmeans
 from ..ops.quant import quantize_int8
@@ -300,16 +301,22 @@ def refine_from_host(qf: torch.Tensor, rows: torch.Tensor, k: int, host8: np.nda
     """Exact rescoring of the candidate pool ``rows [Q, pool]`` (−1 empty)
     from a host int8 tier (``host8 [N, D]``, ``hscale [N]``): the rows are
     gathered on the host, the products run on the queries' device; the top
-    ``k`` in stable descending order. Shared by every capacity tier."""
-    safe = np.clip(rows.cpu().numpy(), 0, len(host8) - 1)
-    cand = torch.from_numpy(host8[safe]).to(qf.device)  # [Q, pool, D] int8
-    cand_scale = torch.from_numpy(hscale[safe]).to(qf.device)
-    exact = torch.einsum("qkd,qd->qk", cand.float(), qf) * cand_scale
-    exact = torch.where(rows >= 0, exact, NEG_INF)
-    out_vals, order = top_k(exact, k)
-    out_rows = torch.gather(rows, 1, order)
-    out_rows = torch.where(torch.isfinite(out_vals), out_rows, -1)
-    return out_vals, out_rows
+    ``k`` in stable descending order. Shared by every capacity tier. Span
+    ``bits.refine``; it counts ``bits.refine_calls`` and
+    ``bits.refine_bytes``, the gathered rows and scales handed to the
+    queries' device."""
+    with trace_phase("bits.refine") as span:
+        safe = np.clip(rows.cpu().numpy(), 0, len(host8) - 1)
+        cand_np, scale_np = host8[safe], hscale[safe]
+        span.count({"bits.refine_calls": 1, "bits.refine_bytes": cand_np.nbytes + scale_np.nbytes})
+        cand = torch.from_numpy(cand_np).to(qf.device)  # [Q, pool, D] int8
+        cand_scale = torch.from_numpy(scale_np).to(qf.device)
+        exact = torch.einsum("qkd,qd->qk", cand.float(), qf) * cand_scale
+        exact = torch.where(rows >= 0, exact, NEG_INF)
+        out_vals, order = top_k(exact, k)
+        out_rows = torch.gather(rows, 1, order)
+        out_rows = torch.where(torch.isfinite(out_vals), out_rows, -1)
+        return out_vals, out_rows
 
 
 def _assign_choices(emb: torch.Tensor, centroids: torch.Tensor, s: int) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 
 from ..config import get_config
 from ..device import resolve_device
+from ..observability import trace_phase
 from .analyzer import tokenize
 
 
@@ -232,28 +233,29 @@ class BM25Index:
         """Host-side query prep for :func:`bm25_dispatch`: encodes queries
         and, when every query's hot-term count fits T/2, reorders terms
         hot-first so the wide gather covers half the term slots. Returns
-        ``(qt, qf, device_arrays, statics)``."""
-        qt_np, qf_np = self._encode_queries_np(queries)
-        rows = self._row_layout()
-        packed = self.n_docs < 1 << 20  # 31 − qbits(11)
-        hot_cap = None
-        if packed:
-            hot_np = rows["term_hot_np"]
-            is_hot = (qt_np >= 0) & hot_np[np.maximum(qt_np, 0)]
-            cap = qt_np.shape[1] // 2
-            if cap >= 1 and int(is_hot.sum(axis=1).max(initial=0)) <= cap:
-                order = np.argsort(~is_hot, axis=1, kind="stable")
-                qt_np = np.take_along_axis(qt_np, order, 1)
-                qf_np = np.take_along_axis(qf_np, order, 1)
-                hot_cap = cap
-        arrays = (
-            rows["term_row"], rows["term_hot"], rows["hot_docs"], rows["hot_w"],
-            rows["cold_docs"], rows["cold_w"], self.idf, rows["term_wmax"],
-        )
-        statics = dict(packed=packed, n_docs=self.n_docs, hot_cap=hot_cap)
-        qt = torch.as_tensor(qt_np, device=self.device)
-        qf = torch.as_tensor(qf_np, device=self.device)
-        return qt, qf, arrays, statics
+        ``(qt, qf, device_arrays, statics)``. Span ``bm25.prep``."""
+        with trace_phase("bm25.prep"):
+            qt_np, qf_np = self._encode_queries_np(queries)
+            rows = self._row_layout()
+            packed = self.n_docs < 1 << 20  # 31 − qbits(11)
+            hot_cap = None
+            if packed:
+                hot_np = rows["term_hot_np"]
+                is_hot = (qt_np >= 0) & hot_np[np.maximum(qt_np, 0)]
+                cap = qt_np.shape[1] // 2
+                if cap >= 1 and int(is_hot.sum(axis=1).max(initial=0)) <= cap:
+                    order = np.argsort(~is_hot, axis=1, kind="stable")
+                    qt_np = np.take_along_axis(qt_np, order, 1)
+                    qf_np = np.take_along_axis(qf_np, order, 1)
+                    hot_cap = cap
+            arrays = (
+                rows["term_row"], rows["term_hot"], rows["hot_docs"], rows["hot_w"],
+                rows["cold_docs"], rows["cold_w"], self.idf, rows["term_wmax"],
+            )
+            statics = dict(packed=packed, n_docs=self.n_docs, hot_cap=hot_cap)
+            qt = torch.as_tensor(qt_np, device=self.device)
+            qf = torch.as_tensor(qf_np, device=self.device)
+            return qt, qf, arrays, statics
 
     # ---------------- persistence (the JAX package's files) ----------------
 

@@ -8,6 +8,10 @@ candidates from the BM25 postings ops; fusion is weighted
 run as one function over device tensors (:func:`_fused_hybrid_search`); the
 capacity tier takes the staged path (dense search, then BM25, then fusion),
 since it manages its own host refine step.
+
+Spans: ``hybrid.search`` (the whole call); on the flat route
+``hybrid.fused`` (the enqueue of dense, BM25 and fusion), on the staged
+route ``dense.search``, ``bm25.topk`` and ``hybrid.fuse``.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import get_config
+from ..observability import trace_phase
 from ..ops.fusion import normalize_minmax, rrf_fusion, weighted_fusion
 from .bm25_index import BM25Index, bm25_dispatch
 from .chunk_store import ChunkStore
@@ -106,6 +111,10 @@ class HybridEngine:
         """Returns fused (scores [Q, k], corpus rows [Q, k]). ``candidates``
         is the per-retriever pool before fusion (default
         max(k, RETRIEVAL_CANDIDATES))."""
+        with trace_phase("hybrid.search"):
+            return self._search(query_texts, query_embeddings, k, candidates=candidates, hybrid=hybrid)
+
+    def _search(self, query_texts, query_embeddings, k, *, candidates, hybrid):
         cfg = get_config()
         dev = self.store.device
         if self.store.valid_n == 0:
@@ -126,17 +135,21 @@ class HybridEngine:
             arrays, statics = self.dense.flat_plan(kc)
             statics.pop("k")
             qt, qf, b_arrays, b_statics = self.bm25.topk_plan(query_texts)
-            return _fused_hybrid_search(
-                query_embeddings, arrays, qt, qf, b_arrays, cfg.VECTOR_WEIGHT, cfg.BM25_WEIGHT,
-                k=k, kc=kc, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K, **statics, **b_statics,
-            )
+            with trace_phase("hybrid.fused"):
+                return _fused_hybrid_search(
+                    query_embeddings, arrays, qt, qf, b_arrays, cfg.VECTOR_WEIGHT, cfg.BM25_WEIGHT,
+                    k=k, kc=kc, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K, **statics, **b_statics,
+                )
         # staged: dense-only searches and the capacity tier
-        d_vals, d_rows = self.dense.search(query_embeddings, kc)
+        with trace_phase("dense.search"):
+            d_vals, d_rows = self.dense.search(query_embeddings, kc)
         if not use_hybrid:
             d_rows = torch.where(torch.isfinite(d_vals), d_rows, -1)
             return d_vals[:, :k], d_rows[:, :k]
-        s_vals, s_rows = self.bm25.topk(query_texts, kc)
-        return _fuse(
-            d_vals, d_rows, s_vals, s_rows, k, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K,
-            w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT,
-        )
+        with trace_phase("bm25.topk"):
+            s_vals, s_rows = self.bm25.topk(query_texts, kc)
+        with trace_phase("hybrid.fuse"):
+            return _fuse(
+                d_vals, d_rows, s_vals, s_rows, k, fusion_mode=cfg.FUSION_MODE, rrf_k=cfg.RRF_K,
+                w_dense=cfg.VECTOR_WEIGHT, w_sparse=cfg.BM25_WEIGHT,
+            )

@@ -13,6 +13,13 @@ exist raises), else, as in the JAX package, random weights of the
 encoder's device, with a warning. Tokens: a tokenizer passed in, else
 ``get_tokenizer(EMBEDDING_MODEL)``, the HF tokenizer when its files are
 local and the hashing tokenizer otherwise, as in the JAX provider.
+
+Spans (``observability.trace_phase``): ``embed.tokenize`` (tokens and the
+padded or packed layout; it counts ``embed.tokens``, the real tokens,
+``embed.slots``, the padded (batch, sequence) bucket's or the packed rows'
+slots, and ``embed.micro_batches``), ``embed.forward`` (the host's time to
+enqueue the encoder, input copies included) and ``embed.readback`` (the
+host blocked on the card, then the copy back).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ..device import resolve_device
 from ..models.encoder import EncoderConfig, TextEncoder, load_encoder
 from ..models.packing import build_packed_arrays, pack_bins, shrink_width
 from ..models.tokenizer import get_tokenizer
+from ..observability import trace_phase
 from .base import instruction_prefix
 
 logger = get_logger(__name__)
@@ -115,7 +123,9 @@ class CudaEmbeddingProvider:
         out = np.zeros((len(texts), self.dimension), np.float32)
         for start in range(0, len(texts), self.batch_size):
             batch = texts[start : start + self.batch_size]
-            out[start : start + len(batch)] = self._encode_device(batch)[: len(batch)].cpu().numpy()
+            emb = self._encode_device(batch)
+            with trace_phase("embed.readback"):
+                out[start : start + len(batch)] = emb[: len(batch)].cpu().numpy()
         return out
 
     def embed_batch_device(self, texts: list[str], *, is_query: bool = False):
@@ -133,16 +143,19 @@ class CudaEmbeddingProvider:
     @torch.no_grad()
     def _encode_device(self, batch: list[str]) -> torch.Tensor:
         with self._lock:
-            ids, mask = self.tokenizer.encode_batch(batch)
-            b_pad = _bucket(len(batch), _BATCH_BUCKETS)
-            s_pad = _bucket(ids.shape[1])
-            ids_p = np.full((b_pad, s_pad), self.tokenizer.pad_id, np.int32)
-            mask_p = np.zeros((b_pad, s_pad), np.int32)
-            ids_p[: len(batch), : ids.shape[1]] = ids
-            mask_p[: len(batch), : ids.shape[1]] = mask
-            return self.encoder(
-                torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device)
-            )
+            with trace_phase("embed.tokenize") as span:
+                ids, mask = self.tokenizer.encode_batch(batch)
+                b_pad = _bucket(len(batch), _BATCH_BUCKETS)
+                s_pad = _bucket(ids.shape[1])
+                ids_p = np.full((b_pad, s_pad), self.tokenizer.pad_id, np.int32)
+                mask_p = np.zeros((b_pad, s_pad), np.int32)
+                ids_p[: len(batch), : ids.shape[1]] = ids
+                mask_p[: len(batch), : ids.shape[1]] = mask
+                span.count({"embed.tokens": int(mask.sum()), "embed.slots": b_pad * s_pad, "embed.micro_batches": 1})
+            with trace_phase("embed.forward"):
+                return self.encoder(
+                    torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device)
+                )
 
     @torch.no_grad()
     def _embed_batch_packed(self, texts: list[str]) -> np.ndarray:
@@ -152,27 +165,33 @@ class CudaEmbeddingProvider:
         launch is dispatched before any result is copied back."""
         pad = self.tokenizer.pad_id
         with self._lock:
-            ids_list: list[list[int]] = []
-            for start in range(0, len(texts), self.batch_size):
-                ids, mask = self.tokenizer.encode_batch(texts[start : start + self.batch_size])
-                ids_list.extend(row[keep.astype(bool)].tolist() for row, keep in zip(ids, mask))
-            w = max(self.pack_width, -(-max(len(r) for r in ids_list) // 128) * 128)
-            bins = pack_bins([len(r) for r in ids_list], w)
-            w = shrink_width(bins, w)
+            with trace_phase("embed.tokenize"):
+                ids_list: list[list[int]] = []
+                for start in range(0, len(texts), self.batch_size):
+                    ids, mask = self.tokenizer.encode_batch(texts[start : start + self.batch_size])
+                    ids_list.extend(row[keep.astype(bool)].tolist() for row, keep in zip(ids, mask))
+                w = max(self.pack_width, -(-max(len(r) for r in ids_list) // 128) * 128)
+                bins = pack_bins([len(r) for r in ids_list], w)
+                w = shrink_width(bins, w)
             r_launch = max(1, (self.batch_size * 256) // w)  # about a padded batch's tokens
             pending = []
             for s in range(0, len(bins), r_launch):
-                ids, seg, cls, idxmat = build_packed_arrays(ids_list, bins[s : s + r_launch], w, pad)
-                seg_t = torch.as_tensor(seg, device=self.device)
-                emb = self.encoder(
-                    torch.as_tensor(ids, device=self.device), (seg_t > 0).to(torch.int32),
-                    segment_ids=seg_t, cls_index=torch.as_tensor(cls, device=self.device),
-                )
+                with trace_phase("embed.tokenize") as span:
+                    ids, seg, cls, idxmat = build_packed_arrays(ids_list, bins[s : s + r_launch], w, pad)
+                    span.count({"embed.tokens": int((seg > 0).sum()), "embed.slots": seg.size,
+                                "embed.micro_batches": 1})
+                with trace_phase("embed.forward"):
+                    seg_t = torch.as_tensor(seg, device=self.device)
+                    emb = self.encoder(
+                        torch.as_tensor(ids, device=self.device), (seg_t > 0).to(torch.int32),
+                        segment_ids=seg_t, cls_index=torch.as_tensor(cls, device=self.device),
+                    )
                 pending.append((idxmat, emb))
         out = np.zeros((len(ids_list), self.dimension), np.float32)
         for idxmat, emb in pending:
             valid = idxmat >= 0
-            out[idxmat[valid]] = emb.cpu().numpy()[valid]  # [n, P, H]
+            with trace_phase("embed.readback"):
+                out[idxmat[valid]] = emb.cpu().numpy()[valid]  # [n, P, H]
         return out
 
     def embed_single(self, text: str, *, is_query: bool = False) -> np.ndarray:

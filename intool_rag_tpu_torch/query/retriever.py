@@ -21,6 +21,7 @@ import torch
 from ..config import get_config
 from ..index.registry import CorpusRegistry
 from ..ingest.schemas import NodeLevel
+from ..observability import trace_phase
 
 # same pattern as intool_rag_tpu/ingest/chunker.py
 _TABLE_HINT = re.compile(r"(\|.+\|)|(\t.+\t)|(^\s*[-+=]{3,}\s*$)", re.M)
@@ -87,12 +88,14 @@ class PageLevelRetriever:
 
     def _embed(self, queries: list[str]) -> torch.Tensor:
         """Query embeddings on the corpus device; a provider with
-        ``embed_batch_device`` keeps them on the card."""
-        emb_dev_fn = getattr(self.provider, "embed_batch_device", None)
-        emb = emb_dev_fn(list(queries), is_query=True) if emb_dev_fn else None
-        if emb is None:
-            emb = torch.as_tensor(self.provider.embed_batch(list(queries), is_query=True))
-        return emb[: len(queries)].to(self.registry.device)
+        ``embed_batch_device`` keeps them on the card. Span
+        ``retrieve.embed``."""
+        with trace_phase("retrieve.embed"):
+            emb_dev_fn = getattr(self.provider, "embed_batch_device", None)
+            emb = emb_dev_fn(list(queries), is_query=True) if emb_dev_fn else None
+            if emb is None:
+                emb = torch.as_tensor(self.provider.embed_batch(list(queries), is_query=True))
+            return emb[: len(queries)].to(self.registry.device)
 
     def retrieve_chunks(
         self, query: str, *, project: str | None = None, limit: int | None = None

@@ -11,7 +11,6 @@ served over HTTP by service/http.py."""
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import json
 import re
@@ -33,8 +32,8 @@ from ..ingest.pipeline import IngestionPipeline
 from ..llm.factory import get_llm
 from ..llm.reranker_factory import get_reranker
 from ..ocr.pdf_ocr import PDFOCRBridge
-from ..observability import (Metrics, device_work, get_metrics, start_device_trace, stop_device_trace,
-                             trace_phase)
+from ..observability import (Metrics, bind_trace, device_work, get_metrics, start_device_trace,
+                             stop_device_trace, trace_phase)
 from ..query.response import build_rag_prompt, create_page_aware_response
 from ..query.retriever import PageLevelRetriever
 from ..storage.cache import QueryResultCache
@@ -97,12 +96,11 @@ class RAGService:
         self.metrics = Metrics()  # this service's, not the process-global ones
         self.tasks = TaskQueue(workers=1)
         self.last_ingest_timings: dict[str, float] = {}
-        # seconds by stage of recent answered (not cached) queries: retrieve, generate
-        self.query_timings: collections.deque[dict[str, float]] = collections.deque(maxlen=1024)
         cfg = get_config()
         self.query_cache = QueryResultCache() if cfg.CACHE_QUERY_RESULTS else None
         self.batcher = (
-            QueryBatcher(self.retriever.retrieve_chunks_batch) if cfg.QUERY_MAX_BATCH > 1 else None
+            QueryBatcher(self.retriever.retrieve_chunks_batch, metrics=self.metrics)
+            if cfg.QUERY_MAX_BATCH > 1 else None
         )
 
     @property
@@ -115,10 +113,11 @@ class RAGService:
         parsed = urlparse(path)
         route = parsed.path.rstrip("/") or "/"
         params = {k: v[0] for k, v in parse_qs(parsed.query).items()}
-        if method == "POST" and route == "/debug/trace":  # takes the device gate alone itself
-            return self._dispatch(method, route, params, body, content_type)
-        with device_work():
-            return self._dispatch(method, route, params, body, content_type)
+        with bind_trace():  # the request's spans share one trace id
+            if method == "POST" and route == "/debug/trace":  # takes the device gate alone itself
+                return self._dispatch(method, route, params, body, content_type)
+            with device_work():
+                return self._dispatch(method, route, params, body, content_type)
 
     def _dispatch(self, method: str, route: str, params: dict, body: bytes, content_type: str) -> tuple[int, dict]:
         try:
@@ -235,7 +234,6 @@ class RAGService:
             if cached is not None:
                 self.metrics.inc("query_cache_hits")
                 return cached
-        start = time.perf_counter()
         with trace_phase("query.retrieve", self.metrics):
             if self.batcher is not None:
                 chunks = self.batcher.submit(request.question, request.project)
@@ -243,7 +241,6 @@ class RAGService:
             else:
                 ranked = self.retriever.retrieve_and_rank_pages(
                     request.question, project=request.project, top_pages=request.top_pages)
-        retrieved = time.perf_counter()
         if not ranked:
             return dataclasses.asdict(QueryResponse(answer=NOT_FOUND_ANSWER, sources=[], confidence="low"))
         prompt = build_rag_prompt(request.question, ranked, request.max_context_length)
@@ -251,7 +248,6 @@ class RAGService:
             return {"__stream__": self._stream_answer(prompt, ranked)}
         with trace_phase("query.generate", self.metrics):
             answer = self.llm.generate(prompt)
-        self.query_timings.append({"retrieve": retrieved - start, "generate": time.perf_counter() - retrieved})
         response = create_page_aware_response(answer, ranked)
         result = dataclasses.asdict(QueryResponse(
             answer=answer,
@@ -329,7 +325,8 @@ class RAGService:
     def debug_trace(self, body: bytes) -> dict:
         """A ``torch.profiler`` window of ``seconds`` (clamped to [0.5, 60])
         over every thread's work, CUDA kernels included on the card, written
-        as a Chrome trace JSON under ``STORAGE_DIR/traces``."""
+        as a Chrome trace JSON under ``STORAGE_DIR/traces`` with the spans
+        every thread recorded in the window (``observability``)."""
         try:
             seconds = float(json.loads(body or b"{}").get("seconds", 3))
         except Exception as exc:  # any malformed body is the client's error

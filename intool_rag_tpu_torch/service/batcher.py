@@ -4,6 +4,12 @@ concurrent queries coalesce into one batched device search.
 Protocol: the first request to arrive becomes the batch leader, waits
 ``window_ms`` for followers, then executes the whole batch with one
 call into the batched retrieval path; followers block on events.
+
+Spans: ``batcher.wait``, a request's time from ``submit`` to the start of
+its batch (on the request's thread, in the request's trace, its args the
+batch's trace id), and ``batcher.run``, the batch, a root of a trace of its
+own, its args the trace ids of the requests it serves. The wait is also
+observed into the ``metrics`` given as ``search.queue_wait``.
 """
 
 from __future__ import annotations
@@ -14,12 +20,13 @@ from typing import Any, Callable
 
 from ..logging import get_logger
 from ..config import get_config
+from ..observability import Metrics, bind_trace, new_trace, record_span, span_context, trace_phase
 
 logger = get_logger(__name__)
 
 
 class _Pending:
-    __slots__ = ("query", "project", "event", "result", "error")
+    __slots__ = ("query", "project", "event", "result", "error", "submitted_ns", "tid", "context")
 
     def __init__(self, query: str, project: str | None) -> None:
         self.query = query
@@ -27,6 +34,9 @@ class _Pending:
         self.event = threading.Event()
         self.result: Any = None
         self.error: Exception | None = None
+        self.submitted_ns = time.perf_counter_ns()
+        self.tid = threading.current_thread().native_id
+        self.context = span_context()
 
 
 class QueryBatcher:
@@ -41,9 +51,11 @@ class QueryBatcher:
         *,
         window_ms: float | None = None,
         max_batch: int | None = None,
+        metrics: Metrics | None = None,
     ) -> None:
         cfg = get_config()
         self.runner = runner
+        self.metrics = metrics
         self.window_s = (
             window_ms if window_ms is not None else cfg.QUERY_MICRO_BATCH_WINDOW_MS
         ) / 1000.0
@@ -78,10 +90,22 @@ class QueryBatcher:
             self._leader_active = bool(self._pending)
         if not batch:
             return
+        started = time.perf_counter_ns()
+        batch_trace = new_trace()
+        served = []
+        for req in batch:
+            if self.metrics is not None:
+                self.metrics.observe("search.queue_wait", (started - req.submitted_ns) / 1e9)
+            wait = record_span("batcher.wait", req.submitted_ns, started, tid=req.tid, context=req.context,
+                               args={"batch": batch_trace})
+            if wait is not None:
+                served.append(wait.trace)
         try:
-            results = self.runner(
-                [r.query for r in batch], [r.project for r in batch]
-            )
+            with bind_trace(batch_trace), trace_phase("batcher.run") as span:
+                span.note({"requests": served})
+                results = self.runner(
+                    [r.query for r in batch], [r.project for r in batch]
+                )
             for req, result in zip(batch, results):
                 req.result = result
         except Exception as exc:

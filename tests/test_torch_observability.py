@@ -11,7 +11,15 @@ trace JSON with the window's CPU events. The device gate holds a trace's
 start and stop back until the work in flight ends, holds new work back
 meanwhile (but not the urgent work that serves it), and lets a window
 run under concurrent requests. ``ensure_backend`` raises without CUDA
-unless the CPU was asked for."""
+unless the CPU was asked for.
+
+Spans: nested spans carry their parent's id and one trace id per root
+(or the bound one); nothing is recorded or kept with no collector open;
+a trace window holds the spans of every thread, on their own ``tid``, on
+the trace's clock (a span around a ``record_function`` lands within 1 ms
+of it) and clipped to the trace's first and last stamps; the encoder's
+counters for one batch; the batcher's wait spans carry their batch's
+trace id."""
 
 from __future__ import annotations
 
@@ -116,7 +124,7 @@ def test_metrics_route_keys_and_counters(service):
     snap = service.handle("GET", "/metrics")[1]
     assert snap["counters"] == {"query_requests": 2, "search_requests": 1, "agent_requests": 1}
     assert {k: v["count"] for k, v in snap["latency_s"].items()} == \
-        {"query.retrieve": 2, "search": 1, "agent.query": 1}
+        {"query.retrieve": 2, "search": 1, "agent.query": 1, "search.queue_wait": 3}  # the batcher's wait
     assert snap["query_cache"] == {"hits": service.query_cache.hits, "misses": service.query_cache.misses}
     get_metrics().inc("test_process_counter")
     assert service.handle("GET", "/metrics")[1]["process"]["counters"]["test_process_counter"] >= 1
@@ -212,3 +220,210 @@ def test_debug_trace_under_concurrent_requests(service):
             w.join(10)
     assert status == 200 and len(glob.glob(os.path.join(out["trace_dir"], "*.json"))) == 1
     assert codes and set(codes) == {200}
+
+
+def _span_tree(obs):
+    with obs.collect_spans() as spans:
+        with obs.trace_phase("root.a") as a:
+            with obs.trace_phase("child") as child:
+                with obs.trace_phase("grandchild") as grandchild:
+                    pass
+            with obs.trace_phase("child.2") as child2:
+                pass
+        with obs.trace_phase("root.b") as b:
+            pass
+        with obs.bind_trace(777):
+            with obs.trace_phase("root.bound") as bound:
+                pass
+    return spans, a, child, grandchild, child2, b, bound
+
+
+def test_spans_nest_with_parent_ids_and_one_trace_id_per_root():
+    from intool_rag_tpu_torch import observability as obs
+
+    spans, a, child, grandchild, child2, b, bound = _span_tree(obs)
+    assert [s.name for s in spans] == ["grandchild", "child", "child.2", "root.a", "root.b", "root.bound"]
+    assert a.parent == b.parent == bound.parent == 0
+    assert child.parent == child2.parent == a.id and grandchild.parent == child.id
+    assert len({s.id for s in spans}) == len(spans)
+    assert child.trace == grandchild.trace == child2.trace == a.trace != b.trace
+    assert bound.trace == 777
+    assert all(s.start_ns <= s.end_ns for s in spans) and a.start_ns <= child.start_ns <= child.end_ns <= a.end_ns
+    assert obs.span_context() is None and not obs._spans and not obs._collecting
+
+
+def test_no_span_is_recorded_or_kept_without_a_collector():
+    from intool_rag_tpu_torch import observability as obs
+
+    m = obs.Metrics()
+    with obs.trace_phase("off") as off:
+        with obs.trace_phase("off.timed", m) as timed:
+            pass
+    assert obs.record_span("off.wait", 0, 1, tid=1) is None
+    assert not obs._spans and not hasattr(off, "id") and not hasattr(timed, "id") and not hasattr(off, "args")
+    assert m.snapshot()["latency_s"]["off.timed"]["count"] == 1  # a caller's Metrics still times it
+    opened_before = obs.trace_phase("straddles.the.open")
+    opened_before.__enter__()
+    with obs.collect_spans() as spans:
+        opened_before.__exit__(None, None, None)
+        with obs.trace_phase("inside"):
+            pass
+    assert [s.name for s in spans] == ["inside"] and not obs._spans
+    with obs.trace_phase("after"):
+        pass
+    assert not obs._spans
+
+
+def _export(path) -> list[dict]:
+    with open(path, encoding="utf-8") as f:
+        trace = json.load(f)
+    return trace["traceEvents"], trace
+
+
+def test_a_trace_window_holds_every_threads_spans_on_the_traces_clock(tmp_path):
+    from intool_rag_tpu_torch import observability as obs
+
+    def other():
+        with obs.trace_phase("second.thread"):
+            time.sleep(0.005)
+        tids.append(threading.get_native_id())
+
+    tids: list[int] = []
+    obs.start_device_trace(str(tmp_path), cuda=False)
+    try:
+        with obs.trace_phase("probe.span"):
+            with torch.profiler.record_function("probe"):
+                torch.ones(64).sum()
+        worker = threading.Thread(target=other)
+        worker.start()
+        worker.join(10)
+        assert not worker.is_alive()
+    finally:
+        path = obs.stop_device_trace()
+    events, trace = _export(path)
+    by_name = {e["name"]: e for e in events if e.get("ph") == "X"}
+    second, probe, span = by_name["second.thread"], by_name["probe"], by_name["probe.span"]
+    assert second["tid"] == tids[0] != span["tid"] == probe["tid"] == threading.get_native_id()
+    assert second["cat"] == span["cat"] == "user_annotation" and set(second["args"]) == {"span", "parent", "trace"}
+    assert abs(span["ts"] - probe["ts"]) < 1000 and abs(span["ts"] + span["dur"] - probe["ts"] - probe["dur"]) < 1000
+    meta = trace["observability"]
+    assert meta["spans"] == 2 and meta["spans_outside"] == 0 and abs(meta["clock_drift_us"]) < 1000
+    assert not obs._spans and not obs._collecting
+
+
+def test_a_span_that_opened_before_the_window_is_clipped_to_the_window(tmp_path):
+    from intool_rag_tpu_torch import observability as obs
+
+    with obs.collect_spans() as spans:
+        straddle = obs.trace_phase("straddle")
+        straddle.__enter__()
+        time.sleep(0.01)
+        obs.start_device_trace(str(tmp_path), cuda=False)
+        try:
+            straddle.__exit__(None, None, None)
+        finally:
+            path = obs.stop_device_trace()
+    assert [s.name for s in spans] == ["straddle"]
+    events, _ = _export(path)
+    theirs = [e for e in events if e.get("ph") == "X" and e["name"] != "straddle"]
+    ours = next(e for e in events if e.get("name") == "straddle")
+    first_anchor = min(e["ts"] for e in theirs if e["name"] == obs.CLOCK_ANCHOR)
+    assert ours["ts"] == pytest.approx(first_anchor, abs=1e-3)  # the window opens at its first anchor
+    assert min(e["ts"] for e in theirs) <= ours["ts"]
+    assert ours["ts"] + ours["dur"] <= max(e["ts"] + e.get("dur", 0) for e in theirs)
+
+
+def _span(obs, name, start_ns, end_ns):
+    span = obs.trace_phase(name)
+    span.start_ns, span.end_ns, span.tid, span.id, span.parent, span.trace, span.args = \
+        start_ns, end_ns, 7, 1, 0, 1, {"embed.tokens": 3}
+    return span
+
+
+@pytest.mark.parametrize("start_us, end_us, want", [
+    (3_000, 3_100, (3_000.0, 100.0)),  # inside: moved by the anchors' offset (1,000 µs) only
+    (500, 3_000, (1_999.0, 1_001.0)),  # opened before the first anchor
+    (8_000, 12_000, (8_000.0, 1_104.0)),  # closed after the last anchor
+    (12_000, 13_000, None),  # after the window: left out
+])
+def test_merge_spans_converts_by_the_anchors_and_clips_to_the_window(tmp_path, start_us, end_us, want):
+    from intool_rag_tpu_torch import observability as obs
+
+    # the trace's stamps run from 1,000 to 10,000 µs, its anchors from 1,999 to 9,104; perf_counter_ns reads
+    # 1,000 µs less than the trace's time base
+    anchors = [(1_000_000, 1_002_000), (1_100_000, 1_100_000), (8_000_000, 8_000_000), (8_100_000, 8_100_000)]
+    events = [{"ph": "X", "cat": "Trace", "name": "window", "pid": 1, "tid": 1, "ts": 1_000.0, "dur": 9_000.0}]
+    events += [{"ph": "X", "cat": "user_annotation", "name": obs.CLOCK_ANCHOR, "pid": 1, "tid": 1,
+                "ts": (a + b) / 2e3 + 1_000.0 - w / 2, "dur": w}
+               for (a, b), w in zip(anchors, (4.0, 2.0, 2.0, 8.0))]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    obs.merge_spans(str(path), [_span(obs, "s", (start_us - 1_000) * 1000, (end_us - 1_000) * 1000)], anchors)
+    out, trace = _export(path)
+    assert [e for e in out if e.get("name") != "s"] == events  # the export's own events stay as they were
+    got = [e for e in out if e.get("name") == "s"]
+    assert trace["observability"]["clock_drift_us"] == pytest.approx(0.0, abs=1e-6)
+    if want is None:
+        assert not got and trace["observability"]["spans_outside"] == 1
+        return
+    assert (got[0]["ts"], got[0]["dur"]) == pytest.approx(want)
+    assert got[0]["tid"] == 7 and got[0]["args"] == {"span": 1, "parent": 0, "trace": 1, "embed.tokens": 3}
+
+
+def test_encoder_counters_and_spans_for_one_batch():
+    from intool_rag_tpu_torch import observability as obs
+    from intool_rag_tpu_torch.models.encoder import EncoderConfig, TextEncoder
+    from intool_rag_tpu_torch.models.tokenizer import SimpleTokenizer
+    from intool_rag_tpu_torch.providers.base import instruction_prefix
+    from intool_rag_tpu_torch.providers.cuda_embed import CudaEmbeddingProvider
+
+    encoder = TextEncoder(EncoderConfig.tiny(), device="cpu").init_random(torch.Generator().manual_seed(3))
+    tokenizer = SimpleTokenizer(vocab_size=1024, max_length=128)
+    provider = CudaEmbeddingProvider(encoder, tokenizer=tokenizer, device="cpu")
+    words = ["invoice", "total", "amount", "shipping", "balance", "supplier", "contract", "delivery"]
+    texts = [" ".join(words[: 2 + i]) + " " + " ".join(f"item{j}" for j in range(8 * i)) for i in range(3)]
+    ids, mask = tokenizer.encode_batch([instruction_prefix(False) + t for t in texts])
+    assert 16 < ids.shape[1] <= 32  # one micro-batch in the (4, 32) bucket
+    keys = ("embed.tokens", "embed.slots", "embed.micro_batches")
+    before = obs.get_metrics().snapshot()["counters"]
+    with obs.collect_spans() as spans:
+        out = provider.embed_batch(texts)
+    after = obs.get_metrics().snapshot()["counters"]
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+    assert out.shape == (3, 64)
+    assert delta == {"embed.tokens": int(mask.sum()), "embed.slots": 4 * 32, "embed.micro_batches": 1}
+    assert [s.name for s in spans] == ["embed.tokenize", "embed.forward", "embed.readback"]
+    assert {k: spans[0].args[k] for k in keys} == delta
+
+
+def test_batcher_wait_spans_carry_their_batchs_trace_id():
+    from intool_rag_tpu_torch import observability as obs
+    from intool_rag_tpu_torch.service.batcher import QueryBatcher
+
+    m = obs.Metrics()
+    batcher = QueryBatcher(lambda queries, projects: [q.upper() for q in queries], window_ms=200, max_batch=8,
+                           metrics=m)
+    results: dict[str, str] = {}
+    traces: dict[str, int] = {}
+
+    def request(query):
+        with obs.bind_trace() as bound:
+            traces[query] = bound.trace
+            results[query] = batcher.submit(query)
+
+    with obs.collect_spans() as spans:
+        threads = [threading.Thread(target=request, args=(q,)) for q in ("a", "b")]
+        threads[0].start()
+        time.sleep(0.02)  # the first is the leader; the second joins its window
+        threads[1].start()
+        for t in threads:
+            t.join(10)
+    assert not any(t.is_alive() for t in threads) and results == {"a": "A", "b": "B"}
+    assert batcher.batches_run == 1
+    (run,) = [s for s in spans if s.name == "batcher.run"]
+    waits = {s.trace: s for s in spans if s.name == "batcher.wait"}
+    assert set(waits) == set(traces.values()) and sorted(run.args["requests"]) == sorted(traces.values())
+    assert all(w.args == {"batch": run.trace} and w.end_ns <= run.start_ns for w in waits.values())
+    assert run.parent == 0 and run.trace not in traces.values()
+    assert waits[traces["a"]].end_ns - waits[traces["a"]].start_ns >= 150e6  # the leader waits out the window
+    assert m.snapshot()["latency_s"]["search.queue_wait"]["count"] == 2

@@ -135,13 +135,17 @@ def test_query_with_fake_llm_matches_jax(services):
 
 def test_repeated_query_is_a_cache_hit(services):
     _, tservice = services
+    from intool_rag_tpu_torch.observability import collect_spans
+
     request = {"question": "shipping balance account"}
-    first = _query(tservice, request)
+    with collect_spans() as answered:
+        first = _query(tservice, request)
     hits = tservice.query_cache.hits
-    answered = len(tservice.query_timings)
-    assert _query(tservice, request) == first
-    assert tservice.query_cache.hits == hits + 1 and len(tservice.query_timings) == answered
-    assert set(tservice.query_timings[-1]) == {"retrieve", "generate"}
+    with collect_spans() as cached:
+        assert _query(tservice, request) == first
+    assert tservice.query_cache.hits == hits + 1 and not [s for s in cached if s.name.startswith("query.")]
+    phases = {s.name: s.trace for s in answered if s.name.startswith("query.")}
+    assert set(phases) == {"query.retrieve", "query.generate"} and len(set(phases.values())) == 1
 
 
 def _events(stream) -> list[tuple[str, object]]:
