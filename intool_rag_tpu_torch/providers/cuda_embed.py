@@ -18,8 +18,26 @@ Spans (``observability.trace_phase``): ``embed.tokenize`` (tokens and the
 padded or packed layout; it counts ``embed.tokens``, the real tokens,
 ``embed.slots``, the padded (batch, sequence) bucket's or the packed rows'
 slots, and ``embed.micro_batches``), ``embed.forward`` (the host's time to
-enqueue the encoder, input copies included) and ``embed.readback`` (the
-host blocked on the card, then the copy back).
+enqueue the encoder, input copies included; it counts
+``embed.graph_captures`` and ``embed.graph_replays``) and ``embed.readback``
+(the host blocked on the card, then the copy back).
+
+CUDA graphs. A short padded micro-batch costs the card less than the host's
+616 launches take to enqueue, so such a bucket replays a CUDA graph of
+:meth:`TextEncoder.forward` instead: one launch. :func:`graph_engages` is the
+rule, from what the call can observe alone: a CUDA device, the padded route
+(packed rows stay eager), a sequence bucket off the flash route (K5 is never
+captured) and at most :data:`GRAPH_MAX_SLOTS` slots; above that a
+micro-batch's device time exceeds its enqueue and the eager launches hide
+behind the card. Capture is lazy, per (batch, sequence) bucket: the first
+call runs eagerly (it warms cuBLAS and the allocator), the second warms the
+capture stream and captures, later calls replay. Nothing is captured when the
+provider is built. All graphs share one memory pool, safe because calls run
+one at a time under the provider's lock and every graph's intermediates die
+inside its replay. A replay rewrites the whole static input, pad rows and
+columns included, through a pinned staging buffer, and the result is a copy of
+the static output taken under the lock, so no caller holds memory that a
+later replay writes.
 """
 
 from __future__ import annotations
@@ -46,6 +64,12 @@ RANDOM_INIT_SEED = 0  # the generator of the weights used when none are given
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
+# the most (batch × sequence) slots a replayed bucket holds: 64 × 128. On the
+# H100 at BGE-M3 width an eager forward enqueues its 616 launches in ~12-27 ms;
+# the card's time for the bucket is 22.7 ms at (64, 128), 59 ms at (64, 256)
+GRAPH_MAX_SLOTS = 8_192
+
+
 def _bucket(n: int, buckets=_SEQ_BUCKETS) -> int:
     for b in buckets:
         if n <= b:
@@ -67,6 +91,43 @@ def preset_config(device: torch.device) -> EncoderConfig:
     if preset == "tiny":
         return EncoderConfig.tiny()
     raise ValueError(f"EMBEDDING_PRESET={preset!r}: expected auto, bge_m3, small or tiny")
+
+
+def graph_engages(device: torch.device, packed: bool, b_pad: int, s_pad: int, flash_min_len: int) -> bool:
+    """Whether a micro-batch of bucket ``(b_pad, s_pad)`` replays a CUDA
+    graph (module docstring): on the card, padded, off the flash route
+    (``flash_min_len`` 0 turns that route off) and within
+    :data:`GRAPH_MAX_SLOTS` slots."""
+    return (device.type == "cuda" and not packed and (not flash_min_len or s_pad < flash_min_len)
+            and b_pad * s_pad <= GRAPH_MAX_SLOTS)
+
+
+class _BucketGraph:
+    """One padded bucket's forward as a CUDA graph: static ``ids`` / ``mask``
+    inputs on the card (one ``[2, B, S]`` int32 buffer), their pinned host
+    staging, and the static output, allocated in ``pool``."""
+
+    def __init__(self, encoder: TextEncoder, shape: tuple[int, int], pool, stream: torch.cuda.Stream) -> None:
+        device = stream.device
+        self.staging = torch.empty((2, *shape), dtype=torch.int32, pin_memory=True)
+        self.inputs = torch.zeros((2, *shape), dtype=torch.int32, device=device)
+        self.copied = torch.cuda.Event()  # the last staged copy has left the host buffer
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):  # warm the capture stream's cuBLAS workspace
+            encoder(self.inputs[0], self.inputs[1])
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            self.output = encoder(self.inputs[0], self.inputs[1])
+
+    def __call__(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """Replays on the current stream; returns a copy of the output."""
+        self.copied.synchronize()
+        staged = self.staging.numpy()
+        staged[0], staged[1] = ids, mask
+        self.inputs.copy_(self.staging, non_blocking=True)
+        self.copied.record()
+        self.graph.replay()
+        return self.output.clone()
 
 
 class CudaEmbeddingProvider:
@@ -105,8 +166,11 @@ class CudaEmbeddingProvider:
         self.batch_size = cfg.EMBEDDING_BATCH_SIZE
         self.packed = os.getenv("EMBED_PACKED", "0") not in ("0", "false", "")
         self.pack_width = int(os.getenv("EMBED_PACK_WIDTH", "512"))
-        # the tokenizer memo and the module are shared by service threads
+        # the tokenizer memo, the module and the graphs are shared by service threads
         self._lock = threading.Lock()
+        # (batch, sequence) bucket -> its graph; None once its first call ran eagerly
+        self._graphs: dict[tuple[int, int], _BucketGraph | None] = {}
+        self._graph_pool = self._capture_stream = None
 
     @property
     def dimension(self) -> int:
@@ -152,10 +216,32 @@ class CudaEmbeddingProvider:
                 ids_p[: len(batch), : ids.shape[1]] = ids
                 mask_p[: len(batch), : ids.shape[1]] = mask
                 span.count({"embed.tokens": int(mask.sum()), "embed.slots": b_pad * s_pad, "embed.micro_batches": 1})
-            with trace_phase("embed.forward"):
-                return self.encoder(
-                    torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device)
-                )
+            with trace_phase("embed.forward") as span:
+                if not graph_engages(self.device, self.packed, b_pad, s_pad, self.encoder_config.flash_min_len):
+                    return self._eager(ids_p, mask_p)
+                return self._graphed(ids_p, mask_p, span)
+
+    def _eager(self, ids_p: np.ndarray, mask_p: np.ndarray) -> torch.Tensor:
+        return self.encoder(torch.as_tensor(ids_p, device=self.device), torch.as_tensor(mask_p, device=self.device))
+
+    def _graphed(self, ids_p: np.ndarray, mask_p: np.ndarray, span: trace_phase) -> torch.Tensor:
+        """The bucket's graph: the first call eager, the second captures,
+        later ones replay (module docstring). Runs under ``_lock``."""
+        key = ids_p.shape
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return self._eager(ids_p, mask_p)
+        graph = self._graphs[key]
+        with torch.cuda.device(self.device):
+            if graph is None:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                    self._capture_stream = torch.cuda.Stream(self.device)
+                graph = self._graphs[key] = _BucketGraph(self.encoder, key, self._graph_pool, self._capture_stream)
+                span.count({"embed.graph_captures": 1})
+            else:
+                span.count({"embed.graph_replays": 1})
+            return graph(ids_p, mask_p)
 
     @torch.no_grad()
     def _embed_batch_packed(self, texts: list[str]) -> np.ndarray:
