@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from portbench import env, harness, judge, manifest  # noqa: E402
+from portbench import env, harness, manifest  # noqa: E402
 
 
 def main() -> int:
@@ -55,7 +55,7 @@ def main() -> int:
             gc.collect()
     program = [r["numbers"] for r in rows if r["kind"] == "program"]
     control = [r["numbers"] for r in rows if r["kind"] == "control"]
-    for name in judge.NUMBERS:
+    for name in spec["limits"]:
         lo = max((n[name] for n in program if name in n), default=None)
         hi = min((n[name] for n in control if name in n), default=None)
         ratio = hi / lo if lo and hi is not None else None

@@ -92,7 +92,7 @@ def _value_err(exact: np.ndarray, claimed: np.ndarray, rows: np.ndarray, scale: 
 class Reference:
     """The reference for one run: the inputs regenerated from the seed, the
     settings of the configuration, and (capacity tier) the program's tier
-    layout as :func:`harness._tier` took it."""
+    layout as ``Search.collect`` (``portbench/systems/search.py``) took it."""
 
     def __init__(self, config: dict, seed: int, device, tier: dict | None = None) -> None:
         self.config = config
@@ -152,10 +152,11 @@ class Reference:
         vals, pos = torch.topk(vals, kc, dim=1)
         return vals, torch.gather(rows, 1, pos)
 
-    def control_side(self, texts: list[str], kc: int, k: int) -> dict:
+    def control_side(self, side: dict) -> dict:
         """The reference in the program's place, one precision down (the
-        configuration's ``control``)."""
-        control = self.config["control"]
+        configuration's ``control``), on the questions of ``side``."""
+        control, texts = self.config["control"], side["texts"]
+        kc, k = self.config["search"]["candidates"], self.config["search"]["k"]
         emb = self.embed(texts, control=True)
         side = {"texts": texts, "emb": emb}
         if self.tier is None:
@@ -257,9 +258,10 @@ def _np(x):
 
 def verdict(numbers: list[dict[str, float]], limits: dict[str, float]) -> tuple[bool, dict]:
     """The worst reading of each number over the checked batches, beside
-    its limit; correct when each is finite and within its limit."""
+    its limit, in the order of the limits; correct when each is finite and
+    within its limit. A number without a limit raises ``KeyError``."""
     checks, ok = {}, True
-    for name in NUMBERS:
+    for name in dict.fromkeys([*limits, *(name for n in numbers for name in n)]):
         readings = [n[name] for n in numbers if name in n]
         if not readings:
             continue

@@ -1,17 +1,24 @@
 """``BENCHMARK.json`` and the files it names. A configuration's file is the
 ``file`` of its entry; a traffic mix is ``portbench/traffic/<traffic>.json``;
 a cell's limits are ``portbench/limits/<cell>.json``; a metric's reader is
-``portbench/metrics/<metric>.py`` with a ``read(run)`` function."""
+``portbench/metrics/<metric>.py`` with a ``read(run)`` function; the system
+a configuration drives is ``portbench/systems/<system>.py``, named by the
+configuration's ``system`` key (``search`` where it has none)."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent
 REPO = BENCH_DIR.parent
 MANIFEST = REPO / "BENCHMARK.json"
+SYSTEMS = BENCH_DIR / "systems"
+DEFAULT_SYSTEM = "search"
+_NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def load(path: Path = MANIFEST) -> dict:
@@ -67,3 +74,26 @@ def reader(metric: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def system_path(name: str) -> Path:
+    return SYSTEMS / f"{name}.py"
+
+
+def system(config: dict):
+    """The module of the system ``config`` drives, imported from its file
+    under :data:`SYSTEMS` (as ``portbench_system_<name>``). Raises
+    ``ValueError`` where no such file exists, before anything of a run is
+    built."""
+    name = config.get("system", DEFAULT_SYSTEM)
+    path = system_path(name)
+    if not isinstance(name, str) or not _NAME.match(name) or not path.is_file():
+        have = sorted(p.stem for p in SYSTEMS.glob("*.py"))
+        raise ValueError(f"configuration {config.get('name')!r} names the system {name!r}, which has no module "
+                         f"{path} (have {have})")
+    key = f"portbench_system_{name.replace('.', '_').replace('-', '_')}"
+    spec = importlib.util.spec_from_file_location(key, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    sys.modules[key] = module
+    return module
