@@ -24,7 +24,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = (
     "flat_partial_topk.cu", "bits_scan.cu", "quant_stochastic.cu", "flash_attention.cu",
-    "flash_attention_bwd.cu",
+    "flash_attention_bwd.cu", "deepseek_decode.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -87,11 +87,12 @@ class KVCache:
     valid: torch.Tensor
     length: int = 0
 
-    def put_rows(self, rows: torch.Tensor, start: int, sub: "KVCache") -> None:
+    def put_rows(self, rows: torch.Tensor, start: int, sub: "KVCache", first: int | None = None) -> None:
         """Rows ``rows`` of this cache take ``sub``'s positions at ``[start,
         start + P_sub)`` and lose every other position (their history is
         cleared through ``valid``): the continuous-batching scheduler's slot
-        refill."""
+        refill. ``first`` (the first position holding a real token) is a hint
+        this cache does not use."""
         end = start + sub.valid.shape[1]
         self.k[:, rows, start:end] = sub.k
         self.v[:, rows, start:end] = sub.v
@@ -346,6 +347,15 @@ def load_hf_llama(config: DecoderConfig, state_dict: dict) -> dict[str, torch.Te
 # ---------------- generation ----------------
 
 
+def prefill_logits(model, ids: torch.Tensor, positions: torch.Tensor, cache, mask: torch.Tensor) -> torch.Tensor:
+    """The logits ``[B, V]`` of a prompt call at its last position: through
+    the model's ``prefill`` where it has one (a decoder whose full prompt
+    logits would not fit), else the last row of its call."""
+    if hasattr(model, "prefill"):
+        return model.prefill(ids, positions, cache, mask)
+    return model(ids, positions, cache, mask)[:, -1]
+
+
 def filter_logits(logits: torch.Tensor, top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
     """Top-k and nucleus filtering: logits outside the top-k set and / or
     the smallest set whose probability reaches ``top_p`` become -inf (the
@@ -392,8 +402,8 @@ def generate(
     b, s = prompt_ids.shape
     cache = model.init_cache(b)
     positions = torch.clamp(torch.cumsum(prompt_mask.long(), dim=1) - 1, min=0)
-    logits = model(prompt_ids, positions, cache, prompt_mask.bool())
-    tok = _sample(logits[:, -1], temperature, top_k, top_p, generator)
+    tok = _sample(prefill_logits(model, prompt_ids, positions, cache, prompt_mask.bool()), temperature, top_k, top_p,
+                  generator)
     pos = positions[:, -1] + 1  # each row's true prompt length
     eos = -1 if eos_id is None else eos_id
     done = tok == eos
@@ -407,6 +417,8 @@ def generate(
         done = done | (nxt == eos)
         out[:, t] = nxt
         tok, pos = nxt, pos + 1
+    if hasattr(model, "flush_counters"):
+        model.flush_counters()
     return out
 
 

@@ -35,6 +35,21 @@ batched step, a ``gamma``-token verify or a re-prefill after compaction sums
 in another order than one stream's one-token step, and near-ties of the
 argmax can go the other way.
 
+The scheduler works over whichever cache the model makes (the Llama
+decoder's ``KVCache``, DeepSeek-V2's ``LatentCache``): it touches a cache
+only through ``init_cache``, ``put_rows``, ``valid`` and ``length``, and a
+refill's logits through :func:`~.decoder.prefill_logits`.
+
+Spans (``observability.trace_phase``, each also a ``record_function``
+range): ``llm.refill`` (a refill group's prefill), ``llm.decode`` (a
+segment's dispatch), ``llm.compact``, ``llm.readback`` (the wait for a
+segment's fetch). Counters: ``llm.prefill_tokens`` / ``llm.prefill_slots``
+(a refill group's real tokens against its bucket's slots),
+``llm.decode_steps``, ``llm.decode_tokens`` / ``llm.slot_steps`` (tokens
+the live streams kept against slots × steps), ``llm.compactions``; a model
+with ``flush_counters`` (the DeepSeek-V2 decoder's expert tally) is flushed
+once a ``generate_many``.
+
 Differences from the JAX scheduler: a refill group is as wide as its
 members (eager PyTorch has no compiled shapes to keep, so there are no
 filler rows); ``SPEC_WAVES_PER_SEGMENT`` is not read; sampling draws from a
@@ -50,8 +65,10 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from .decoder import DecoderLM, KVCache, _sample
+from ..observability import get_metrics, trace_phase
+from .decoder import DecoderLM, KVCache, _sample, prefill_logits
 
 
 @dataclasses.dataclass
@@ -100,6 +117,21 @@ class _Fetch:
 def _bucket(n: int) -> int:
     """Power-of-two prompt bucket, at least 8."""
     return 1 << max(3, (n - 1).bit_length())
+
+
+class _span:
+    """A ``trace_phase`` span and a ``record_function`` range of one name."""
+
+    def __init__(self, name: str) -> None:
+        self.phase, self.range = trace_phase(name), record_function(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        return self.phase.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self.phase.__exit__(*exc)
+        self.range.__exit__(*exc)
 
 
 class ContinuousGenerator:
@@ -185,11 +217,14 @@ class ContinuousGenerator:
         m = ids.shape[0]
         sub = self.model.init_cache(m, positions=s_bucket)
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
-        logits = self.model(ids, positions, sub, mask.bool())
-        cache.put_rows(slots, cache.length - s_bucket, sub)
+        logits = prefill_logits(self.model, ids, positions, sub, mask.bool())
+        cache.put_rows(slots, cache.length - s_bucket, sub,
+                       first=cache.length - max(len(toks) for _, toks, _ in entries))
+        get_metrics().inc_many({"llm.prefill_tokens": sum(len(e[1]) for e in entries),
+                                "llm.prefill_slots": m * s_bucket})
         if state is None:
             return None
-        firsts = self._sample(logits[:, -1])
+        firsts = self._sample(logits)
         rem = limits - 1
         state.tok[slots] = firsts
         state.pos[slots] = positions[:, -1] + 1
@@ -316,6 +351,8 @@ class ContinuousGenerator:
         t0 = time.perf_counter()
         lat: list[float] = []
         n_compact = spec_tokens = spec_waves = 0
+        refill_s = 0.0
+        metrics = get_metrics()
         budget_err = "stream too long for the cache: raise max_position"
         g = self.gamma
         advance = self.segment_advance
@@ -362,7 +399,9 @@ class ContinuousGenerator:
             # ``snap`` binds slots to streams as at dispatch: the live table
             # may already hold the next segment's refills
             pend, snap, fetch = entry
-            toks, host["tok"], host["pos"], host["active"], host["rem"], *firsts_list = fetch.wait()
+            with _span("llm.readback"):
+                toks, host["tok"], host["pos"], host["active"], host["rem"], *firsts_list = fetch.wait()
+            kept = 0
             if g:
                 counts = firsts_list.pop()
                 spec_tokens += int(counts.sum())
@@ -382,6 +421,7 @@ class ContinuousGenerator:
                     emitted = [t for w in range(toks.shape[1]) for t in toks[b, w, : int(counts[b, w])]]
                 else:
                     emitted = toks[b]
+                before = len(st.tokens)
                 for t in emitted:
                     if len(st.tokens) >= st.max_new:
                         break
@@ -389,9 +429,11 @@ class ContinuousGenerator:
                         st.max_new = len(st.tokens)  # finished early
                         break
                     st.tokens.append(int(t))
+                kept += len(st.tokens) - before
                 if not host["active"][b]:
                     st.max_new = min(st.max_new, len(st.tokens))
                 finish_if_done(st, b)
+            metrics.inc("llm.decode_tokens", kept)
 
         while any(s is not None for s in slots) or queue or inflight:
             if not (any(s is not None for s in slots) or queue):
@@ -402,8 +444,10 @@ class ContinuousGenerator:
                     process(inflight.popleft())
                 if not (any(s is not None for s in slots) or queue):
                     continue
-                cache, cursor = self._compact(prompts, slots, _bucket(len(prompts[queue[0]])) if queue else 0)
+                with _span("llm.compact"):
+                    cache, cursor = self._compact(prompts, slots, _bucket(len(prompts[queue[0]])) if queue else 0)
                 n_compact += 1
+                metrics.inc("llm.compactions")
                 if cursor + advance > cache.valid.shape[1]:
                     raise RuntimeError(budget_err)
                 state = upload()
@@ -416,20 +460,27 @@ class ContinuousGenerator:
                     cache.length = cursor = s_bucket
                 for b, idx in members:
                     slots[b] = _Stream(idx=idx, tokens=[], max_new=limits[idx], t_submit=time.perf_counter())
-                firsts.append(self._insert(cache, s_bucket, [(b, prompts[idx], limits[idx]) for b, idx in members],
-                                           state))
+                t_refill = time.perf_counter()
+                with _span("llm.refill"):
+                    firsts.append(self._insert(cache, s_bucket,
+                                               [(b, prompts[idx], limits[idx]) for b, idx in members], state))
+                refill_s += time.perf_counter() - t_refill
                 pend.append(members)
             counts = []
-            if g:
-                toks, spec_counts = self._decode_segment_spec(cache, state)
-                counts = [spec_counts]
-            else:
-                toks = self._decode_segment(cache, state)
+            with _span("llm.decode"):
+                if g:
+                    toks, spec_counts = self._decode_segment_spec(cache, state)
+                    counts = [spec_counts]
+                else:
+                    toks = self._decode_segment(cache, state)
+            metrics.inc_many({"llm.decode_steps": self.seg_len, "llm.slot_steps": self.seg_len * self.n_slots})
             cursor += advance
             inflight.append((pend, list(slots), _Fetch(
                 [toks, state.tok, state.pos, state.active, state.rem, *firsts, *counts])))
             if len(inflight) >= 2:  # depth-2 pipeline: read segment N-1 while N runs
                 process(inflight.popleft())
+        if hasattr(self.model, "flush_counters"):
+            self.model.flush_counters()
         wall = time.perf_counter() - t0
         total_tokens = sum(len(r) for r in results)
         stats = {
@@ -439,6 +490,7 @@ class ContinuousGenerator:
             "p50_latency_s": float(np.median(lat)) if lat else 0.0,
             "p95_latency_s": float(np.percentile(lat, 95)) if lat else 0.0,
             "compactions": n_compact,
+            "refill_s": refill_s,  # host seconds dispatching refill groups (their prefill)
         }
         if g:
             # mean tokens emitted per active wave: 1.0 = every draft rejected, gamma = all accepted

@@ -78,7 +78,12 @@ def decoder_param_spec(name: str, shape, axis: str = "model", tp: int = 1) -> tu
 
 
 def validate_tp(config: DecoderConfig, mesh: Mesh, axis: str = "model") -> int:
-    """Checks the divisibility contract; returns the tp degree."""
+    """Checks the divisibility contract; returns the tp degree. Refuses a
+    configuration that is not the Llama family's (DeepSeek-V2's latent
+    attention and experts have no split here)."""
+    if not isinstance(config, DecoderConfig):
+        raise ValueError(f"tensor parallelism splits the Llama-family decoder only; {type(config).__name__} "
+                         "(latent attention, routed experts) has no tensor-parallel split")
     tp = mesh.shape[axis]
     if config.num_kv_heads % tp or config.num_heads % tp:
         raise ValueError(
@@ -111,7 +116,7 @@ class TPKVCache:
         ``k[t]`` / ``v[t]`` in place)."""
         return KVCache(self.k[t], self.v[t], self.valid, self.length)
 
-    def put_rows(self, rows: torch.Tensor, start: int, sub: "TPKVCache") -> None:
+    def put_rows(self, rows: torch.Tensor, start: int, sub: "TPKVCache", first: int | None = None) -> None:
         """:meth:`KVCache.put_rows` on every shard's buffer."""
         end = start + sub.valid.shape[1]
         for k, v, sub_k, sub_v in zip(self.k, self.v, sub.k, sub.v):

@@ -6,10 +6,14 @@ decode by :func:`~..models.decoder.generate` per bucketed prompt.
 Weights:
 
 - ``config`` (and ``params``, a state dict) given: that model; without
-  ``params``, random weights from seed 0;
-- else ``LLM_MODEL_PATH``: an HF Llama checkpoint in that local directory
+  ``params``, random weights from ``seed`` (default 0);
+- else ``LLM_MODEL_PATH``: an HF checkpoint in that local directory
   (``config.json``, safetensors or ``pytorch_model*.bin``, and its
-  tokenizer; ``transformers`` is imported then, and only then);
+  tokenizer; ``transformers`` is imported then, and only then), chosen by
+  its ``model_type``: ``llama`` (the Llama decoder) or ``deepseek_v2``
+  (``models/deepseek_v2.py``: latent attention, experts, YaRN; its
+  configuration's default cache positions and its ``prompt_buckets``); any
+  other type is refused by name;
 - else a small random-weight model with a byte tokenizer, which serves the
   whole path but answers noise.
 
@@ -52,6 +56,7 @@ from ..models.decoder import (
     DecoderConfig, DecoderLM, cast_params_for_inference, generate, generate_lookup_speculative, init_decoder_params,
     load_hf_llama,
 )
+from ..models.deepseek_v2 import DeepseekV2Config, DeepseekV2LM, load_hf_deepseek_v2
 from ..observability import device_work, get_metrics
 from .cuda_embed import _bucket
 
@@ -164,12 +169,29 @@ class ByteTokenizer:
         return data.decode("utf-8", errors="replace")
 
 
-_BUCKETS = (64, 128, 256, 512, 1024, 2048)  # prompt lengths, each its own prefill shape
+_BUCKETS = (64, 128, 256, 512, 1024, 2048)  # prompt lengths, each its own prefill shape; a config's prompt_buckets
 
 
 def prompt_seed(prompt: str) -> int:
     """The sampling seed of a prompt: stable across processes."""
     return int.from_bytes(hashlib.sha256(prompt.encode("utf-8")).digest()[:4], "little") % 2**31
+
+
+def _build_model(config, state: dict | None, device, seed: int) -> torch.nn.Module:
+    """The decoder of ``config`` with ``state``, or seeded random weights
+    where it is None. Serving reads every weight once a step: one copy in
+    the compute dtype (a DeepSeek-V2 model draws its weights in place)."""
+    if isinstance(config, DeepseekV2Config):
+        model = DeepseekV2LM(config, device=device).eval()
+        if state is None:
+            return model.init_random(seed)
+        model.load_state_dict(state)
+        return model
+    if state is None:
+        state = init_decoder_params(config, torch.Generator(device=device).manual_seed(seed), config.torch_dtype)
+    model = DecoderLM(config, device=device).eval()
+    model.load_state_dict(cast_params_for_inference(config, state))
+    return model
 
 
 class CudaLLM(BaseLLM):
@@ -182,15 +204,14 @@ class CudaLLM(BaseLLM):
         max_new_tokens: int | None = None,
         temperature: float | None = None,
         device: str | torch.device | None = None,
+        seed: int = RANDOM_INIT_SEED,
     ) -> None:
         app_cfg = get_config()
         self.device = resolve_device(device)
         self.temperature = app_cfg.LLM_TEMPERATURE if temperature is None else temperature
         self.max_new_tokens = max_new_tokens or min(app_cfg.LLM_MAX_TOKENS, 256)
-        gen = torch.Generator(device=self.device).manual_seed(RANDOM_INIT_SEED)
         if config is not None:
-            self.config = config
-            state = params if params is not None else init_decoder_params(config, gen, config.torch_dtype)
+            self.config, state = config, params  # no params: seeded random weights (_build_model)
             self.tokenizer = tokenizer or ByteTokenizer()
         elif app_cfg.LLM_MODEL_PATH:
             self.config, state, self.tokenizer = self._load_hf(app_cfg.LLM_MODEL_PATH)
@@ -201,11 +222,10 @@ class CudaLLM(BaseLLM):
                 vocab_size=ByteTokenizer.vocab_size + 1, hidden_size=256, num_layers=4, num_heads=8,
                 num_kv_heads=4, intermediate_size=512, max_position=1024, dtype="float32",
             )
-            state = init_decoder_params(self.config, gen)
+            state = init_decoder_params(self.config, torch.Generator(device=self.device).manual_seed(seed))
             self.tokenizer = ByteTokenizer()
-        # serving reads every weight once a step: one copy in the compute dtype
-        self.model = DecoderLM(self.config, device=self.device).eval()
-        self.model.load_state_dict(cast_params_for_inference(self.config, state))
+        self.model = _build_model(self.config, state, self.device, seed)
+        self._buckets = getattr(self.config, "prompt_buckets", _BUCKETS)
         # one generation at a time: the decode loop is paced by the host's
         # launches, and threads launching at once only contend for the GIL
         # (chip_smoke.py phase 8, TinyLlama width on an H100: 8 concurrent
@@ -231,10 +251,14 @@ class CudaLLM(BaseLLM):
 
     @staticmethod
     def _load_hf(path: str):
-        """An HF Llama checkpoint from a local directory (no network)."""
+        """An HF checkpoint from a local directory (no network), its
+        architecture chosen by ``model_type``."""
         p = Path(path)
         hf = json.loads((p / "config.json").read_text())
-        config = DecoderConfig(
+        kind = hf.get("model_type")
+        if kind not in ("llama", "deepseek_v2"):
+            raise ValueError(f"LLM_MODEL_PATH {path}: model_type {kind!r} is not served (llama, deepseek_v2)")
+        config = DeepseekV2Config.from_hf(hf) if kind == "deepseek_v2" else DecoderConfig(
             vocab_size=hf["vocab_size"],
             hidden_size=hf["hidden_size"],
             num_layers=hf["num_hidden_layers"],
@@ -256,7 +280,8 @@ class CudaLLM(BaseLLM):
         from transformers import AutoTokenizer
 
         tok = AutoTokenizer.from_pretrained(str(p), local_files_only=True)
-        return config, load_hf_llama(config, state), tok
+        load = load_hf_deepseek_v2 if kind == "deepseek_v2" else load_hf_llama
+        return config, load(config, state), tok
 
     def _eos_id(self) -> int | None:
         return getattr(self.tokenizer, "eos_id", None) or getattr(self.tokenizer, "eos_token_id", None)
@@ -270,9 +295,9 @@ class CudaLLM(BaseLLM):
             ids = self.tokenizer(prompt)["input_ids"]
         # at most min(position budget, largest bucket) tokens: _bucket caps at
         # its last entry, and a longer prompt would not fit it
-        limit = min(self.config.max_position - self.max_new_tokens, _BUCKETS[-1])
+        limit = min(self.config.max_position - self.max_new_tokens, self._buckets[-1])
         ids = ids[-max(8, limit):]
-        bucket = _bucket(len(ids), _BUCKETS)
+        bucket = _bucket(len(ids), self._buckets)
         pad = bucket - len(ids)
         arr = np.full((1, bucket), getattr(self.tokenizer, "pad_id", 0), np.int32)
         mask = np.zeros((1, bucket), np.int32)

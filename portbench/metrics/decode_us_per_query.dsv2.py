@@ -1,0 +1,10 @@
+"""Decoder, decode: microseconds of device time a question in the
+program's ``llm.decode`` spans (a segment of one-token steps), in the profiler slice, each operation attributed to the span
+its launch fell in (correlation ids), over the questions sent in the
+slice."""
+
+from portbench.metrics_dsv2 import us_per_query
+
+
+def read(run):
+    return us_per_query(run, "llm.decode")
