@@ -6,7 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py`` (all phases).
 ``/query`` alone, ``1,9`` for the rest of the served surface alone,
 ``1,10`` for the OCR fallback alone, ``1,11`` for the capacity tiers
 alone, ``1,12`` for the trainers alone, ``1,13`` for corpus sharding
-alone, ``1,14`` for model parallelism alone). Phases:
+alone, ``1,14`` for model parallelism alone, ``1,15`` for the DeepSeek
+one-token step's kernels alone). Phases:
 
 1. card: ``nvidia-smi`` name and power limit; builds every kernel
    (one nvcc per source, all started together) and prints the build time
@@ -312,6 +313,22 @@ alone, ``1,14`` for model parallelism alone). Phases:
    step (the phase's main path); an f32 copy at depth 2 within 1e-5
    relative a step. No plain version may run; the kernel table's rows gain
    ``launches_model_parallel``.
+
+15. the DeepSeek one-token step's kernels (``kernels/deepseek_decode.cu``) at
+   DeepSeek-V2-Lite's widths: each of ``rms_norm``, ``mla_rope_latent``,
+   ``mla_decode``, ``moe_router`` and ``moe_combine`` on card tensors (32
+   rows; 64 experts, top-6) against its plain version, one launch each; then
+   ``_DecodeSteps`` of a V2-Lite-width model cut to two layers (dense, then
+   experts), 32 rows over a 2,500-position cache: the graphed step's logits
+   within 2e-2 of the layers' own step, and ``DS_STEPS`` steps with every
+   launch count set to 0 just before and no plain version run (a replayed
+   graph launches without its wrapper: one ``mla_decode`` a layer a step);
+   then ``mla_decode`` alone, 32 rows × 16 heads over 2,500 and 8,192
+   positions: checked against its plain version (``_rel`` < 1e-2), then µs
+   a call (CUDA events, the calls cycling over ``MLA_LAYERS`` caches so each
+   reads its bytes from device memory, not L2) against its bound, the
+   cache's bytes at 3.35 TB/s, and the plain version's, with the launches of
+   the timed calls alone.
 
 Prints the kernel table as one ``{"kernels": [...]}`` line, the card's
 name and power limit, and as its last line
@@ -5800,14 +5817,214 @@ def phase_model_parallel(state: dict) -> None:
     log(f"phase 14 main-path launches (the DP+TP step): {json.dumps(total)}")
 
 
+# ------------------------------------------------------------------ phase 15
+
+DS_ROWS = 32  # the query cell's slots: the rows of a one-token step
+MLA_SHAPES = ((100, 2600), (0, 8192))  # positions [first, end) of the timed MLA calls, 32 rows × 16 heads
+MLA_LAYERS = 4  # caches the timed calls cycle over: 4 × 302 MB, past the 50 MB L2
+DS_STEP_LAYERS = 2  # the step's model: V2-Lite's widths, its dense first layer and one expert layer
+DS_STEP_CURSOR = 2500  # the step's cache holds this many positions, from DS_STEP_FIRST on
+DS_STEP_FIRST = 100
+DS_STEPS = 4
+DS_PLAIN = ("rms_norm_reference", "mla_rope_latent_reference", "mla_decode_reference", "moe_router_reference",
+            "moe_combine_reference")
+
+
+def _ds_ops():
+    from intool_rag_tpu_torch.ops import deepseek_decode as fused
+
+    return fused, (fused.rms_norm, fused.mla_rope_latent, fused.mla_decode, fused.moe_router, fused.moe_combine)
+
+
+def _ds_launches() -> dict[str, dict[str, int]]:
+    _, ops = _ds_ops()
+    return {op.__name__: dict(op.launches.by_variant) for op in ops}
+
+
+def _ds_reset() -> None:
+    for op in _ds_ops()[1]:
+        op.launches.reset()
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+
+
+def _ds_wrappers(cfg, gen) -> dict:
+    """Each op of ``kernels/deepseek_decode.cu`` on card tensors at V2-Lite's
+    widths (32 rows; 64 experts, top-6) against its plain version, with
+    the card tests' tolerances; the launch counts set to 0 before and read
+    after (one launch each)."""
+    from intool_rag_tpu_torch.models import deepseek_v2 as ds
+
+    fused, _ = _ds_ops()
+    t, h, e, k = DS_ROWS, cfg.hidden_size, cfg.n_routed_experts, cfg.num_experts_per_tok
+    nh, dn, dr, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    eps = cfg.rms_norm_eps
+    _ds_reset()
+    out = {}
+    x = torch.randn(t, h, generator=gen, device=DEVICE).bfloat16()
+    res = torch.randn(t, h, generator=gen, device=DEVICE).bfloat16()
+    w = (torch.rand(h, generator=gen, device=DEVICE) + 0.5).bfloat16()
+    (total, got), (want_total, want) = (fused.rms_norm(x, w, eps, residual=res),
+                                        fused.rms_norm_reference(x, w, eps, residual=res))
+    out["rms_norm"] = rel = _rel_err(got, want)
+    if not (torch.equal(total, want_total) and rel < 2e-3):
+        raise AssertionError(f"rms_norm: sum equal {torch.equal(total, want_total)}, relative error {rel}")
+
+    qkv = torch.randn(t, nh * (dn + dr) + r + dr, generator=gen, device=DEVICE).bfloat16()
+    positions = torch.randint(0, 8192, (t,), generator=gen, device=DEVICE)
+    kv_w = (torch.rand(r, generator=gen, device=DEVICE) + 0.5).bfloat16()
+    args = (positions, ds.yarn_inv_freq(cfg, DEVICE), 1.0, kv_w, eps, nh, dn, dr, r)
+    got_pe, got_lat = fused.mla_rope_latent(qkv, *args)
+    want_pe, want_lat = fused.mla_rope_latent_reference(qkv, *args)
+    out["mla_rope_latent"] = rel = _rel_err(got_lat[:, :r], want_lat[:, :r])
+    if not (torch.equal(got_pe, want_pe) and torch.equal(got_lat[:, r:], want_lat[:, r:]) and rel < 2e-3):
+        raise AssertionError(f"mla_rope_latent: rope not bit-equal, or the latent's norm off by {rel}")
+
+    kv = (torch.randn(t, 8192, r + dr, generator=gen, device=DEVICE) * 0.5).bfloat16()
+    valid = torch.rand(t, 8192, generator=gen, device=DEVICE) > 0.2
+    valid[3] = False  # a row that sees only its own position
+    q_lat = (torch.randn(nh, t, r, generator=gen, device=DEVICE) * 0.2).bfloat16()
+    q_pe = (torch.randn(t, nh, dr, generator=gen, device=DEVICE) * 0.2).bfloat16()
+    got = fused.mla_decode(q_lat, q_pe, kv, valid, DS_STEP_FIRST, DS_STEP_CURSOR, 0.1147214)
+    want = fused.mla_decode_reference(q_lat, q_pe, kv, valid, DS_STEP_FIRST, DS_STEP_CURSOR, 0.1147214)
+    out["mla_decode"] = rel = _rel_err(got, want)
+    if not (rel < 1e-2 and torch.equal(got[:, 3], kv[3, DS_STEP_CURSOR - 1, :r].expand(nh, r))):
+        raise AssertionError(f"mla_decode: relative error {rel}, or the lone row not its own entry")
+
+    logits = torch.randn(t, e, generator=gen, device=DEVICE) * 0.3
+    real = torch.rand(t, generator=gen, device=DEVICE) > 0.25
+    tally, want_tally = (torch.zeros((2, 3), dtype=torch.int64, device=DEVICE) for _ in range(2))
+    got = fused.moe_router(logits, k, cfg.routed_scaling_factor, real, tally, tally_rows=2)
+    want = fused.moe_router_reference(logits, k, cfg.routed_scaling_factor, real, want_tally, tally_rows=2)
+    out["moe_router"] = rel = _rel_err(got, want)
+    if not (torch.equal(got != 0, want != 0) and torch.equal(tally, want_tally)
+            and torch.allclose(got, want, rtol=2e-6, atol=0)):
+        raise AssertionError(f"moe_router: routes, tally or gates (relative error {rel}) differ")
+
+    experts = torch.randn(e, t, h, generator=gen, device=DEVICE).bfloat16()
+    gates = want
+    out["moe_combine"] = rel = _rel_err(fused.moe_combine(experts, gates), fused.moe_combine_reference(experts, gates))
+    if not rel < 2e-3:
+        raise AssertionError(f"moe_combine: relative error {rel}")
+    launches = _ds_launches()
+    if any(sum(v.values()) != 1 for v in launches.values()):
+        raise AssertionError(f"phase 15: one launch an op expected, got {launches}")
+    return {"rel_err": out, "launches": launches}
+
+
+def _ds_steps(cfg) -> dict:
+    """``_DecodeSteps`` of a bf16 model at V2-Lite's widths cut to
+    ``DS_STEP_LAYERS`` layers, 32 rows over a cache of ``DS_STEP_CURSOR``
+    positions: the first call builds the graphs, then ``DS_STEPS`` calls
+    with every launch count set to 0 just before and no plain version
+    allowed. A replayed graph launches without its wrapper, so the counts
+    hold one ``mla_decode`` a layer a step (the eager attention) and nothing
+    else. The graphed step's logits against the layers' own step (grad mode
+    on) from the same cache, within 2e-2 relative."""
+    import dataclasses
+
+    from intool_rag_tpu_torch.models import deepseek_v2 as ds
+
+    fused, _ = _ds_ops()
+    small = dataclasses.replace(cfg, num_layers=DS_STEP_LAYERS)
+    model = ds.DeepseekV2LM(small, device=DEVICE).init_random(15).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    cache, eager = model.init_cache(DS_ROWS), model.init_cache(DS_ROWS)
+    cache.kv[:, :, :DS_STEP_CURSOR] = (torch.randn(cache.kv[:, :, :DS_STEP_CURSOR].shape, generator=gen,
+                                                   device=DEVICE) * 0.5).bfloat16()
+    cache.valid[:, DS_STEP_FIRST:DS_STEP_CURSOR] = torch.rand(DS_ROWS, DS_STEP_CURSOR - DS_STEP_FIRST, generator=gen,
+                                                              device=DEVICE) > 0.2
+    eager.kv.copy_(cache.kv)
+    eager.valid.copy_(cache.valid)
+    for c in (cache, eager):
+        c.length, c.first = DS_STEP_CURSOR, DS_STEP_FIRST
+    ids = torch.randint(0, small.vocab_size, (DS_ROWS, 1), generator=gen, device=DEVICE)
+    pos = torch.full((DS_ROWS, 1), DS_STEP_CURSOR, device=DEVICE)
+    with torch.no_grad():
+        got = model(ids, pos, cache)  # builds the graphs
+    with torch.enable_grad():
+        want = model(ids, pos, eager).detach()
+    rel = _rel_err(got, want)
+    if not (torch.isfinite(got).all() and rel < 2e-2):
+        raise AssertionError(f"phase 15: the graphed step's logits {rel} from the layers' own")
+    boxes = [_counting(fused, name) for name in DS_PLAIN]
+    try:
+        _ds_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for j in range(DS_STEPS):
+                model(ids, pos + 1 + j, cache)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / DS_STEPS
+        launches = _ds_launches()
+    finally:
+        for name, (_, original) in zip(DS_PLAIN, boxes):
+            setattr(fused, name, original)
+    plain = sum(box["calls"] for box, _ in boxes)
+    want_launches = {"mla_decode": {"mma+combine": DS_STEPS * DS_STEP_LAYERS}}
+    if plain or {k: v for k, v in launches.items() if v} != want_launches:
+        raise AssertionError(f"phase 15 steps: launched {launches}, plain versions called {plain} times; expected "
+                             f"{want_launches} and none")
+    return {"layers": DS_STEP_LAYERS, "steps": DS_STEPS, "logits_rel_err": rel, "launches": launches,
+            "step_ms_host": step_ms}
+
+
+def phase_mla(state: dict) -> None:
+    from intool_rag_tpu_torch.models import deepseek_v2 as ds
+
+    fused, _ = _ds_ops()
+    cfg = ds.DeepseekV2Config.lite()
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    out = {"ops": _ds_wrappers(cfg, gen)}
+    log(f"phase 15 ops against their plain versions: {json.dumps(out['ops'])}")
+    out["step"] = _ds_steps(cfg)
+    log(f"phase 15 one-token steps: {json.dumps(out['step'])}")
+    torch.cuda.empty_cache()
+    results = []
+    for first, end in MLA_SHAPES:
+        b, h = DS_ROWS, cfg.num_heads
+        kv = (torch.randn(MLA_LAYERS, b, 8192, r + dr, generator=gen, device=DEVICE) * 0.5).bfloat16()
+        valid = torch.rand(b, 8192, generator=gen, device=DEVICE) > 0.2
+        q_lat = (torch.randn(h, b, r, generator=gen, device=DEVICE) * 0.2).bfloat16()
+        q_pe = (torch.randn(b, h, dr, generator=gen, device=DEVICE) * 0.2).bfloat16()
+        got = fused.mla_decode(q_lat, q_pe, kv[0], valid, first, end, 0.1147214)
+        want = fused.mla_decode_reference(q_lat, q_pe, kv[0], valid, first, end, 0.1147214)
+        rel = _rel_err(got, want)
+        if not rel < 1e-2:
+            raise AssertionError(f"mla_decode at {(b, h, first, end)}: relative error {rel}")
+        calls = iter(range(1 << 30))
+
+        def kernel():
+            return fused.mla_decode(q_lat, q_pe, kv[next(calls) % MLA_LAYERS], valid, first, end, 0.1147214)
+
+        _ds_reset()
+        kernel_ms = cuda_ms(kernel, iters=200, warmup=8)
+        launches = _ds_launches()["mla_decode"]
+        plain_ms = cuda_ms(lambda: fused.mla_decode_reference(q_lat, q_pe, kv[1], valid, first, end, 0.1147214))
+        bound_ms = 1e3 * b * (end - first) * (r + dr) * 2 / H100_HBM_BYTES_S
+        row = {"rows": b, "heads": h, "positions": end - first, "kernel_us": 1e3 * kernel_ms,
+               "bound_us": 1e3 * bound_ms, "share": bound_ms / kernel_ms, "plain_us": 1e3 * plain_ms,
+               "rel_err": rel, "launches": launches}
+        log(f"phase 15 mla_decode {json.dumps(row)}")
+        results.append(row)
+        del kv
+        torch.cuda.empty_cache()
+    out["mla_decode"] = results
+    state["deepseek"] = out
+
+
 PHASES = {1: phase_build, 2: phase_kernels, 3: phase_service, 4: phase_scale, 5: phase_capacity,
           6: phase_ingest, 7: phase_train, 8: phase_query, 9: phase_served, 10: phase_scanned,
-          11: phase_tiers, 12: phase_training, 13: phase_sharded, 14: phase_model_parallel}
+          11: phase_tiers, 12: phase_training, 13: phase_sharded, 14: phase_model_parallel, 15: phase_mla}
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     parser.add_argument("--trace-windows", type=int, default=1,
                         help="repeat phase 9's /debug/trace window this many times")
     args = parser.parse_args(argv)

@@ -702,6 +702,8 @@ class DeepseekV2LM(nn.Module):
             self.final_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size)
         dev = resolve_device(device)
+        if dev.type == "cuda":  # the one-token step's attention is a kernel of fixed widths: refuse others here
+            fused.check_mla_widths(cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim)
         self.to(param_dtype or cfg.torch_dtype)  # on meta: the card holds one bf16 copy, never an f32 one
         self.to_empty(device=dev)
         self.moe_tally = _Tally(dev)

@@ -6,7 +6,8 @@ of ~100 small ones); these five wrappers do the work of ~60 of them a
 layer in five launches: :func:`rms_norm` (optionally after the residual
 add), :func:`mla_rope_latent` (YaRN rope of ``q_pe`` and ``k_pe``, the
 latent's norm, the cache entry), :func:`mla_decode` (the absorbed attention
-over the latent cache, in splits of the positions and a combine),
+over the latent cache on the tensor cores, contiguous splits of a row's
+positions a block and a combine; :func:`mla_decode_plan` mirrors the split),
 :func:`moe_router` (softmax, greedy top-k, the dense gates and the expert
 tally) and :func:`moe_combine` (the gate-weighted sum of the experts'
 outputs). Each has its plain PyTorch version beside it (``*_reference``),
@@ -18,6 +19,7 @@ launches its kernel (bfloat16 only) or raises. Each counts its launches
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -25,9 +27,9 @@ import torch
 from .flat_fused import LaunchCount
 
 _SOURCE = "deepseek_decode.cu"
-SPLIT_TARGET_BLOCKS = 264  # mla_decode: about two blocks an SM of the H100's 132
-SPLIT_MIN_POSITIONS = 32  # mla_decode: a split takes at least one chunk of positions
-MAX_SPLITS = 16
+MLA_CHUNK = 32  # mla_decode: positions a unit of the plan (the kernel's MLA_CHUNK)
+MLA_HEADS = 16  # mla_decode: heads a tile, the M of its tensor-core products
+MLA_RANK, MLA_ROPE = 512, 64  # mla_decode: the latent and rope widths it takes
 
 
 def _lib() -> ctypes.CDLL:
@@ -164,7 +166,8 @@ def mla_decode_reference(q_lat: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tens
     last (the query's own). Scores ``(q_lat·c + q_pe·k_pe) · scale`` and
     their softmax in f32, ``o_lat = p·c`` → ``[H, B, r]``, the products in
     the cache's dtype as :meth:`~..models.deepseek_v2.LatentAttention.attend`
-    forms them (the kernel keeps the scores and ``p`` in f32)."""
+    forms them (the kernel sums the scores in f32 and rounds ``p`` to bf16
+    before normalising it)."""
     r = q_lat.shape[-1]
     lat = kv[:, first:end]
     seen = valid[:, first:end].clone()
@@ -175,15 +178,45 @@ def mla_decode_reference(q_lat: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tens
     return torch.bmm(p.to(lat.dtype), lat[..., :r]).transpose(0, 1).to(q_lat.dtype)
 
 
-def _splits(batch: int, positions: int) -> int:
-    return max(1, min(MAX_SPLITS, -(-SPLIT_TARGET_BLOCKS // batch), -(-positions // SPLIT_MIN_POSITIONS)))
+def _chunks(positions: int) -> int:
+    return -(-positions // MLA_CHUNK)
+
+
+def mla_decode_splits(rows: int, positions: int, sms: int) -> int:
+    """Blocks of :func:`mla_decode` a row of 16 heads (``rows`` = batch ×
+    heads / 16): ⌊sms / rows⌋, so the grid fills the card once, never more
+    than the row's chunks of :data:`MLA_CHUNK` positions and at least one."""
+    return max(1, min(sms // rows, _chunks(positions)))
+
+
+def mla_decode_plan(rows: int, positions: int, sms: int) -> list[tuple[int, int, int]]:
+    """The partition the kernel computes: block ``g`` holds split ``j = g %
+    s`` of row ``g // s`` (``s`` of :func:`mla_decode_splits`), chunks
+    ``[j·chunks // s, (j + 1)·chunks // s)``, as ``(row, first chunk, end
+    chunk)``; the combine merges blocks ``[row·s, (row + 1)·s)``."""
+    chunks, s = _chunks(positions), mla_decode_splits(rows, positions, sms)
+    return [(g // s, g % s * chunks // s, (g % s + 1) * chunks // s) for g in range(rows * s)]
+
+
+def check_mla_widths(heads: int, rank: int, rope: int) -> None:
+    """Raises unless :func:`mla_decode`'s kernel takes these widths: heads in
+    tiles of :data:`MLA_HEADS`, rank :data:`MLA_RANK`, rope :data:`MLA_ROPE`."""
+    if heads % MLA_HEADS or rank != MLA_RANK or rope != MLA_ROPE:
+        raise ValueError(f"mla_decode: the kernel takes heads in tiles of {MLA_HEADS}, rank {MLA_RANK} and rope "
+                         f"{MLA_ROPE}; got {heads}, {rank}, {rope}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tensor, valid: torch.Tensor, first: int, end: int,
                scale: float) -> torch.Tensor:
-    """As :func:`mla_decode_reference`; on the card the positions go in
-    splits (about two blocks an SM), each an online softmax over chunks of
-    32 positions, then a combine."""
+    """As :func:`mla_decode_reference`; on the card the scores and the
+    latent sum run on the tensor cores, a block for each split of a row of
+    :func:`mla_decode_plan`, then a combine. Heads a multiple of 16, rank
+    512, rope 64 (:func:`check_mla_widths`)."""
     if not q_lat.is_cuda:
         return mla_decode_reference(q_lat, q_pe, kv, valid, first, end, scale)
     _bf16("mla_decode", q_lat, q_pe, kv)
@@ -193,22 +226,26 @@ def mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor, kv: torch.Tensor, valid:
             or not 0 <= first < end <= kv.shape[1]):
         raise ValueError(f"mla_decode: shapes {tuple(q_lat.shape)} {tuple(q_pe.shape)} {tuple(kv.shape)} "
                          f"{tuple(valid.shape)} with positions [{first}, {end})")
+    check_mla_widths(heads, r, rope)
     if (q_lat.stride(2) != 1 or q_pe.stride(2) != 1 or kv.stride(2) != 1 or valid.stride(1) != 1
             or valid.dtype != torch.bool):
         raise ValueError("mla_decode: the last dim of each input must be contiguous, valid bool")
     if (q_lat.stride(0) % 2 or q_lat.stride(1) % 2 or q_pe.stride(0) % 2 or q_pe.stride(1) % 2
-            or kv.stride(0) % 8 or kv.stride(1) % 8 or kv.data_ptr() % 16):
-        raise ValueError("mla_decode: the queries need even strides, the cache 16-byte aligned rows")
-    splits = _splits(b, end - first)
-    o_part = torch.empty((b, splits, heads, r), dtype=torch.float32, device=kv.device)
-    ml = torch.empty((2, b, splits, heads), dtype=torch.float32, device=kv.device)
+            or q_lat.data_ptr() % 4 or q_pe.data_ptr() % 4 or kv.stride(0) % 8 or kv.stride(1) % 8
+            or kv.data_ptr() % 16):
+        raise ValueError("mla_decode: the queries need even strides and 4-byte aligned starts, the cache 16-byte "
+                         "aligned rows")
+    rows = b * (heads // MLA_HEADS)
+    splits = mla_decode_splits(rows, end - first, _sms(kv.device))
+    o_part = torch.empty((rows * splits, MLA_HEADS, r), dtype=torch.float32, device=kv.device)
+    ml = torch.empty((2, rows * splits, MLA_HEADS), dtype=torch.float32, device=kv.device)
     out = torch.empty((heads, b, r), dtype=q_lat.dtype, device=kv.device)
     _check(_lib().mla_decode(q_lat.data_ptr(), q_lat.stride(0), q_lat.stride(1), q_pe.data_ptr(), q_pe.stride(0),
                              q_pe.stride(1), kv.data_ptr(), kv.stride(0), kv.stride(1), valid.data_ptr(),
                              valid.stride(0), b, heads, r, rope, int(first), int(end), splits, float(scale),
                              o_part.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(), out.data_ptr(), out.stride(0),
                              out.stride(1), _stream(kv)), "mla_decode")
-    mla_decode.launches.add("split+combine")
+    mla_decode.launches.add("mma+combine")
     return out
 
 

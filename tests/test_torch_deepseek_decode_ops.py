@@ -2,14 +2,16 @@
 (``intool_rag_tpu_torch/ops/deepseek_decode.py``): on the CPU, each plain
 version against the model's own operations that it stands for; on the card
 (skipped here: the CUDA kernels have no CPU form), each kernel against its
-plain version at the published sizes.
+plain version at the published sizes; the MLA kernel's split of each
+row's positions is mirrored in Python and checked here.
 
 Tolerances: the plain versions repeat the model's operations, so they agree
 bit for bit or to float32 rounding (1e-6; a sum over all experts where the
 model sums over the chosen ones). On the card the kernels take the same
-bf16 inputs as the plain versions and sum in another order, in f32 where
-the plain attention rounds its scores and weights to bf16: bf16's relative
-rounding (2^-8) bounds those."""
+bf16 inputs as the plain versions and sum in another order; the MLA kernel
+keeps its scores in f32 where the plain attention rounds them to bf16, and
+rounds its weights to bf16 before, not after, normalising them: bf16's
+relative rounding (2^-8) bounds those."""
 
 from __future__ import annotations
 
@@ -137,8 +139,49 @@ def test_moe_combine_reference_is_a_loop_over_experts():
 
 
 def test_splits_fill_the_card_and_keep_a_chunk_each():
-    assert fused._splits(32, 2500) == 9 and fused._splits(1, 100) == 4 and fused._splits(64, 5000) == 5
-    assert fused._splits(2, 10_000) == fused.MAX_SPLITS and fused._splits(300, 10) == 1
+    """The grid is ⌊SMs / rows⌋ splits a row, at most one an SM while the
+    rows last, and every block of the plan gets at least one chunk."""
+    assert fused.mla_decode_splits(32, 2500, 132) == 4 and fused.mla_decode_splits(1, 100, 132) == 4
+    assert fused.mla_decode_splits(256, 8192, 132) == 1 and fused.mla_decode_splits(3, 20, 132) == 1
+    for rows, positions in [(32, 2500), (1, 100), (3, 20), (2, 10_000), (256, 8192)]:
+        plan = fused.mla_decode_plan(rows, positions, 132)
+        assert len(plan) <= max(132, rows) and all(hi - lo >= 1 for _, lo, hi in plan)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132, 264])
+@pytest.mark.parametrize("positions", [1, 20, 32, 33, 2500, 8192])
+@pytest.mark.parametrize("rows", [1, 3, 32])
+def test_mla_decode_plan_covers_each_chunk_once_in_equal_runs(rows, positions, sms):
+    """The kernel's partition, mirrored: every (row, chunk) in exactly one
+    block, no block more than one chunk above another, each row's pieces
+    contiguous and in order in the combine's range of blocks ``[row·s,
+    (row + 1)·s)``."""
+    chunks = -(-positions // fused.MLA_CHUNK)
+    s = fused.mla_decode_splits(rows, positions, sms)
+    plan = fused.mla_decode_plan(rows, positions, sms)
+    assert len(plan) == rows * s
+    seen = [(row, c) for row, lo, hi in plan for c in range(lo, hi)]
+    assert seen == [(row, c) for row in range(rows) for c in range(chunks)]  # once each, in row-major order
+    sizes = [hi - lo for _, lo, hi in plan]
+    assert max(sizes) - min(sizes) <= 1
+    for row in range(rows):
+        held = plan[row * s:(row + 1) * s]
+        assert all(r == row for r, _, _ in held) and held[0][1] == 0 and held[-1][2] == chunks
+        assert all(a[2] == b[1] for a, b in zip(held, held[1:]))  # contiguous, split after split
+
+
+@pytest.mark.parametrize("heads,rank,rope,takes", [
+    (16, 512, 64, True), (128, 512, 64, True),  # V2-Lite, V2
+    (4, 32, 16, False), (8, 512, 64, False), (16, 256, 64, False), (16, 512, 32, False),
+])
+def test_mla_widths_are_checked_before_the_card_runs(heads, rank, rope, takes):
+    """The kernel's widths, checked where a model is built on the card:
+    heads in tiles of 16, rank 512, rope 64; anything else raises."""
+    if takes:
+        fused.check_mla_widths(heads, rank, rope)
+    else:
+        with pytest.raises(ValueError, match="heads in tiles of 16, rank 512 and rope 64"):
+            fused.check_mla_widths(heads, rank, rope)
 
 
 # ---------------- the kernels (card) ----------------
@@ -183,23 +226,32 @@ def test_rope_latent_kernel_equals_its_plain_version():
 
 
 @needs_card
-@pytest.mark.parametrize("first,end", [(0, 40), (100, 2600), (4000, 8192)])
-def test_mla_decode_kernel_equals_its_plain_version(first, end):
+@pytest.mark.parametrize("batch,heads,first,end", [
+    (32, 16, 0, 40), (32, 16, 100, 2600), (32, 16, 4000, 8192),  # the cell's shape and the cache's edge
+    (32, 16, 7, 27),  # fewer positions than one chunk
+    (32, 16, 0, 8192),  # every position, the edge
+    (1, 16, 100, 2600), (1, 16, 3, 8192),  # one row: units fewer than the SMs, then a row over every block
+    (4, 128, 100, 2600), (32, 128, 8150, 8192),  # V2's heads: eight tiles a row
+])
+def test_mla_decode_kernel_equals_its_plain_version(batch, heads, first, end):
     cfg = ds.DeepseekV2Config.lite()
     g = _card_gen(13)
-    b, h, r, dr = 32, cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    b, h, r, dr = batch, heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     kv = (torch.randn(2, b, 8192, r + dr, device="cuda", generator=g) * 0.5).bfloat16()[1]
     valid = torch.rand(b, 8192, device="cuda", generator=g) > 0.2
-    valid[3] = False  # a row that sees only its own position
+    lone = 3 if b > 3 else None  # a row that sees only its own position
+    if lone is not None:
+        valid[lone] = False
     q_lat = (torch.randn(h, b, r, device="cuda", generator=g) * 0.2).bfloat16()
     q_pe = (torch.randn(b, h, dr, device="cuda", generator=g) * 0.2).bfloat16()
-    before = fused.mla_decode.launches.count
+    before = fused.mla_decode.launches.by_variant.get("mma+combine", 0)
     got = fused.mla_decode(q_lat, q_pe, kv, valid, first, end, 0.1147214)
     want = fused.mla_decode_reference(q_lat, q_pe, kv, valid, first, end, 0.1147214)
-    assert fused.mla_decode.launches.count == before + 1
+    assert fused.mla_decode.launches.by_variant["mma+combine"] == before + 1
     assert torch.isfinite(got.float()).all()
     assert _rel(got, want) < 1e-2
-    torch.testing.assert_close(got[:, 3], kv[3, end - 1, :r].expand(h, r), rtol=0, atol=0)
+    if lone is not None:
+        torch.testing.assert_close(got[:, lone], kv[lone, end - 1, :r].expand(h, r), rtol=0, atol=0)
 
 
 @needs_card
@@ -230,9 +282,11 @@ def test_moe_combine_kernel_equals_its_plain_version():
 @needs_card
 @torch.no_grad()
 def test_one_token_step_on_card_goes_through_the_kernels():
-    """A bf16 tiny model's one-token calls launch each fused op, and its
-    logits stay finite."""
-    card = ds.DeepseekV2LM(dataclasses.replace(CFG, dtype="bfloat16"), device="cuda").init_random(SEED).eval()
+    """A bf16 tiny model at the attention widths the MLA kernel takes (16
+    heads, rank 512, rope 64): its one-token calls launch each fused op, and
+    its logits stay finite."""
+    cfg = dataclasses.replace(CFG, dtype="bfloat16", num_heads=16, kv_lora_rank=512, qk_rope_head_dim=64)
+    card = ds.DeepseekV2LM(cfg, device="cuda").init_random(SEED).eval()
     cache = card.init_cache(2)
     cache.length = 8
     cache.valid[:, :8] = True

@@ -402,13 +402,16 @@ def test_one_token_steps_in_parts_equal_the_layers(model):
 
 def test_one_token_graphs_equal_the_eager_step_on_card():
     """On the card the parts are CUDA graphs of the fused kernels
-    (``ops/deepseek_decode.py``); they give the eager step's logits and cache
-    to bf16 rounding (the kernels keep the attention's scores and weights in
-    f32 and sum in another order): the prefill's entries equal, the decoded
-    ones and the logits within a few of bf16's 2^-8 relative steps."""
+    (``ops/deepseek_decode.py``), at the attention widths the MLA kernel
+    takes (16 heads, rank 512, rope 64); they give the eager step's logits
+    and cache to bf16 rounding (the kernels keep the attention's scores in
+    f32, round its weights to bf16 before normalising them, and sum in
+    another order): the prefill's entries equal, the decoded ones and the
+    logits within a few of bf16's 2^-8 relative steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs have no CPU form")
-    card = ds.DeepseekV2LM(dataclasses.replace(CFG, dtype="bfloat16"), device="cuda").init_random(SEED).eval()
+    cfg = dataclasses.replace(CFG, dtype="bfloat16", num_heads=16, kv_lora_rank=512, qk_rope_head_dim=64)
+    card = ds.DeepseekV2LM(cfg, device="cuda").init_random(SEED).eval()
     want, want_cache, fed = _one_token_steps(card, 4, grad=True)
     got, got_cache, _ = _one_token_steps(card, 4, grad=False, feed=fed)  # the same tokens: no argmax near a tie
 
